@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where the time of one Self-Forcing Wan2.1-1.3B block goes in the PyTorch
+port, on one CUDA card.
+
+    PYTHONPATH=. python3 exp/torch_op_breakdown.py [--block N]   # from the repo root
+
+Generates blocks 0..N-1 (random weights from a seed, bf16, context_mode
+"rerun", full width and depth), then traces block N (4 denoise forwards and
+the context re-run, over a live cache of (N+1)*4680 tokens) with
+torch.profiler and prints the device time by kernel group and the top
+kernels, the device's idle share over the traced window, and one JSON line.
+Block 6 (the default) is the last block of a 21-frame clip: its attention
+covers the full 32760-token cache.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import re
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import main_path_config, main_path_setup
+from inferix_tpu_torch.ops.flash_attention import flash_attention_prefix
+
+GROUPS = (  # first match wins
+    ("flash_attention_prefix (ours)", re.compile(r"flash_prefix_kernel")),
+    ("gemm (cuBLAS)", re.compile(r"gemm|nvjet|cutlass|xmma|sm90_|cublas", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
+    ("softmax/reduce", re.compile(r"softmax|reduce|logsumexp", re.I)),
+    ("copy/cat/layout", re.compile(r"copy|cat|transpose|permute|index|fill", re.I)),
+)
+
+
+def group_of(name: str) -> str:
+    for label, pat in GROUPS:
+        if pat.search(name):
+            return label
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals (us)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--block", type=int, default=6, help="block to trace, 0..6")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_op_breakdown: no CUDA device")
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+
+    cfg = main_path_config(args.block + 1)
+    gen, xattn, noise, g = main_path_setup(dev, cfg)  # chip_smoke.py's main path
+    cache = gen.init_cache()
+    fpb = cfg.model.num_frame_per_block
+    for bi in range(args.block):
+        gen.denoise_block(cache, xattn, noise[:, bi * fpb:(bi + 1) * fpb], bi * fpb,
+                          generator=g)
+    blk = noise[:, args.block * fpb:]
+    start = args.block * fpb
+    torch.cuda.synchronize()
+
+    launches0 = flash_attention_prefix.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen.denoise_block(cache, xattn, blk, start, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention_prefix.launches - launches0
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name = collections.defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    by_group = collections.defaultdict(float)
+    for name, us in by_name.items():
+        by_group[group_of(name)] += us
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    total = sum(by_name.values())
+
+    live = (args.block + 1) * fpb * gen.frame_seq
+    print(f"block {args.block}: 5 forwards over a live cache of {live} tokens, "
+          f"wall {wall_ms:.3f} ms, kernel launches of ours {launches}", flush=True)
+    print(f"device busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms kernel span: "
+          f"idle share {1 - busy / span:.4f} (of the wall time: "
+          f"{1 - busy / 1e3 / wall_ms:.4f})", flush=True)
+    for label, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {label:32s} {us / 1e3:10.3f} ms  {us / total:7.2%}", flush=True)
+    print("top kernels:", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 1e3:10.3f} ms  {us / total:7.2%}  {name[:110]}", flush=True)
+    print(smi, flush=True)
+    print(json.dumps({
+        "block": args.block, "live_tokens": live, "wall_ms": wall_ms,
+        "device_busy_ms": busy / 1e3, "kernel_span_ms": span / 1e3,
+        "idle_share_of_span": 1 - busy / span,
+        "groups_ms": {k: v / 1e3 for k, v in by_group.items()},
+        "flash_launches": launches, "device": torch.cuda.get_device_name(0)}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

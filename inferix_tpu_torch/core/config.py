@@ -1,0 +1,93 @@
+"""The port's own copy of the engine configuration.
+
+Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `RuntimeConfig`,
+`EngineConfig`, `tiny_test_config`) with the same names and defaults, cut to
+the fields this port reads. It is a copy, not an import: the port never
+imports the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    """Causal DiT hyperparameters; defaults are Wan2.1-T2V-1.3B."""
+
+    model_type: str = "t2v"
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    text_len: int = 512
+    in_dim: int = 16
+    dim: int = 1536
+    ffn_dim: int = 8960
+    freq_dim: int = 256
+    text_dim: int = 4096
+    out_dim: int = 16
+    num_heads: int = 12
+    num_layers: int = 30
+    local_attn_size: int = -1  # frames; -1 = global window (the only one ported)
+    cross_attn_norm: bool = True
+    eps: float = 1e-6
+    rope_max_seq_len: int = 1024
+    fuse_qkv: bool = True
+    num_frame_per_block: int = 3
+    max_attention_frames: int = 21
+
+    @property
+    def head_dim(self) -> int:
+        assert self.dim % self.num_heads == 0
+        return self.dim // self.num_heads
+
+    @property
+    def attention_window_frames(self) -> int:
+        if self.local_attn_size == -1:
+            return self.max_attention_frames
+        return self.local_attn_size
+
+
+@dataclasses.dataclass
+class RuntimeConfig:
+    denoising_step_list: Tuple[int, ...] = (1000, 750, 500, 250)
+    warp_denoising_step: bool = True
+    context_noise: int = 0
+    # "rerun": extra forward on the clean x0 at t=context_noise persists the
+    # block's KV; "last_step": the final denoise step persists it instead.
+    context_mode: str = "rerun"
+    timestep_shift: float = 8.0
+    num_frames: int = 21
+    latent_channels: int = 16
+    latent_height: int = 60
+    latent_width: int = 104
+    batch_size: int = 1
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+
+
+def tiny_test_config() -> EngineConfig:
+    """The same small shapes as `inferix_tpu.core.config.tiny_test_config`."""
+    cfg = EngineConfig()
+    cfg.model = ModelConfig(
+        dim=128,
+        ffn_dim=256,
+        num_heads=4,
+        num_layers=2,
+        freq_dim=32,
+        text_dim=64,
+        text_len=16,
+        num_frame_per_block=1,
+        max_attention_frames=6,
+        rope_max_seq_len=64,
+    )
+    cfg.runtime = RuntimeConfig(
+        num_frames=5,
+        latent_channels=16,
+        latent_height=8,
+        latent_width=8,
+        denoising_step_list=(1000, 500),
+    )
+    return cfg

@@ -1,0 +1,282 @@
+"""Block-causal Wan DiT in PyTorch (port of
+`inferix_tpu/models/wan/causal_dit.py`, the bf16 single-device branches).
+
+Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
+offset, self-attention over the KV cache, cached text cross-attention, the
+GELU-tanh FFN, the modulated output head and unpatchify. Latents are
+channels-last `[B, F, H, W, C]`; parameters keep the JAX tree with layers
+stacked on a leading [L] axis (`utils/params.py`). fp32 promotion points
+mirror the JAX package: time embeddings and modulation in fp32, norms
+accumulate in fp32, attention softmax in fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ...core.config import ModelConfig
+from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
+                              valid_mask, write_block)
+from ...ops.attention import cache_attention
+from ...ops.norms import layer_norm, rms_norm
+from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
+
+Params = Dict[str, Any]
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b with w stored [in, out], in x's dtype."""
+    return F.linear(x, p["w"].to(x.dtype).t(), p["b"].to(x.dtype))
+
+
+def fuse_qkv_params(params: Params) -> Params:
+    """Merge the stacked self-attention q/k/v projections into one [D, 3D]
+    projection (numerically identical: the output is split back before the
+    q/k norms). No-op if the tree is already fused."""
+    blocks = params["blocks"]
+    sa = blocks["self_attn"]
+    if "qkv" in sa:
+        return params
+    fused = {n: torch.cat([sa[p][n] for p in ("q", "k", "v")], dim=-1)
+             for n in ("w", "b")}
+    new_sa = {k: v for k, v in sa.items() if k not in ("q", "k", "v")}
+    new_sa["qkv"] = fused
+    return {**params, "blocks": {**blocks, "self_attn": new_sa}}
+
+
+def layer_params(blocks: Params, layer: int) -> Params:
+    """One layer's parameters: views `leaf[layer]` of the stacked tree."""
+    return {k: layer_params(v, layer) if isinstance(v, dict) else v[layer]
+            for k, v in blocks.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTGeometry:
+    frames: int          # frames per forward call (block size)
+    latent_h: int
+    latent_w: int
+    patch_size: Tuple[int, int, int]
+
+    @property
+    def grid_h(self) -> int:
+        return self.latent_h // self.patch_size[1]
+
+    @property
+    def grid_w(self) -> int:
+        return self.latent_w // self.patch_size[2]
+
+    @property
+    def frame_seq(self) -> int:
+        return self.grid_h * self.grid_w
+
+    @property
+    def tokens(self) -> int:
+        return self.frames * self.frame_seq
+
+
+def make_kv_spec(cfg: ModelConfig, batch: int, latent_h: int, latent_w: int,
+                 dtype: torch.dtype = torch.bfloat16) -> KVCacheSpec:
+    if cfg.local_attn_size != -1:
+        raise NotImplementedError(
+            "the rolling-window cache is not ported yet (local_attn_size=-1 only)")
+    frame_seq = DiTGeometry(1, latent_h, latent_w, cfg.patch_size).frame_seq
+    return KVCacheSpec(
+        num_layers=cfg.num_layers, batch=batch,
+        max_tokens=cfg.attention_window_frames * frame_seq,
+        num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim, dtype=dtype)
+
+
+def patch_embed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """[B, F, H, W, C] -> tokens [B, F*gh*gw, dim], frame-major."""
+    b, f, h, w, c = x.shape
+    pt, ph, pw = cfg.patch_size
+    assert f % pt == 0 and h % ph == 0 and w % pw == 0
+    x = x.reshape(b, f // pt, pt, h // ph, ph, w // pw, pw, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    x = x.reshape(b, (f // pt) * (h // ph) * (w // pw), pt * ph * pw * c)
+    return linear(params["patch_embedding"], x)
+
+
+def unpatchify(x: torch.Tensor, cfg: ModelConfig, geo: DiTGeometry) -> torch.Tensor:
+    """tokens [B, F*gh*gw, pt*ph*pw*out] -> [B, F, H, W, out]."""
+    b = x.shape[0]
+    pt, ph, pw = cfg.patch_size
+    x = x.reshape(b, geo.frames // pt, geo.grid_h, geo.grid_w, pt, ph, pw,
+                  cfg.out_dim)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(b, geo.frames, geo.latent_h, geo.latent_w, cfg.out_dim)
+
+
+def time_embeddings(params: Params, cfg: ModelConfig,
+                    t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t: [B, F] timesteps -> (e [B, F, dim], e0 [B, F, 6, dim]) fp32."""
+    emb = sinusoidal_embedding_1d(cfg.freq_dim, t.float())
+    te = params["time_embedding"]
+    e = linear(te["fc2"], F.silu(linear(te["fc1"], emb)))
+    e0 = linear(params["time_projection"], F.silu(e))
+    b, f = t.shape
+    return e, e0.reshape(b, f, 6, cfg.dim)
+
+
+def embed_text(params: Params, cfg: ModelConfig, context: torch.Tensor) -> torch.Tensor:
+    """Text-encoder features [B, text_len, text_dim] -> [B, text_len, dim]."""
+    te = params["text_embedding"]
+    return linear(te["fc2"], F.gelu(linear(te["fc1"], context), approximate="tanh"))
+
+
+def precompute_crossattn_cache(params: Params, cfg: ModelConfig,
+                               context: torch.Tensor) -> CrossAttnCache:
+    """Project the text context through every layer's cross-attention K/V
+    once per prompt: [L, B, text_len, H, D] each."""
+    ctx = embed_text(params, cfg, context)
+    b, s, _ = ctx.shape
+    ks, vs = [], []
+    for lid in range(cfg.num_layers):
+        ca = layer_params(params["blocks"]["cross_attn"], lid)
+        ks.append(rms_norm(linear(ca["k"], ctx), ca["norm_k"]["w"], cfg.eps)
+                  .reshape(b, s, cfg.num_heads, cfg.head_dim))
+        vs.append(linear(ca["v"], ctx).reshape(b, s, cfg.num_heads, cfg.head_dim))
+    return CrossAttnCache(k=torch.stack(ks), v=torch.stack(vs))
+
+
+def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+              frames: int) -> torch.Tensor:
+    """Per-frame AdaLN: x [B, S, C] with S = frames*frame_seq; shift/scale
+    [B, F, C] fp32 broadcast over each frame's tokens, in x's dtype."""
+    b, s, c = x.shape
+    x = x.reshape(b, frames, s // frames, c)
+    out = x * (1.0 + scale[:, :, None, :]).to(x.dtype) \
+        + shift[:, :, None, :].to(x.dtype)
+    return out.reshape(b, s, c)
+
+
+def _gate(x: torch.Tensor, gate: torch.Tensor, frames: int) -> torch.Tensor:
+    b, s, c = x.shape
+    out = x.reshape(b, frames, s // frames, c) * gate[:, :, None, :].to(x.dtype)
+    return out.reshape(b, s, c)
+
+
+def block_forward(
+    block: Params,
+    cfg: ModelConfig,
+    spec: KVCacheSpec,
+    x: torch.Tensor,              # [B, S, C]
+    e0: torch.Tensor,             # [B, F, 6, C] fp32
+    angles: torch.Tensor,         # [S, head_dim//2]
+    layer_cache: Tuple[torch.Tensor, torch.Tensor],  # this layer's [B, Smax, H, D] k, v
+    xattn_k: torch.Tensor,        # [B, text_len, H, D]
+    xattn_v: torch.Tensor,
+    current_start: int,           # token offset of this block
+    kv_mask: torch.Tensor,        # [Smax] bool: valid slots after the write
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One transformer layer. Writes the block's K/V into `layer_cache` in
+    place, then attends over the cache's live prefix."""
+    b, s, c = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    frames = e0.shape[1]
+
+    # modulation is per frame: six [B, F, C] fp32 vectors
+    mod = block["modulation"][None] + e0
+    shift_msa, scale_msa, gate_msa = mod[:, :, 0], mod[:, :, 1], mod[:, :, 2]
+    shift_mlp, scale_mlp, gate_mlp = mod[:, :, 3], mod[:, :, 4], mod[:, :, 5]
+
+    # --- self-attention over the KV cache ---
+    sa = block["self_attn"]
+    h_in = _modulate(layer_norm(x, eps=cfg.eps), shift_msa, scale_msa, frames)
+    if "qkv" in sa:
+        q_p, k_p, v_p = linear(sa["qkv"], h_in).chunk(3, dim=-1)
+    else:
+        q_p, k_p, v_p = (linear(sa[n], h_in) for n in ("q", "k", "v"))
+    # qk-norm: RMS over the whole width, before the head split and rope
+    q = rms_norm(q_p, sa["norm_q"]["w"], cfg.eps)
+    k = rms_norm(k_p, sa["norm_k"]["w"], cfg.eps)
+    v = v_p.reshape(b, s, nh, hd)
+    q = apply_rope(q.reshape(b, s, nh, hd), angles)
+    k = apply_rope(k.reshape(b, s, nh, hd), angles)
+    k_c, v_c = write_block(spec, layer_cache[0], layer_cache[1], k, v,
+                           current_start)
+    attn = cache_attention(q, k_c, v_c, kv_mask=kv_mask,
+                           logical_kv=spec.max_tokens)
+    x = x + _gate(linear(sa["o"], attn.reshape(b, s, c)), gate_msa, frames)
+
+    # --- cross-attention over the cached text K/V ---
+    ca = block["cross_attn"]
+    if cfg.cross_attn_norm:
+        h_x = layer_norm(x, block["norm3"]["w"], block["norm3"]["b"], cfg.eps)
+    else:
+        h_x = layer_norm(x, eps=cfg.eps)
+    cq = rms_norm(linear(ca["q"], h_x), ca["norm_q"]["w"], cfg.eps)
+    xa = cache_attention(cq.reshape(b, s, nh, hd), xattn_k, xattn_v)
+    x = x + linear(ca["o"], xa.reshape(b, s, c))
+
+    # --- FFN: fc2(gelu_tanh(fc1(h))), the float-weight quantized_ffn ---
+    h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
+    ffn = block["ffn"]
+    y = linear(ffn["fc2"], F.gelu(linear(ffn["fc1"], h_f), approximate="tanh"))
+    x = x + _gate(y, gate_mlp, frames)
+    return x, (k_c, v_c)
+
+
+def head_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                 e: torch.Tensor) -> torch.Tensor:
+    """Output head with 2-way modulation; e: [B, F, C] fp32."""
+    mod = params["head"]["modulation"][None, None] + e[:, :, None, :]
+    h = _modulate(layer_norm(x, eps=cfg.eps), mod[:, :, 0], mod[:, :, 1],
+                  e.shape[1])
+    return linear(params["head"]["head"], h)
+
+
+class DiTStatics(NamedTuple):
+    cfg: ModelConfig
+    spec: KVCacheSpec
+    geo: DiTGeometry
+
+
+def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
+                 latent_w: int, dtype: torch.dtype = torch.bfloat16) -> DiTStatics:
+    return DiTStatics(cfg=cfg,
+                      spec=make_kv_spec(cfg, batch, latent_h, latent_w, dtype),
+                      geo=DiTGeometry(frames, latent_h, latent_w, cfg.patch_size))
+
+
+def dit_forward_inference(
+    params: Params,
+    statics: DiTStatics,
+    rope_tables: RopeTables,
+    x: torch.Tensor,             # [B, F, H, W, C] noisy latents of this block
+    t: torch.Tensor,             # [B, F] timesteps
+    xattn: CrossAttnCache,
+    cache: KVCache,              # [L, B, Smax, H, D] x2, updated in place
+    current_start: int,          # token offset of the block
+    need_output: bool = True,
+) -> Tuple[Optional[torch.Tensor], KVCache]:
+    """One forward of the causal DiT over a block. Returns (flow
+    [B, F, H, W, out_dim], cache).
+
+    Every call writes the block's K/V into the cache slots
+    [current_start, current_start + tokens) of each layer, in place. The JAX
+    package's denoise steps run `persist_kv=False` and attend over a
+    functional copy instead; the port needs no such mode, because each later
+    denoise step and then the context re-run (or the persisting last step)
+    rewrite the same slots, in every layer before that layer reads them, so
+    the cache after a block is the same. need_output=False (the context
+    re-run) skips the head and returns flow None.
+    """
+    cfg, spec, geo = statics.cfg, statics.spec, statics.geo
+    tokens = patch_embed(params, cfg, x)
+    e, e0 = time_embeddings(params, cfg, t)
+    angles = rope_angles(rope_tables, geo.frames, geo.grid_h, geo.grid_w,
+                         current_start // geo.frame_seq)
+    kv_mask = valid_mask(spec, current_start + geo.tokens, device=x.device)
+    h = tokens
+    for lid in range(cfg.num_layers):
+        h, _ = block_forward(
+            layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
+            (cache.k[lid], cache.v[lid]), xattn.k[lid], xattn.v[lid],
+            current_start, kv_mask)
+    if not need_output:
+        return None, cache
+    return unpatchify(head_forward(params, cfg, h, e), cfg, geo), cache

@@ -1,0 +1,101 @@
+"""Model parameters for the port: carried across from the JAX package's tree,
+or drawn from a seed.
+
+The tree is the JAX package's own layout (`causal_dit.py:init_params`):
+nested dicts whose transformer-block leaves are stacked on a leading [L]
+axis, linear weights stored [in, out]. The port keeps that layout, so a layer
+is a view `leaf[l]` and a checkpoint converted for one package fits both.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..core.config import ModelConfig
+from ..core.device import resolve_device
+
+Params = Dict[str, Any]
+
+# Subtrees the JAX package keeps in float32 whatever the model dtype: the
+# time embedding MLP, its projection to the six modulation vectors, and the
+# modulation tables themselves.
+_FP32_KEYS = ("time_embedding", "time_projection", "modulation")
+
+
+def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Turn the JAX parameter tree (nested dicts of numpy arrays, e.g.
+    `jax.tree.map(np.asarray, params)`) into the port's tree of tensors on
+    `device`. Floating leaves become `dtype`, except the float32 subtrees
+    above. Works for stacked layers and for unfused or fused (`qkv`)
+    self-attention projections alike."""
+    dev = resolve_device(device)
+
+    def convert(node, fp32: bool):
+        if isinstance(node, dict):
+            return {k: convert(v, fp32 or k in _FP32_KEYS) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 from JAX
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(np.array(arr))  # a writable copy
+        if t.is_floating_point():
+            t = t.to(torch.float32 if fp32 else dtype)
+        return t.to(dev)
+
+    return convert(tree, False)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Random parameters from the same distributions as the JAX package's
+    `init_params` (not the same bits): linear weights U(-1/sqrt(in),
+    1/sqrt(in)) drawn in float32 and cast, zero biases, unit norm weights,
+    modulation N(0, 1)/sqrt(dim) in float32. `generator` must live on
+    `device`."""
+    if cfg.model_type != "t2v":
+        raise NotImplementedError("only the t2v model is ported")
+    dev = resolve_device(device)
+    d, nl = cfg.dim, cfg.num_layers
+
+    def uniform(shape, bound, out_dtype):
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        return w.uniform_(-bound, bound, generator=generator).to(out_dtype)
+
+    def linear(in_dim, out_dim, out_dtype=dtype, layers=()):
+        return {"w": uniform((*layers, in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                             out_dtype),
+                "b": torch.zeros((*layers, out_dim), dtype=out_dtype, device=dev)}
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    def modulation(*shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev) / math.sqrt(d)
+
+    L = (nl,)
+    attn = lambda: {**{n: linear(d, d, layers=L) for n in ("q", "k", "v", "o")},
+                    "norm_q": {"w": ones(nl, d)}, "norm_k": {"w": ones(nl, d)}}
+    patch = math.prod(cfg.patch_size)
+    return {
+        "patch_embedding": linear(patch * cfg.in_dim, d),
+        "text_embedding": {"fc1": linear(cfg.text_dim, d), "fc2": linear(d, d)},
+        "time_embedding": {"fc1": linear(cfg.freq_dim, d, torch.float32),
+                           "fc2": linear(d, d, torch.float32)},
+        "time_projection": linear(d, 6 * d, torch.float32),
+        "blocks": {
+            "self_attn": attn(),
+            "cross_attn": attn(),
+            "norm3": {"w": ones(nl, d),
+                      "b": torch.zeros(nl, d, dtype=dtype, device=dev)},
+            "ffn": {"fc1": linear(d, cfg.ffn_dim, layers=L),
+                    "fc2": linear(cfg.ffn_dim, d, layers=L)},
+            "modulation": modulation(nl, 6, d),
+        },
+        "head": {"head": linear(d, patch * cfg.out_dim),
+                 "modulation": modulation(2, d)},
+    }

@@ -1,0 +1,117 @@
+"""The plain version of the port's flash-attention kernel against the JAX
+package's Pallas kernel, run in interpret mode on the CPU as
+tests/test_flash_attention.py runs it.
+
+Both take float32 inputs drawn with numpy from a seed. The port's plain
+version repeats the CUDA kernel's arithmetic (exp2 domain, fixedm or runmax,
+max(l, 1e-30), LSE / log2(e)); it differs from the Pallas kernel only in the
+order of its float32 sums, hence 1e-5. The CUDA kernel itself is held
+against this plain version on the card by chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferix_tpu.ops.flash_attention import flash_attention_prefix as jax_flash
+from inferix_tpu_torch import _build
+from inferix_tpu_torch.ops import flash_attention as tfa
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+B2_START, B2_END = [0, 37], [500, 611]
+
+
+def _inputs(b, seed=0, sq=24, skv=640, h=2, d=128):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d))]
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+@pytest.mark.parametrize("kv_start,kv_len", [(0, 640), (0, 300), (0, 1), (200, 517)])
+def test_reference_matches_pallas_kernel(kv_start, kv_len, softmax):
+    """Bounds: the whole cache, a prefix, one key, and an unaligned span
+    starting past 0."""
+    q, k, v = _inputs(1)
+    want, want_lse = jax_flash(
+        *map(jnp.asarray, (q, k, v)), jnp.int32(kv_len), kv_start,
+        return_lse=True, interpret=True, q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_reference(
+        *map(torch.from_numpy, (q, k, v)), kv_len, kv_start, softmax=softmax,
+        return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+def test_reference_empty_span(softmax):
+    """An empty span gives out 0 and the LSE of the 1e-30 floor (plus the
+    -1e30 initial max under runmax). The Pallas kernel agrees on the LSE in
+    both modes and on the output under fixedm; under runmax it averages the
+    masked block uniformly instead (its masked logits equal its initial
+    max, so exp2(s - m) = 1). No caller attends over an empty span: the
+    cache always holds the block being denoised."""
+    q, k, v = _inputs(1)
+    want, want_lse = jax_flash(
+        *map(jnp.asarray, (q, k, v)), jnp.int32(130), 130,
+        return_lse=True, interpret=True, q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_reference(
+        *map(torch.from_numpy, (q, k, v)), 130, 130, softmax=softmax,
+        return_lse=True)
+    assert not got.any()
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+    if softmax == "fixedm":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+def test_reference_per_row_bounds(softmax):
+    """B=2 with a different span per batch row ([B] bounds)."""
+    q, k, v = _inputs(2, seed=1)
+    want, want_lse = jax_flash(
+        *map(jnp.asarray, (q, k, v)), jnp.asarray(B2_END, jnp.int32),
+        jnp.asarray(B2_START, jnp.int32), return_lse=True, interpret=True,
+        q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_reference(
+        *map(torch.from_numpy, (q, k, v)), torch.tensor(B2_END),
+        torch.tensor(B2_START), softmax=softmax, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+def test_wrapper_on_cpu_takes_the_plain_version():
+    """On CPU tensors the wrapper is the plain version and counts no launch;
+    the mask wrapper reads the span end from the mask's population count."""
+    q, k, v = map(torch.from_numpy, _inputs(1, seed=2))
+    before = tfa.flash_attention_prefix.launches
+    got = tfa.flash_attention_prefix(q, k, v, 300, softmax="runmax")
+    assert torch.equal(got, tfa.flash_attention_prefix_reference(q, k, v, 300, softmax="runmax"))
+    masked = tfa.flash_attention(q, k, v, kv_mask=torch.arange(640) < 300)
+    assert torch.equal(masked, tfa.flash_attention_prefix_reference(q, k, v, 300))
+    assert tfa.flash_attention_prefix.launches == before
+    with pytest.raises(ValueError, match="softmax"):
+        tfa.flash_attention_prefix(q, k, v, 300, softmax="exact")
+
+
+def test_bounds_tensor_for_the_kernel():
+    """The [B, 2] int32 (kv_start, kv_end) table the kernel reads: ints are
+    broadcast over the batch, [B] tensors give a bound per row."""
+    got = tfa._bounds_tensor(0, torch.tensor([3, 5]), 2, "cpu")
+    assert got.dtype == torch.int32 and got.tolist() == [[0, 3], [0, 5]]
+    got = tfa._bounds_tensor(torch.tensor(7), 9, 3, "cpu")
+    assert got.tolist() == [[7, 9]] * 3
+    with pytest.raises(ValueError, match="scalar or"):
+        tfa._bounds_tensor(0, torch.tensor([1, 2, 3]), 2, "cpu")
+
+
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
+    build stops with an error that says so."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_BIN_DIRS", (str(tmp_path / "cuda" / "bin"),))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library("flash_attention_prefix")
+    assert not (tmp_path / "build").exists()
