@@ -6,18 +6,30 @@
 Phases, each timed on a line of its own:
   1. device   - require a CUDA card; print its name and power limit
                 (nvidia-smi), the torch, CUDA and nvcc versions.
-  2. build    - build every kernel of the main path from `csrc/` with nvcc
-                (-Xptxas -v output above the build time).
-  3. kernels  - each kernel against its plain PyTorch version on the card, at
-                the main path's shapes, with the stated tolerance; its time
-                (CUDA events, median of 10 after warm-up) beside its bound,
-                the plain version's time and one library call's time.
+  2. build    - build every kernel library from `csrc/`, one nvcc per source,
+                all started together (-Xptxas -v output above the build time).
+  3. kernels  - the flash-attention kernel against its plain PyTorch version
+                on the card, at the main path's shapes, with the stated
+                tolerance; its time (CUDA events, median of 10 after warm-up)
+                beside its bound, the plain version's time and one library
+                call's time.
   4. main     - Self-Forcing Wan2.1-T2V-1.3B semi-AR generation at full width
                 and depth (random weights from a seed, random text features),
                 bf16, context_mode "rerun", over N blocks of 3 latent frames
                 (default 2) on a 21-frame cache; launch counts per block, the
                 output and the cache checked; then one layer and one whole
                 forward with the kernel against the same with plain attention.
+  5. w8a8 kernels - the int8 GEMM, the act-quant and the LN+modulate+quant
+                kernels, each against its plain version at every main-path
+                shape of the W8A8 path and a few edge cases, then timed as
+                in phase 3.
+  6. w8a8 main - the same generation with W8A8 linears (int8 per-channel
+                weights from the same seed, per-token int8 activations, the
+                fused act-quant prologues): launch counts of all four kernels
+                per block and at text encode, the output and the cache
+                checked; one layer and one whole forward with every kernel
+                against the same with every plain version; the W8A8 flow
+                against the bf16 one, printed for information.
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -25,6 +37,7 @@ non-zero and prints no such line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -33,23 +46,35 @@ import time
 from unittest import mock
 
 import torch
+import torch.nn.functional as F
 
 import inferix_tpu_torch.ops.attention as attention_mod
+import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
 from inferix_tpu_torch.core.config import EngineConfig
 from inferix_tpu_torch.models.wan.causal_dit import (
     dit_forward_inference, layer_params, block_forward, patch_embed,
     time_embeddings)
 from inferix_tpu_torch.kvcache.cache import valid_mask
+from inferix_tpu_torch.ops.act_quant import (
+    adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
+    ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
+    quantize_rows_int8_reference)
 from inferix_tpu_torch.ops.flash_attention import (
     flash_attention_prefix, flash_attention_prefix_reference)
 from inferix_tpu_torch.ops.rope import rope_angles
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
+from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
+from inferix_tpu_torch.quant.kernels import (
+    int8_matmul, int8_matmul_reference, quantize_act_int8_per_token,
+    quantize_weight_int8)
 from inferix_tpu_torch.utils.params import init_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -71,6 +96,32 @@ LAYER_RTOL = 2e-2       # ||update_kernel - update_plain|| / ||update_plain||
 FORWARD_RTOL = 5e-2     # ||flow_kernel - flow_plain|| / ||flow_plain||
 
 SQ, H, D, SKV = 4680, 12, 128, 32760  # one 3-frame block over a 21-frame cache
+SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of each timed call
+
+# W8A8 kernels against their plain versions, bf16 activations on the card.
+# The int8 GEMM sums integers exactly and both versions apply the same _rn
+# epilogue: bit-equal. The act-quant kernel with act None repeats the plain
+# arithmetic exactly: equal codes and scales. With an activation, or a
+# LayerNorm whose f32 sums the two versions take in other orders, a value at
+# a rounding boundary of the bf16 rounding or of the code may round the other
+# way: codes within 1, scales within one bf16 ulp (2^-7 relative) of the
+# row's absmax, and at most FLIP_SHARE of the codes differing. A rounding
+# point moved or dropped in the kernel (the modulate's two ops contracted
+# into one FMA, a missing bf16 rounding) shifts values by a bf16 ulp in a
+# large share of the elements and flips codes by 1 in about 1e-2 of them;
+# the boundary cases of the summation order flip about 1e-6 (H100 SXM).
+CODE_TOL = 1
+SCALE_RTOL = 2.0 ** -7
+FLIP_SHARE = 1e-5
+# One layer / one forward with every W8A8 kernel against every plain version
+# (flash attention as above, and the prologue code flips carried through).
+W8A8_LAYER_RTOL = 2e-2
+W8A8_FORWARD_RTOL = 5e-2
+DIM, FFN, TEXT = 1536, 8960, 512
+# (name, M, K, N, calls a layer): the six linears of one W8A8 layer at M = one
+# block's tokens; the text K/V projections run once a prompt at M = 512
+LAYER_GEMMS = (("qkv", SQ, DIM, 3 * DIM, 1), ("o/cross_q/cross_o", SQ, DIM, DIM, 3),
+               ("fc1", SQ, DIM, FFN, 1), ("fc2", SQ, FFN, DIM, 1))
 
 
 def phase(name: str, t0: float) -> None:
@@ -78,7 +129,12 @@ def phase(name: str, t0: float) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of `iters` CUDA-event timings of fn() after `warmup` calls."""
+    """Median of `iters` CUDA-event timings of fn() after `warmup` calls.
+    Each timed call is queued behind a device-side sleep of ~2 ms, so the
+    host has enqueued the start event, fn's kernels and the end event before
+    the device reaches them: the interval is the device time of fn's
+    kernels, not the host's launch overhead (Python checks, ctypes), which
+    is larger than the device time of a small kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -86,6 +142,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -200,19 +257,28 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def main_path_config(blocks: int) -> EngineConfig:
-    """Wan2.1-T2V-1.3B, 480x832, bf16, rerun, over `blocks` 3-frame blocks."""
+def main_path_config(blocks: int, w8a8: bool = False) -> EngineConfig:
+    """Wan2.1-T2V-1.3B, 480x832, bf16, rerun, over `blocks` 3-frame blocks;
+    w8a8: the JAX package's headline serving recipe (`bench.py:229-234`,
+    int8 per-channel linears, bf16 KV cache) with the fused act-quant."""
     cfg = EngineConfig()
     cfg.runtime.num_frames = cfg.model.num_frame_per_block * blocks
+    if w8a8:
+        q = cfg.quant
+        q.enabled, q.dtype, q.granularity = True, "int8", "per_channel"
+        q.quantize_kv_cache = False
     return cfg
 
 
 def main_path_setup(dev: torch.device, cfg: EngineConfig):
-    """Random weights, text K/V and initial noise from seed 0. Returns
+    """Random weights, text K/V and initial noise from seed 0 (the same
+    weights for bf16 and W8A8: a W8A8 config quantizes them). Returns
     (SemiARGenerator, text K/V, noise [1, F, H, W, C], torch.Generator)."""
     m, r = cfg.model, cfg.runtime
     g = torch.Generator(device=dev).manual_seed(0)
     params = init_params(m, g, device=dev, dtype=torch.bfloat16)
+    if cfg.quant.enabled:
+        params = quantize_params(params, cfg.quant)
     gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev)
     context = torch.randn(1, m.text_len, m.text_dim, generator=g,
                           device=dev).to(torch.bfloat16)
@@ -311,6 +377,373 @@ def main_path_phase(dev: torch.device, cfg: EngineConfig) -> int:
     return launches
 
 
+def gemm_times(m: int, k: int, n: int, out_bytes: int = 2):
+    """(ops_ms, bytes_ms) of the int8 GEMM with its epilogue and bias: its
+    operations at the int8 peak, its bytes (each operand read once, the
+    output written once) at the memory rate."""
+    nbytes = m * k + n * k + m * n * out_bytes + 4 * (m + n) + n * out_bytes
+    return 2e3 * m * n * k / PEAK_INT8_OPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def bound_of(ops_ms: float, bytes_ms: float):
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def quant_bound(m: int, k: int, k_out: int, extra_bytes: int = 0) -> float:
+    """bound_ms of a row quantizer: bf16 [m, k] read once, s8 [m, k_out] and
+    f32 [m] written once (+ extra_bytes of modulation / affine input)."""
+    return (2.0 * m * k + m * k_out + 4 * m + extra_bytes) / PEAK_BYTES_PER_S * 1e3
+
+
+def path_gemm_operands(dev, g, m, k, n):
+    """Operands with the main path's statistics: per-token codes of a
+    normal activation, per-channel codes of a U(-1/sqrt(K), 1/sqrt(K))
+    weight (as init_params draws it), a bf16 bias; the weight K-contiguous."""
+    x_q, xs = quantize_act_int8_per_token(
+        torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16))
+    w = (torch.rand(k, n, generator=g, device=dev) * 2 - 1) / k ** 0.5
+    w_q, ws = quantize_weight_int8(w.to(torch.bfloat16))
+    b = (torch.randn(n, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    return x_q, w_q.t().contiguous().t(), xs, ws, b
+
+
+def gemm_operands(dev, g, m, k, n, per_token=True, per_channel=True,
+                  out_dtype=torch.bfloat16, bias=True):
+    """Uniformly random int8 codes (every magnitude up to 127: the largest
+    sums), scales and bias; the weight K-contiguous as the generator holds
+    it (an [N, K] tensor seen as [K, N])."""
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8).t()
+    xs = torch.rand(m if per_token else 1, 1, generator=g, device=dev) * 0.05 + 1e-3
+    ws = torch.rand(n if per_channel else 1, generator=g, device=dev) * 0.02 + 1e-4
+    b = (torch.randn(n, generator=g, device=dev) * 0.1).to(out_dtype) if bias else None
+    return x, w, xs, ws, b
+
+
+def code_diff(got, want):
+    """(max |code diff|, share of codes that differ, max scale rel diff,
+    max |dequantized diff|) of two (codes, scales) pairs."""
+    (gq, gs), (wq, ws) = got, want
+    d = (gq.int() - wq.int()).abs()
+    srel = ((gs - ws).abs() / ws).max().item()
+    deq = (gq.float() * gs - wq.float() * ws).abs().max().item()
+    return d.max().item(), (d > 0).float().mean().item(), srel, deq
+
+
+def check_quant_case(name, got, want, exact):
+    dmax, share, srel, deq = code_diff(got, want)
+    ok = ((dmax == 0 and srel == 0) if exact else
+          (dmax <= CODE_TOL and share <= FLIP_SHARE and srel <= SCALE_RTOL))
+    print(f"w8a8 case {name}: max |code diff| {dmax} (tol {0 if exact else CODE_TOL}), "
+          f"share of codes that differ {share:.3e} (tol {0 if exact else FLIP_SHARE:g}), "
+          f"max scale rel diff {srel:.3e} "
+          f"(tol {0 if exact else SCALE_RTOL:g}), max |dequantized diff| {deq:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok, deq
+
+
+def expect_raise(label, exc, fn):
+    try:
+        fn()
+    except exc as e:
+        print(f"w8a8 guard {label}: {type(e).__name__} ok", flush=True)
+        return
+    raise AssertionError(f"{label}: the wrapper took an operand it cannot take")
+
+
+def w8a8_kernel_phase(dev: torch.device) -> list:
+    """The three W8A8 kernels against their plain versions, then timed."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    counters = (int8_matmul, quantize_rows_int8, adaln_quantize_rows_int8,
+                ln_quantize_rows_int8)
+    failed = []
+
+    # --- kernel 8: the int8 GEMM, bit-equal to its plain version
+    gemm_cases = [(nm, m, k, n, {}) for nm, m, k, n, _ in LAYER_GEMMS] + [
+        ("text_kv", TEXT, DIM, DIM, {}), ("ragged_m4681", SQ + 1, DIM, 3 * DIM, {}),
+        ("m1", 1, DIM, DIM, {}),
+        ("per_tensor", SQ, DIM, DIM, dict(per_token=False, per_channel=False)),
+        ("f32_out", SQ, DIM, DIM, dict(out_dtype=torch.float32)),
+        ("no_bias_k16", 100, 16, 8, dict(bias=False))]
+    gemm_err = 0.0
+    for nm, m, k, n, kw in gemm_cases:
+        x, w, xs, ws, b = gemm_operands(dev, g, m, k, n, **kw)
+        od = kw.get("out_dtype", torch.bfloat16)
+        out = int8_matmul(x, w, xs, ws, out_dtype=od, bias=b)
+        torch.cuda.synchronize()
+        ref = int8_matmul_reference(x, w, xs, ws, out_dtype=od, bias=b)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = err == 0 and out.dtype == od and torch.isfinite(out).all().item()
+        print(f"w8a8 case int8_matmul {nm} [{m}x{k}]x[{k}x{n}] -> {od}: max_abs "
+              f"{err:.3e} (tol 0) {'ok' if ok else 'FAIL'}", flush=True)
+        gemm_err = max(gemm_err, err)
+        if not ok:
+            failed.append(f"int8_matmul {nm}")
+
+    # --- kernel 5: the act-quant kernel, all four acts
+    act_cases = (("o_in", SQ, DIM, None), ("text_in", TEXT, DIM, None),
+                 ("m1", 1, DIM, None), ("fc2_in_gelu", SQ, FFN, "gelu"),
+                 ("ragged_gelu", SQ + 1, FFN, "gelu"),
+                 ("gelu_exact", SQ, FFN, "gelu_exact"),
+                 ("silu_mul", SQ, 2 * FFN, "silu_mul"))
+    act_err = 0.0
+    for nm, m, k, act in act_cases:
+        x = (torch.randn(m, k, generator=g, device=dev) * 2).to(torch.bfloat16)
+        x[0] = 0  # an all-zero row takes the 1e-8 floor
+        got = quantize_rows_int8(x, act=act)
+        torch.cuda.synchronize()
+        ok, deq = check_quant_case(f"quantize_rows_int8 {nm} [{m}x{k}] act {act}",
+                                   got, quantize_rows_int8_reference(x, act), act is None)
+        act_err = max(act_err, deq)
+        if not ok:
+            failed.append(f"quantize_rows_int8 {nm}")
+
+    # --- kernels 6 and 7: LN + modulate, LN + affine, plain LN
+    ln_err = 0.0
+    for nm, b, f, s in (("adaln_qkv_fc1", 1, 3, SQ), ("adaln_b2", 2, 2, 3120)):
+        x = (torch.randn(b, s, DIM, generator=g, device=dev) * 3 + 0.5).to(torch.bfloat16)
+        mod = torch.randn(b, f, 6, DIM, generator=g, device=dev) * 0.5
+        got = adaln_quantize_rows_int8(x, mod[:, :, 0], mod[:, :, 1])
+        torch.cuda.synchronize()
+        want = adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1])
+        ok, deq = check_quant_case(f"adaln_quantize_rows_int8 {nm} [{b}x{s}x{DIM}] "
+                                   f"{f} frames", got, want, False)
+        ln_err = max(ln_err, deq)
+        if not ok:
+            failed.append(f"adaln {nm}")
+    w3 = (1 + 0.1 * torch.randn(DIM, generator=g, device=dev)).to(torch.bfloat16)
+    b3 = (0.1 * torch.randn(DIM, generator=g, device=dev)).to(torch.bfloat16)
+    for nm, m, affine in (("cross_q_affine", SQ, True), ("plain", SQ, False),
+                          ("m1_affine", 1, True)):
+        x = (torch.randn(m, DIM, generator=g, device=dev) * 3 - 1).to(torch.bfloat16)
+        wb = (w3, b3) if affine else (None, None)
+        got = ln_quantize_rows_int8(x, *wb)
+        torch.cuda.synchronize()
+        ok, deq = check_quant_case(f"ln_quantize_rows_int8 {nm} [{m}x{DIM}]", got,
+                                   ln_quantize_rows_int8_reference(x, *wb), False)
+        ln_err = max(ln_err, deq)
+        if not ok:
+            failed.append(f"ln {nm}")
+
+    # --- each wrapper raises on a CUDA operand its kernel cannot take
+    x, w, xs, ws, b = gemm_operands(dev, g, 64, DIM, DIM)
+    expect_raise("int8_matmul N-contiguous weight", ValueError,
+                 lambda: int8_matmul(x, w.contiguous(), xs, ws, bias=b))
+    expect_raise("int8_matmul K % 16", ValueError,
+                 lambda: int8_matmul(x[:, :40], w[:40], xs, ws, bias=b))
+    xf = torch.randn(64, DIM, device=dev)
+    expect_raise("quantize_rows_int8 float32", TypeError, lambda: quantize_rows_int8(xf))
+    expect_raise("adaln float32", TypeError, lambda: adaln_quantize_rows_int8(
+        xf[None], xs[None, :1].expand(1, 1, DIM), xs[None, :1].expand(1, 1, DIM)))
+    expect_raise("ln float32 affine weight", ValueError, lambda: ln_quantize_rows_int8(
+        xf.to(torch.bfloat16), w3.float(), b3))
+    if failed:
+        raise AssertionError(f"W8A8 kernel cases {failed} disagree with the plain versions")
+
+    # --- times at the main path's shapes, one layer's worth of each kernel
+    launches_before = [c.launches for c in counters]
+    gemm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    for nm, m, k, n, calls in LAYER_GEMMS + (("text_kv", TEXT, DIM, DIM, 0),):
+        x, w, xs, ws, b = path_gemm_operands(dev, g, m, k, n)
+        ms = time_ms(lambda: int8_matmul(x, w, xs, ws, bias=b))
+        plain = time_ms(lambda: int8_matmul_reference(x, w, xs, ws, bias=b))
+        try:  # the yardstick only: int8 -> int32, no epilogue
+            lib = time_ms(lambda: torch._int_mm(x, w))
+        except RuntimeError as e:
+            print(f"torch._int_mm refused [{m}x{k}]x[{k}x{n}]: {e}", flush=True)
+            lib = None
+        wbf = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+        xbf = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        lin = time_ms(lambda: F.linear(xbf, wbf, b))
+        ops_ms, bytes_ms = gemm_times(m, k, n)
+        bound, by = bound_of(ops_ms, bytes_ms)
+        print(f"w8a8 time int8_matmul {nm} [{m}x{k}]x[{k}x{n}]: {ms:.4f} ms "
+              f"({2 * m * n * k / ms / 1e9:.1f} TOP/s), bound {bound:.4f} ms ({by}), "
+              f"plain {plain:.4f} ms, torch._int_mm {lib} ms, "
+              f"bf16 F.linear {lin:.4f} ms", flush=True)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            gemm[key] = None if v is None or gemm[key] is None else gemm[key] + calls * v
+    gemm["bound_ms"], gemm["bound_by"] = bound_of(gemm["ops_ms"], gemm["bytes_ms"])
+
+    act = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for nm, k, a, calls in (("o/cross_o", DIM, None, 2), ("fc2_in", FFN, "gelu", 1)):
+        x = (torch.randn(SQ, k, generator=g, device=dev) * 2).to(torch.bfloat16)
+        ms = time_ms(lambda: quantize_rows_int8(x, act=a))
+        plain = time_ms(lambda: quantize_rows_int8_reference(x, a))
+        bound = quant_bound(SQ, k, k)
+        print(f"w8a8 time quantize_rows_int8 {nm} [{SQ}x{k}] act {a}: {ms:.4f} ms, "
+              f"bound {bound:.4f} ms (bytes), plain {plain:.4f} ms", flush=True)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+            act[key] += calls * v
+
+    ln = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    x = (torch.randn(1, SQ, DIM, generator=g, device=dev) * 3).to(torch.bfloat16)
+    mod = torch.randn(1, 3, 6, DIM, generator=g, device=dev) * 0.5
+    for nm, fn, plain_fn, extra, calls in (
+            ("adaln qkv/fc1", lambda: adaln_quantize_rows_int8(x, mod[:, :, 0], mod[:, :, 1]),
+             lambda: adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1]),
+             2 * 3 * DIM * 4, 2),
+            ("ln affine cross_q", lambda: ln_quantize_rows_int8(x[0], w3, b3),
+             lambda: ln_quantize_rows_int8_reference(x[0], w3, b3), 2 * DIM * 2, 1)):
+        ms, plain = time_ms(fn), time_ms(plain_fn)
+        bound = quant_bound(SQ, DIM, DIM, extra)
+        print(f"w8a8 time {nm} [{SQ}x{DIM}]: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes), plain {plain:.4f} ms", flush=True)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+            ln[key] += calls * v
+    for c, before in zip(counters, launches_before):
+        c.launches = before  # timing launches are not the main path's
+    print(f"w8a8 per layer: int8_matmul {gemm['ms']:.4f} ms (bound {gemm['bound_ms']:.4f}, "
+          f"_int_mm {gemm['library_ms']}), quantize_rows_int8 {act['ms']:.4f} ms "
+          f"(bound {act['bound_ms']:.4f}), LN prologues {ln['ms']:.4f} ms "
+          f"(bound {ln['bound_ms']:.4f})", flush=True)
+    per_layer = "one W8A8 layer at M=4680 (sum over its calls)"
+    return [
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "inferix_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "inferix_tpu/quant/kernels.py:81", "launches": None,
+         "max_abs_err": gemm_err, "ms": gemm["ms"], "plain_ms": gemm["plain_ms"],
+         "bound_ms": gemm["bound_ms"], "bound_by": gemm["bound_by"],
+         "library_ms": gemm["library_ms"], "work": per_layer + ", 6 GEMMs"},
+        {"name": "quantize_rows_int8", "route": "cuda",
+         "source": "inferix_tpu_torch/csrc/act_quant.cu",
+         "replaces": "inferix_tpu/ops/act_quant.py:66", "launches": None,
+         "max_abs_err": act_err, "ms": act["ms"], "plain_ms": act["plain_ms"],
+         "bound_ms": act["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "work": per_layer + ", o + cross-o + fc2 (gelu) inputs"},
+        {"name": "ln_modulate_quant", "route": "cuda",
+         "source": "inferix_tpu_torch/csrc/act_quant.cu",
+         "replaces": "inferix_tpu/ops/act_quant.py:154", "launches": None,
+         "max_abs_err": ln_err, "ms": ln["ms"], "plain_ms": ln["plain_ms"],
+         "bound_ms": ln["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "work": per_layer + ", 2 LN+modulate (qkv, fc1) + 1 LN+affine (cross-q)"},
+    ]
+
+
+COUNTED = {"int8_matmul": int8_matmul, "quantize_rows_int8": quantize_rows_int8,
+           "adaln": adaln_quantize_rows_int8, "ln": ln_quantize_rows_int8,
+           "flash_attention_prefix": flash_attention_prefix}
+
+
+def counts() -> dict:
+    return {k: f.launches for k, f in COUNTED.items()}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every W8A8 kernel and the attention kernel replaced by its plain
+    version, where the model looks them up."""
+    with contextlib.ExitStack() as stack:
+        for name, fn in (("int8_matmul", int8_matmul_reference),
+                         ("quantize_rows_int8", quantize_rows_int8_reference),
+                         ("adaln_quantize_rows_int8", adaln_quantize_rows_int8_reference),
+                         ("ln_quantize_rows_int8", ln_quantize_rows_int8_reference)):
+            stack.enter_context(mock.patch.object(quant_api, name, fn))
+        stack.enter_context(mock.patch.object(attention_mod, "flash_attention",
+                                              plain_flash_attention))
+        yield
+
+
+def w8a8_main_phase(dev: torch.device, blocks: int) -> dict:
+    """Generate `blocks` blocks with W8A8 linears; returns the launches of
+    each kernel over the path (text encode included)."""
+    t0 = time.perf_counter()
+    cfg = main_path_config(blocks, w8a8=True)
+    m, r = cfg.model, cfg.runtime
+    fpb = m.num_frame_per_block
+    for f in COUNTED.values():
+        f.launches = 0
+    gen, xattn, noise, g = main_path_setup(dev, cfg)
+    torch.cuda.synchronize()
+    text = counts()
+    want_text = {"int8_matmul": 2 * m.num_layers, "quantize_rows_int8": 2 * m.num_layers,
+                 "adaln": 0, "ln": 0, "flash_attention_prefix": 0}
+    print(f"w8a8 setup (weights quantized, {memory_bytes(gen.params['blocks']) / 2**30:.3f} "
+          f"GiB of block weights, text K/V): {time.perf_counter() - t0:.3f} s, "
+          f"launches at text encode {text}", flush=True)
+    if text != want_text:
+        raise AssertionError(f"text-encode launches {text}, want {want_text}")
+
+    forwards = len(gen.denoising_steps) + 1
+    n = m.num_layers * forwards
+    want_block = {"int8_matmul": 6 * n, "quantize_rows_int8": 3 * n, "adaln": 2 * n,
+                  "ln": n, "flash_attention_prefix": n}
+    per_block, marks, prev = [], [time.perf_counter()], [dict(text)]
+
+    def on_block(x0, bi):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        now = counts()
+        per_block.append({k: now[k] - prev[0][k] for k in now})
+        prev[0] = now
+        print(f"w8a8 block {bi}: {marks[-1] - marks[-2]:.3f} s, launches "
+              f"{per_block[-1]}", flush=True)
+
+    latents, cache = gen.generate(noise, xattn, generator=g, block_callback=on_block)
+    torch.cuda.synchronize()
+    total = counts()
+    if per_block != [want_block] * blocks:
+        raise AssertionError(f"W8A8 launches per block {per_block}, want {want_block}")
+    shape = (1, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
+        raise AssertionError(f"W8A8 latents {tuple(latents.shape)} (want {shape}) "
+                             "or not finite")
+    end = r.num_frames * gen.frame_seq
+    for buf in (cache.k, cache.v):
+        if not (buf[:, :, :end].abs().amax(dim=(-1, -2)) > 0).all():
+            raise AssertionError("a written W8A8 cache slot is zero")
+        if buf[:, :, end:].any():
+            raise AssertionError("a W8A8 cache slot past the span was written")
+    print(f"w8a8 main path: latents {tuple(latents.shape)} finite, |x0| max "
+          f"{latents.float().abs().max().item():.3f}, launches {total}", flush=True)
+
+    # one layer, then one whole forward, every kernel vs every plain version
+    f0 = r.num_frames - fpb
+    start = f0 * gen.frame_seq
+    geo, spec = gen.statics.geo, gen.statics.spec
+    x_blk = latents[:, f0:]
+    t = torch.full((1, fpb), gen.denoising_steps[0], device=dev)
+    with torch.inference_mode():
+        tokens = patch_embed(gen.params, m, x_blk)
+        _, e0 = time_embeddings(gen.params, m, t)
+        angles = rope_angles(gen.rope_tables, fpb, geo.grid_h, geo.grid_w, f0)
+        mask = valid_mask(spec, start + geo.tokens, device=dev)
+        blk = layer_params(gen.params["blocks"], 0)
+        ys, flows = [], []
+        for plain in (False, True):
+            before = counts()
+            with plain_versions() if plain else contextlib.nullcontext():
+                lc = (cache.k[0].clone(), cache.v[0].clone())
+                y, _ = block_forward(blk, m, spec, tokens, e0, angles, lc, xattn.k[0],
+                                     xattn.v[0], start, mask)
+                flow, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                                x_blk, t, xattn, cache, start)
+            if plain and counts() != before:
+                raise AssertionError("a plain-version run launched a kernel")
+            ys.append(y)
+            flows.append(flow)
+        layer_err = rel_err(ys[0] - tokens, ys[1] - tokens)
+        fwd_err = rel_err(flows[0], flows[1])
+    print(f"w8a8 block_forward kernels vs plain: update rel err {layer_err:.3e} "
+          f"(tol {W8A8_LAYER_RTOL:g})", flush=True)
+    print(f"w8a8 dit_forward_inference kernels vs plain: flow rel err {fwd_err:.3e} "
+          f"(tol {W8A8_FORWARD_RTOL:g})", flush=True)
+    if not (layer_err <= W8A8_LAYER_RTOL and fwd_err <= W8A8_FORWARD_RTOL):
+        raise AssertionError("the W8A8 path with its kernels disagrees with the plain versions")
+
+    # for information: the W8A8 flow against the bf16 flow, same weights
+    del gen
+    bgen, bxattn, _, _ = main_path_setup(dev, main_path_config(blocks))
+    with torch.inference_mode():
+        bflow, _ = dit_forward_inference(bgen.params, bgen.statics, bgen.rope_tables,
+                                         x_blk, t, bxattn, cache, start)
+    print(f"w8a8 vs bf16 (information, not a gate): flow rel err "
+          f"{rel_err(flows[0], bflow):.3e}", flush=True)
+    phase("w8a8 main", t0)
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=2,
@@ -330,17 +763,31 @@ def main() -> None:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    _build.load_library("flash_attention_prefix", verbose=True)
+    _build.build(LIBRARIES, verbose=True)
+    for name in LIBRARIES:
+        _build.load_library(name)
     phase("build", t0)
 
     t0 = time.perf_counter()
     entry = kernel_phase(dev)
     phase("kernels", t0)
 
-    entry["launches"] = main_path_phase(dev, main_path_config(args.blocks))
+    bf16_launches = main_path_phase(dev, main_path_config(args.blocks))
+
+    t0 = time.perf_counter()
+    entries = [entry] + w8a8_kernel_phase(dev)
+    phase("w8a8 kernels", t0)
+
+    total = w8a8_main_phase(dev, args.blocks)
+    entries[0]["launches"] = total["flash_attention_prefix"]
+    entries[1]["launches"] = total["int8_matmul"]
+    entries[2]["launches"] = total["quantize_rows_int8"]
+    entries[3]["launches"] = total["adaln"] + total["ln"]
+    print(f"launches on the main paths: bf16 flash_attention_prefix {bf16_launches}; "
+          f"W8A8 {total}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

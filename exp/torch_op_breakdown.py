@@ -2,7 +2,7 @@
 """Where the time of one Self-Forcing Wan2.1-1.3B block goes in the PyTorch
 port, on one CUDA card.
 
-    PYTHONPATH=. python3 exp/torch_op_breakdown.py [--block N]   # from the repo root
+    PYTHONPATH=. python3 exp/torch_op_breakdown.py [--block N] [--w8a8]   # from the repo root
 
 Generates blocks 0..N-1 (random weights from a seed, bf16, context_mode
 "rerun", full width and depth), then traces block N (4 denoise forwards and
@@ -10,7 +10,8 @@ the context re-run, over a live cache of (N+1)*4680 tokens) with
 torch.profiler and prints the device time by kernel group and the top
 kernels, the device's idle share over the traced window, and one JSON line.
 Block 6 (the default) is the last block of a 21-frame clip: its attention
-covers the full 32760-token cache.
+covers the full 32760-token cache. --w8a8 runs chip_smoke.py's W8A8 path
+instead (int8 per-channel linears, fused act-quant prologues).
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ from inferix_tpu_torch.ops.flash_attention import flash_attention_prefix
 
 GROUPS = (  # first match wins
     ("flash_attention_prefix (ours)", re.compile(r"flash_prefix_kernel")),
+    ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
+    ("quantize_rows_int8 (ours)", re.compile(r"quant_rows_kernel")),
+    ("ln_modulate_quant (ours)", re.compile(r"ln_quant_kernel")),
     ("gemm (cuBLAS)", re.compile(r"gemm|nvjet|cutlass|xmma|sm90_|cublas", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
     ("softmax/reduce", re.compile(r"softmax|reduce|logsumexp", re.I)),
@@ -60,6 +64,7 @@ def busy_us(intervals) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--block", type=int, default=6, help="block to trace, 0..6")
+    ap.add_argument("--w8a8", action="store_true", help="trace the W8A8 path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("torch_op_breakdown: no CUDA device")
@@ -69,7 +74,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
 
-    cfg = main_path_config(args.block + 1)
+    cfg = main_path_config(args.block + 1, w8a8=args.w8a8)
     gen, xattn, noise, g = main_path_setup(dev, cfg)  # chip_smoke.py's main path
     cache = gen.init_cache()
     fpb = cfg.model.num_frame_per_block
@@ -103,7 +108,8 @@ def main() -> None:
     total = sum(by_name.values())
 
     live = (args.block + 1) * fpb * gen.frame_seq
-    print(f"block {args.block}: 5 forwards over a live cache of {live} tokens, "
+    print(f"{'W8A8' if args.w8a8 else 'bf16'} block {args.block}: 5 forwards over "
+          f"a live cache of {live} tokens, "
           f"wall {wall_ms:.3f} ms, kernel launches of ours {launches}", flush=True)
     print(f"device busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms kernel span: "
           f"idle share {1 - busy / span:.4f} (of the wall time: "
@@ -115,6 +121,7 @@ def main() -> None:
         print(f"  {us / 1e3:10.3f} ms  {us / total:7.2%}  {name[:110]}", flush=True)
     print(smi, flush=True)
     print(json.dumps({
+        "path": "w8a8" if args.w8a8 else "bf16",
         "block": args.block, "live_tokens": live, "wall_ms": wall_ms,
         "device_busy_ms": busy / 1e3, "kernel_span_ms": span / 1e3,
         "idle_share_of_span": 1 - busy / span,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with `nvcc` and load them with `ctypes`.
 
 Each source under `csrc/` has a plain C interface and includes no PyTorch
-header, so `nvcc` builds it in seconds. A library is built at most once per
+header, so `nvcc` builds it in seconds; `build` starts one nvcc per source,
+all at once. A library is built at most once per
 process, into `inferix_tpu_torch/_build/` (listed in .gitignore), under a
 name keyed by a hash of its source and flags, so an edited source is rebuilt
 and an unchanged one is reused.
@@ -48,30 +49,50 @@ def find_nvcc() -> str:
         "with nvcc at first use on a machine with the CUDA toolkit")
 
 
+def _lib_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build(names: Sequence[str], verbose: bool = False) -> None:
+    """Build `csrc/<name>.cu` for each name whose library is missing, one
+    nvcc process per source, all started together. verbose=True adds
+    `-Xptxas -v` and prints each nvcc's output."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([nvcc, *flags, "-o", tmp, str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((name, tmp, proc))
+    failed = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if verbose:
+            print(f"nvcc {name}.cu:\n{out}", flush=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed to build {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, _lib_path(name))  # atomic: no half-written library
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str, verbose: bool = False) -> ctypes.CDLL:
     """Build `csrc/<name>.cu` into a shared library (once per process) and
-    load it. verbose=True adds `-Xptxas -v` and prints nvcc's output."""
+    load it."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-        key = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}-{key}.so"
-        if not lib_path.exists():
-            nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.run([nvcc, *flags, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
-            if verbose:
-                print(proc.stdout + proc.stderr, flush=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed to build {src.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib_path)  # atomic: no half-written library
-        _LIBS[name] = ctypes.CDLL(str(lib_path))
+        if name not in _LIBS:
+            build([name], verbose)
+            _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return _LIBS[name]

@@ -1,8 +1,8 @@
 """The port's own copy of the engine configuration.
 
-Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `RuntimeConfig`,
-`EngineConfig`, `tiny_test_config`) with the same names and defaults, cut to
-the fields this port reads. It is a copy, not an import: the port never
+Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `QuantConfig`,
+`RuntimeConfig`, `EngineConfig`, `tiny_test_config`) with the same names and
+defaults, cut to the fields this port reads. It is a copy, not an import: the port never
 imports the JAX package.
 """
 from __future__ import annotations
@@ -47,6 +47,25 @@ class ModelConfig:
 
 
 @dataclasses.dataclass
+class QuantConfig:
+    """Quantization recipe; a copy of `inferix_tpu/core/config.py:QuantConfig`
+    cut to the fields this port reads.
+
+    int8 per_channel is the W8A8 serving recipe: int8 weights with one scale
+    per output channel, activations quantized per token at run time by the
+    fused act-quant and LN+modulate+quant passes, the product in the int8
+    GEMM kernel.
+    """
+
+    enabled: bool = False
+    dtype: str = "int8"               # "int8" | "fp8" (e4m3, not ported yet)
+    granularity: str = "per_channel"  # "per_tensor" | "per_channel"
+    quantize_kv_cache: bool = False   # the int8 KV cache is not ported yet
+    # module-path substrings kept in high precision
+    exclude: Tuple[str, ...] = ("text_embedding", "head", "patch_embedding", "time_")
+
+
+@dataclasses.dataclass
 class RuntimeConfig:
     denoising_step_list: Tuple[int, ...] = (1000, 750, 500, 250)
     warp_denoising_step: bool = True
@@ -66,6 +85,7 @@ class RuntimeConfig:
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
 
 def tiny_test_config() -> EngineConfig:

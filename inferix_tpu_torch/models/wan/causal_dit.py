@@ -1,5 +1,6 @@
 """Block-causal Wan DiT in PyTorch (port of
-`inferix_tpu/models/wan/causal_dit.py`, the bf16 single-device branches).
+`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, bf16 and
+W8A8).
 
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
 offset, self-attention over the KV cache, cached text cross-attention, the
@@ -7,7 +8,10 @@ GELU-tanh FFN, the modulated output head and unpatchify. Latents are
 channels-last `[B, F, H, W, C]`; parameters keep the JAX tree with layers
 stacked on a leading [L] axis (`utils/params.py`). fp32 promotion points
 mirror the JAX package: time embeddings and modulation in fp32, norms
-accumulate in fp32, attention softmax in fp32.
+accumulate in fp32, attention softmax in fp32. A quantized tree (int8
+`{"w_q", "scale", "b"}` linears from `quant.api.quantize_params`) runs every
+block linear through the int8 GEMM; the three norm prologues and the other
+linears' inputs are quantized by the fused act-quant kernels.
 """
 from __future__ import annotations
 
@@ -23,25 +27,41 @@ from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
 from ...ops.attention import cache_attention
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
+from ...quant.api import (adaln_quant, ln_quant, quantized_ffn,
+                          quantized_linear, quantized_linear_prequant,
+                          use_fused_prologue)
 
 Params = Dict[str, Any]
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b with w stored [in, out], in x's dtype."""
+    """x @ w + b with w stored [in, out], in x's dtype; a quantized leaf
+    ({"w_q", "scale", "b"}) goes through `quantized_linear`."""
+    if "w_q" in p:
+        return quantized_linear(p, x)
     return F.linear(x, p["w"].to(x.dtype).t(), p["b"].to(x.dtype))
 
 
 def fuse_qkv_params(params: Params) -> Params:
     """Merge the stacked self-attention q/k/v projections into one [D, 3D]
     projection (numerically identical: the output is split back before the
-    q/k norms). No-op if the tree is already fused."""
+    q/k norms). Float leaves {"w", "b"} and quantized leaves
+    {"w_q", "scale", "b"} alike; a per-tensor scale is broadcast to one per
+    channel first, so the three scales concatenate. No-op if the tree is
+    already fused."""
     blocks = params["blocks"]
     sa = blocks["self_attn"]
     if "qkv" in sa:
         return params
-    fused = {n: torch.cat([sa[p][n] for p in ("q", "k", "v")], dim=-1)
-             for n in ("w", "b")}
+    parts = [sa[p] for p in ("q", "k", "v")]
+    if "w" in parts[0]:
+        names = ("w", "b")
+    else:
+        names = ("w_q", "scale", "b")
+        parts = [{**p, "scale": p["scale"].expand(*p["scale"].shape[:-1],
+                                                  p["w_q"].shape[-1])}
+                 for p in parts]
+    fused = {n: torch.cat([p[n] for p in parts], dim=-1) for n in names}
     new_sa = {k: v for k, v in sa.items() if k not in ("q", "k", "v")}
     new_sa["qkv"] = fused
     return {**params, "blocks": {**blocks, "self_attn": new_sa}}
@@ -136,9 +156,10 @@ def precompute_crossattn_cache(params: Params, cfg: ModelConfig,
     ks, vs = [], []
     for lid in range(cfg.num_layers):
         ca = layer_params(params["blocks"]["cross_attn"], lid)
-        ks.append(rms_norm(linear(ca["k"], ctx), ca["norm_k"]["w"], cfg.eps)
+        ks.append(rms_norm(linear(ca["k"], ctx), ca["norm_k"]["w"],
+                           cfg.eps).reshape(b, s, cfg.num_heads, cfg.head_dim))
+        vs.append(linear(ca["v"], ctx)
                   .reshape(b, s, cfg.num_heads, cfg.head_dim))
-        vs.append(linear(ca["v"], ctx).reshape(b, s, cfg.num_heads, cfg.head_dim))
     return CrossAttnCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
@@ -173,7 +194,9 @@ def block_forward(
     kv_mask: torch.Tensor,        # [Smax] bool: valid slots after the write
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
-    place, then attends over the cache's live prefix."""
+    place, then attends over the cache's live prefix. With int8 weights,
+    each norm prologue (LN + modulate, or the norm3 LN) is fused with its
+    linear's activation quantization."""
     b, s, c = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     frames = e0.shape[1]
@@ -185,11 +208,15 @@ def block_forward(
 
     # --- self-attention over the KV cache ---
     sa = block["self_attn"]
-    h_in = _modulate(layer_norm(x, eps=cfg.eps), shift_msa, scale_msa, frames)
-    if "qkv" in sa:
-        q_p, k_p, v_p = linear(sa["qkv"], h_in).chunk(3, dim=-1)
+    names = ("qkv",) if "qkv" in sa else ("q", "k", "v")
+    if use_fused_prologue(sa[names[0]]):
+        # fused LN + modulate + quant: the modulated bf16 tensor is never written
+        h_q, h_s = adaln_quant(x, shift_msa, scale_msa, cfg.eps)
+        proj = [quantized_linear_prequant(sa[n], h_q, h_s, x.dtype) for n in names]
     else:
-        q_p, k_p, v_p = (linear(sa[n], h_in) for n in ("q", "k", "v"))
+        h_in = _modulate(layer_norm(x, eps=cfg.eps), shift_msa, scale_msa, frames)
+        proj = [linear(sa[n], h_in) for n in names]
+    q_p, k_p, v_p = proj[0].chunk(3, dim=-1) if len(proj) == 1 else proj
     # qk-norm: RMS over the whole width, before the head split and rope
     q = rms_norm(q_p, sa["norm_q"]["w"], cfg.eps)
     k = rms_norm(k_p, sa["norm_k"]["w"], cfg.eps)
@@ -204,18 +231,27 @@ def block_forward(
 
     # --- cross-attention over the cached text K/V ---
     ca = block["cross_attn"]
-    if cfg.cross_attn_norm:
-        h_x = layer_norm(x, block["norm3"]["w"], block["norm3"]["b"], cfg.eps)
+    w3, b3 = ((block["norm3"]["w"], block["norm3"]["b"]) if cfg.cross_attn_norm
+              else (None, None))
+    if use_fused_prologue(ca["q"]):
+        hq2, hs2 = ln_quant(x.reshape(b * s, c), w3, b3, cfg.eps)
+        cq = quantized_linear_prequant(ca["q"], hq2, hs2, x.dtype).reshape(b, s, c)
     else:
-        h_x = layer_norm(x, eps=cfg.eps)
-    cq = rms_norm(linear(ca["q"], h_x), ca["norm_q"]["w"], cfg.eps)
+        cq = linear(ca["q"], layer_norm(x, w3, b3, cfg.eps))
+    cq = rms_norm(cq, ca["norm_q"]["w"], cfg.eps)
     xa = cache_attention(cq.reshape(b, s, nh, hd), xattn_k, xattn_v)
     x = x + linear(ca["o"], xa.reshape(b, s, c))
 
-    # --- FFN: fc2(gelu_tanh(fc1(h))), the float-weight quantized_ffn ---
-    h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
+    # --- FFN: fc2(gelu_tanh(fc1(h))); with int8 weights the gelu runs
+    # inside fc2's quantization ---
     ffn = block["ffn"]
-    y = linear(ffn["fc2"], F.gelu(linear(ffn["fc1"], h_f), approximate="tanh"))
+    if use_fused_prologue(ffn["fc1"]):
+        hq3, hs3 = adaln_quant(x, shift_mlp, scale_mlp, cfg.eps)
+        y = quantized_ffn(ffn["fc1"], ffn["fc2"], x_q=hq3, x_scale=hs3,
+                          out_dtype=x.dtype)
+    else:
+        h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
+        y = quantized_ffn(ffn["fc1"], ffn["fc2"], h_f)
     x = x + _gate(y, gate_mlp, frames)
     return x, (k_c, v_c)
 

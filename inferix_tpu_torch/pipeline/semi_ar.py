@@ -13,6 +13,12 @@ bucket (`span_bucket`, `max_span`), because a TPU grid is fixed when the
 kernel is compiled. The port's CUDA kernel reads the live span from a device
 tensor and loops over that span only, so there are no buckets and no host
 sync here.
+
+W8A8: a tree quantized by `quant.api.quantize_params` runs every block
+linear through the int8 GEMM kernel, each input quantized by the fused
+act-quant or LN+modulate+quant kernel. The generator is single-device, so
+the fused path is always taken (the JAX package turns it off on multi-device
+meshes, and on one device takes it only with `set_fused_act_quant(True)`).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from ..models.wan.causal_dit import (Params, dit_forward_inference,
                                      fuse_qkv_params, make_statics,
                                      precompute_crossattn_cache)
 from ..ops.rope import build_rope_tables
+from ..quant.api import to_kernel_layout
 
 
 class SemiARGenerator:
@@ -38,9 +45,14 @@ class SemiARGenerator:
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        m, r = cfg.model, cfg.runtime
-        # q/k/v fused into one [D, 3D] projection, as the JAX generator does
-        self.params = fuse_qkv_params(params) if m.fuse_qkv else params
+        m, r, qc = cfg.model, cfg.runtime, cfg.quant
+        if qc.enabled and qc.quantize_kv_cache:
+            raise NotImplementedError(
+                "the int8 KV cache is not ported yet (ROADMAP.md A3, kernel B2)")
+        # q/k/v fused into one [D, 3D] projection, as the JAX generator does;
+        # int8 weights then held once, in the int8 GEMM's K-contiguous layout
+        self.params = to_kernel_layout(fuse_qkv_params(params) if m.fuse_qkv
+                                       else params)
         self.statics = make_statics(m, r.batch_size, m.num_frame_per_block,
                                     r.latent_height, r.latent_width, dtype)
         self.rope_tables = build_rope_tables(m.head_dim, m.rope_max_seq_len,

@@ -19,19 +19,21 @@ from ..core.device import resolve_device
 
 Params = Dict[str, Any]
 
-# Subtrees the JAX package keeps in float32 whatever the model dtype: the
-# time embedding MLP, its projection to the six modulation vectors, and the
-# modulation tables themselves.
-_FP32_KEYS = ("time_embedding", "time_projection", "modulation")
+# Keys the JAX package keeps in float32 whatever the model dtype: the time
+# embedding MLP, its projection to the six modulation vectors, the
+# modulation tables, and the scales of quantized linears ({"w_q", "scale",
+# "b"}: a bf16 scale would move every output of the int8 GEMM).
+_FP32_KEYS = ("time_embedding", "time_projection", "modulation", "scale")
 
 
 def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
                       dtype: torch.dtype = torch.bfloat16) -> Params:
     """Turn the JAX parameter tree (nested dicts of numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`) into the port's tree of tensors on
-    `device`. Floating leaves become `dtype`, except the float32 subtrees
-    above. Works for stacked layers and for unfused or fused (`qkv`)
-    self-attention projections alike."""
+    `device`. Floating leaves become `dtype`, except the float32 keys
+    above; integer leaves (int8 `w_q`) keep their type. Works for stacked
+    layers, for unfused or fused (`qkv`) self-attention projections, and for
+    float or int8-quantized trees alike."""
     dev = resolve_device(device)
 
     def convert(node, fp32: bool):
@@ -40,6 +42,9 @@ def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
         arr = np.asarray(node)
         if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 from JAX
             arr = arr.astype(np.float32)
+        elif arr.dtype.name.startswith("float8"):
+            raise NotImplementedError(
+                "fp8 weights are not ported yet (TPU kernel 9, ROADMAP.md B8)")
         t = torch.from_numpy(np.array(arr))  # a writable copy
         if t.is_floating_point():
             t = t.to(torch.float32 if fp32 else dtype)

@@ -104,14 +104,57 @@ def test_bounds_tensor_for_the_kernel():
         tfa._bounds_tensor(0, torch.tensor([1, 2, 3]), 2, "cpu")
 
 
-def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+@pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant"])
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
-    build stops with an error that says so."""
+    build of each kernel library stops with an error that says so."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "CUDA_BIN_DIRS", (str(tmp_path / "cuda" / "bin"),))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load_library("flash_attention_prefix")
+        _build.load_library(name)
     assert not (tmp_path / "build").exists()
+
+
+def _fake_nvcc(tmp_path, body):
+    """An executable `nvcc` in tmp_path/bin that runs the shell `body`."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return tmp_path
+
+
+def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
+    """`build` starts every missing library's nvcc before it waits for any
+    (each fake nvcc waits until all three have started), keys each library
+    by its source, and skips one that is built already."""
+    log = tmp_path / "started"
+    home = _fake_nvcc(tmp_path, f"""
+out=""; while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done
+echo x >> {log}
+i=0; while [ $(wc -l < {log}) -lt 3 ] && [ $i -lt 100 ]; do sleep 0.05; i=$((i+1)); done
+[ $(wc -l < {log}) -ge 3 ] || exit 3
+echo built > "$out"
+""")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    names = ["flash_attention_prefix", "int8_matmul", "act_quant"]
+    _build.build(names)
+    libs = sorted(p.name.split("-")[0] for p in (tmp_path / "build").glob("lib*.so"))
+    assert libs == sorted(f"lib{n}" for n in names)
+    log.unlink()
+    _build.build(names)  # all present: no nvcc runs
+    assert not log.exists()
+
+
+def test_build_reports_a_failed_source(monkeypatch, tmp_path):
+    home = _fake_nvcc(tmp_path, "echo 'error: bad ptx' ; exit 2\n")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="failed to build int8_matmul.cu:\n.*bad ptx"):
+        _build.build(["int8_matmul"])
+    assert not list((tmp_path / "build").glob("*.so"))

@@ -164,6 +164,14 @@ def test_default_entry_points_raise_without_a_card():
         SemiARGenerator(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w": np.zeros(3, np.float32)})
+    # the W8A8 entry points: a quantized tree and a quant-enabled generator
+    from inferix_tpu_torch.quant.api import quantize_params
+    cfg.quant.enabled = True
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SemiARGenerator(cfg, quantize_params(params, cfg.quant))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w_q": np.zeros((2, 2), np.int8),
+                           "scale": np.ones(2, np.float32)})
     spec = KVCacheSpec(num_layers=1, batch=1, max_tokens=8, num_kv_heads=1, head_dim=4)
     for call in (lambda: init_kv_cache(spec), lambda: valid_mask(spec, 4),
                  lambda: build_rope_tables(32), lambda: FlowMatchSchedule.create()):
