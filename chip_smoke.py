@@ -30,6 +30,32 @@ Phases, each timed on a line of its own:
                 checked; one layer and one whole forward with every kernel
                 against the same with every plain version; the W8A8 flow
                 against the bf16 one, printed for information.
+  7. kv kernels - the int8-KV flash kernel and the e4m3-K/V instantiation
+                of the flash kernel against their plain versions at the
+                full-cache shape (kv_start > 0, [B] bounds, one key, an empty
+                span, fixedm and runmax; phase 3's tolerance), each wrapper
+                refusing a bad operand, then timed beside the bound and SDPA
+                over a dequantized bf16 copy.
+  8. int8_b2 / window / fp8 main - this slice's paths: W8A8 with the int8
+                KV cache at B=2 (2 blocks); W8A8 with the int8 KV cache
+                through a 12-frame rolling window with 1 sink frame,
+                context_mode "last_step", 5 blocks, so the ring wraps; bf16
+                weights with the e4m3 KV cache (2 blocks). Each: attention
+                kernel launches per block (30 layers x forwards) and none of
+                the other attention kernel, the K/V-write act-quant launches,
+                latents and cache checked, seconds per block; the window's
+                kernel bounds within its 18720 keys and the last block's wrap
+                into the ring with the sink kept; one layer and one forward
+                with the kernel against the plain path (dequantize, attend).
+  9. vae kernels - the bf16 and W8A8 halo conv kernels against their plain
+                versions at every conv class of the decode (W8A8 bit-equal),
+                each timed beside its bound, the plain version and cuDNN.
+ 10. vae decode - the fp8 path's 6 latent frames decoded in two 3-frame
+                chunks by the Wan2.1 causal VAE (default config, random
+                weights from a seed, bf16) with conv_impl "xla" (cuDNN),
+                "halo" and "halo_w8a8": kernel launches per chunk, pixels
+                [1, 21, 480, 832, 3] finite in [-1, 1], halo against xla,
+                every W8A8 conv against the float32 conv of its input.
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -48,6 +74,7 @@ from unittest import mock
 import torch
 import torch.nn.functional as F
 
+import inferix_tpu_torch.models.wan.vae as vae_mod
 import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
@@ -55,26 +82,31 @@ from inferix_tpu_torch.core.config import EngineConfig
 from inferix_tpu_torch.models.wan.causal_dit import (
     dit_forward_inference, layer_params, block_forward, patch_embed,
     time_embeddings)
-from inferix_tpu_torch.kvcache.cache import valid_mask
+from inferix_tpu_torch.kvcache.cache import quantize_kv_block, valid_mask
+from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
     ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
     quantize_rows_int8_reference)
 from inferix_tpu_torch.ops.flash_attention import (
-    flash_attention_prefix, flash_attention_prefix_reference)
+    FP8, flash_attention_prefix, flash_attention_prefix_quant,
+    flash_attention_prefix_quant_reference, flash_attention_prefix_reference)
+from inferix_tpu_torch.ops.halo_conv import (
+    halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
+    halo_conv3d_w8a8_reference, pack_weight)
 from inferix_tpu_torch.ops.rope import rope_angles
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
 from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
 from inferix_tpu_torch.quant.kernels import (
     int8_matmul, int8_matmul_reference, quantize_act_int8_per_token,
     quantize_weight_int8)
-from inferix_tpu_torch.utils.params import init_params
+from inferix_tpu_torch.utils.params import init_params, init_vae_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant")
+LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant", "halo_conv")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -105,11 +137,15 @@ SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of each timed call
 # LayerNorm whose f32 sums the two versions take in other orders, a value at
 # a rounding boundary of the bf16 rounding or of the code may round the other
 # way: codes within 1, scales within one bf16 ulp (2^-7 relative) of the
-# row's absmax, and at most FLIP_SHARE of the codes differing. A rounding
-# point moved or dropped in the kernel (the modulate's two ops contracted
-# into one FMA, a missing bf16 rounding) shifts values by a bf16 ulp in a
-# large share of the elements and flips codes by 1 in about 1e-2 of them;
-# the boundary cases of the summation order flip about 1e-6 (H100 SXM).
+# row's absmax, and rounding events in at most FLIP_SHARE of the codes. An
+# event is a code that differs in a row whose scale agrees, or a row whose
+# scale moved: its absmax element rounded to the neighbouring bf16 value,
+# which rescales the whole row and flips ~200 of its 1536 codes at once
+# (seen once, in 6240 LN+modulate rows). A rounding point moved or dropped
+# in the kernel (the modulate's two ops contracted into one FMA, a missing
+# bf16 rounding) shifts values by a bf16 ulp in a large share of the
+# elements and flips codes by 1 in about 1e-2 of them; the boundary cases of
+# the summation order flip about 1e-6 (H100 SXM).
 CODE_TOL = 1
 SCALE_RTOL = 2.0 ** -7
 FLIP_SHARE = 1e-5
@@ -421,24 +457,30 @@ def gemm_operands(dev, g, m, k, n, per_token=True, per_channel=True,
 
 
 def code_diff(got, want):
-    """(max |code diff|, share of codes that differ, max scale rel diff,
-    max |dequantized diff|) of two (codes, scales) pairs."""
+    """(max |code diff|, share of codes that differ, share of rounding
+    events, max scale rel diff, max |dequantized diff|) of two (codes,
+    scales) pairs, one scale a row. Events: the differing codes of rows
+    whose scales agree, plus one for each row whose scale moved."""
     (gq, gs), (wq, ws) = got, want
     d = (gq.int() - wq.int()).abs()
+    moved = (gs != ws).reshape(-1)
+    flips = (d > 0).reshape(moved.shape[0], -1)
+    events = flips[~moved].sum().item() + moved.sum().item()
     srel = ((gs - ws).abs() / ws).max().item()
     deq = (gq.float() * gs - wq.float() * ws).abs().max().item()
-    return d.max().item(), (d > 0).float().mean().item(), srel, deq
+    return (d.max().item(), flips.float().mean().item(), events / d.numel(), srel,
+            deq)
 
 
 def check_quant_case(name, got, want, exact):
-    dmax, share, srel, deq = code_diff(got, want)
+    dmax, share, events, srel, deq = code_diff(got, want)
     ok = ((dmax == 0 and srel == 0) if exact else
-          (dmax <= CODE_TOL and share <= FLIP_SHARE and srel <= SCALE_RTOL))
+          (dmax <= CODE_TOL and events <= FLIP_SHARE and srel <= SCALE_RTOL))
     print(f"w8a8 case {name}: max |code diff| {dmax} (tol {0 if exact else CODE_TOL}), "
-          f"share of codes that differ {share:.3e} (tol {0 if exact else FLIP_SHARE:g}), "
-          f"max scale rel diff {srel:.3e} "
-          f"(tol {0 if exact else SCALE_RTOL:g}), max |dequantized diff| {deq:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"share of codes that differ {share:.3e}, share of rounding events "
+          f"{events:.3e} (tol {0 if exact else FLIP_SHARE:g}), max scale rel diff "
+          f"{srel:.3e} (tol {0 if exact else SCALE_RTOL:g}), max |dequantized diff| "
+          f"{deq:.3e} {'ok' if ok else 'FAIL'}", flush=True)
     return ok, deq
 
 
@@ -446,7 +488,7 @@ def expect_raise(label, exc, fn):
     try:
         fn()
     except exc as e:
-        print(f"w8a8 guard {label}: {type(e).__name__} ok", flush=True)
+        print(f"guard {label}: {type(e).__name__} ok", flush=True)
         return
     raise AssertionError(f"{label}: the wrapper took an operand it cannot take")
 
@@ -485,7 +527,9 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
                  ("m1", 1, DIM, None), ("fc2_in_gelu", SQ, FFN, "gelu"),
                  ("ragged_gelu", SQ + 1, FFN, "gelu"),
                  ("gelu_exact", SQ, FFN, "gelu_exact"),
-                 ("silu_mul", SQ, 2 * FFN, "silu_mul"))
+                 ("silu_mul", SQ, 2 * FFN, "silu_mul"),
+                 # the int8 K/V cache write at B=2: one row per (token, head)
+                 ("kv_write_b2", 2 * SQ * H, D, None))
     act_err = 0.0
     for nm, m, k, act in act_cases:
         x = (torch.randn(m, k, generator=g, device=dev) * 2).to(torch.bfloat16)
@@ -577,6 +621,18 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
             act[key] += calls * v
 
+    # the int8 K/V write of one block at B=2 (K or V; 2 a layer-forward)
+    x = torch.randn(2, SQ, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kv_write = dict(ms=time_ms(lambda: quantize_kv_block(x)),
+                    plain_ms=time_ms(lambda: quantize_rows_int8_reference(
+                        x.reshape(-1, D))),
+                    bound_ms=quant_bound(2 * SQ * H, D, D), bound_by="bytes",
+                    work=f"one int8 K (or V) block write at B=2: quantize_kv_block "
+                         f"[2,{SQ},{H},{D}], {2 * SQ * H} rows of {D}")
+    print(f"w8a8 time quantize_rows_int8 kv_write_b2 [{2 * SQ * H}x{D}] act None: "
+          f"{kv_write['ms']:.4f} ms, bound {kv_write['bound_ms']:.4f} ms (bytes), "
+          f"plain {kv_write['plain_ms']:.4f} ms", flush=True)
+
     ln = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     x = (torch.randn(1, SQ, DIM, generator=g, device=dev) * 3).to(torch.bfloat16)
     mod = torch.randn(1, 3, 6, DIM, generator=g, device=dev) * 0.5
@@ -611,7 +667,7 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
          "replaces": "inferix_tpu/ops/act_quant.py:66", "launches": None,
          "max_abs_err": act_err, "ms": act["ms"], "plain_ms": act["plain_ms"],
          "bound_ms": act["bound_ms"], "bound_by": "bytes", "library_ms": None,
-         "work": per_layer + ", o + cross-o + fc2 (gelu) inputs"},
+         "work": per_layer + ", o + cross-o + fc2 (gelu) inputs", "kv_write": kv_write},
         {"name": "ln_modulate_quant", "route": "cuda",
          "source": "inferix_tpu_torch/csrc/act_quant.cu",
          "replaces": "inferix_tpu/ops/act_quant.py:154", "launches": None,
@@ -621,13 +677,37 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
     ]
 
 
-COUNTED = {"int8_matmul": int8_matmul, "quantize_rows_int8": quantize_rows_int8,
-           "adaln": adaln_quantize_rows_int8, "ln": ln_quantize_rows_int8,
-           "flash_attention_prefix": flash_attention_prefix}
+KERNEL_COUNTERS = {  # name -> (wrapper, attribute holding its launch count)
+    "int8_matmul": (int8_matmul, "launches"),
+    "quantize_rows_int8": (quantize_rows_int8, "launches"),
+    "adaln": (adaln_quantize_rows_int8, "launches"),
+    "ln": (ln_quantize_rows_int8, "launches"),
+    "flash_attention_prefix": (flash_attention_prefix, "launches"),
+    "flash_attention_prefix_fp8": (flash_attention_prefix, "launches_fp8"),
+    "flash_attention_prefix_quant": (flash_attention_prefix_quant, "launches"),
+    "halo_conv3d": (halo_conv3d, "launches"),
+    "halo_conv3d_w8a8": (halo_conv3d_w8a8, "launches"),
+}
+
+
+def all_counts() -> dict:
+    return {k: getattr(f, a) for k, (f, a) in KERNEL_COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    for f, a in KERNEL_COUNTERS.values():
+        setattr(f, a, 0)
+
+
+def count_diff(now: dict, before: dict) -> dict:
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
 def counts() -> dict:
-    return {k: f.launches for k, f in COUNTED.items()}
+    """The launch counts of the W8A8 path's kernels."""
+    now = all_counts()
+    return {k: now[k] for k in ("int8_matmul", "quantize_rows_int8", "adaln", "ln",
+                                "flash_attention_prefix")}
 
 
 @contextlib.contextmanager
@@ -652,8 +732,7 @@ def w8a8_main_phase(dev: torch.device, blocks: int) -> dict:
     cfg = main_path_config(blocks, w8a8=True)
     m, r = cfg.model, cfg.runtime
     fpb = m.num_frame_per_block
-    for f in COUNTED.values():
-        f.launches = 0
+    reset_counts()
     gen, xattn, noise, g = main_path_setup(dev, cfg)
     torch.cuda.synchronize()
     text = counts()
@@ -744,6 +823,563 @@ def w8a8_main_phase(dev: torch.device, blocks: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The int8 / fp8 KV caches and the rolling window (TPU kernels 1 with e4m3
+# K/V and 2), and the VAE decode (TPU kernels 10 and 11)
+# ---------------------------------------------------------------------------
+
+WINDOW_FRAMES, SINK_FRAMES = 12, 1  # bench.py:94-108's rolling window
+WINDOW_KEYS = WINDOW_FRAMES * 1560  # 18720: no attention past the window
+WINDOW_BLOCKS = 5                   # 15 frames through a 12-frame window: the ring wraps
+
+# VAE decode. A bf16 conv kernel and its plain version sum the same exact
+# bf16 products in f32 in other orders (differences ~1e-6 of the sum of the
+# products' magnitudes) and round to bf16: an output at a rounding boundary
+# may round the other way (one bf16 ulp, at most 2^-7 |out|), and an output
+# near 0 differs by the f32 difference itself, ~3e-5 rms(out) at these
+# widths. Per element, rms over the conv's output:
+#     |out_kernel - out_plain| <= CONV_TOL * (|out_plain| + 2^-4 rms)
+# The W8A8 kernel sums integers exactly and applies the plain version's
+# epilogue: bit-equal.
+CONV_TOL = 2.0 ** -7
+# Each W8A8 conv of the decode against the float32 conv of the same bf16
+# input: tests/test_halo_conv.py's W8A8 bound.
+W8A8_CONV_BOUND = 0.05   # max |w8a8 - f32| <= this * max |f32|
+# The halo decode against the cuDNN ("xla") decode, both bf16: the xla path
+# rounds each conv to bf16 and then adds the bias in bf16 (the JAX order),
+# the halo kernel adds it in f32 and rounds once, so ~30 conv outputs differ
+# by up to an ulp (2^-8) in a large share of their elements, and the
+# differences pass through the norms and the later convs (8.6e-3 on a tiny
+# decoder of 8 convs, CPU). A wrong tap, border or channel chunk moves the
+# video by O(1); the kernel checks above hold each conv far tighter.
+HALO_DECODE_RTOL = 5e-2  # ||video_halo - video_xla|| / ||video_xla||
+LATENT_FRAMES = 6        # two 3-frame chunks -> 21 pixel frames
+# The decode's stride-1 3x3(x3) conv classes at full width, with the frame
+# counts of a chunk that is not the stream's first (3 latent frames): (name,
+# Tin, H, W, Cin, Cout, kt, calls a chunk with "halo", with "halo_w8a8").
+VAE_CONVS = (
+    ("conv1 16->384 60x104", 5, 60, 104, 16, 384, 3, 1, 1),
+    ("res 384 60x104", 5, 60, 104, 384, 384, 3, 10, 10),
+    ("up 384->192 120x208", 6, 120, 208, 384, 192, 1, 0, 1),
+    ("res 192->384 120x208", 8, 120, 208, 192, 384, 3, 1, 1),
+    ("res 384 120x208", 8, 120, 208, 384, 384, 3, 5, 5),
+    ("up 384->192 240x416", 12, 240, 416, 384, 192, 1, 0, 1),
+    ("res 192 240x416", 14, 240, 416, 192, 192, 3, 6, 6),
+    ("up 192->96 480x832", 12, 480, 832, 192, 96, 1, 0, 1),
+    ("res 96 480x832", 14, 480, 832, 96, 96, 3, 6, 6),
+    ("head 96->3 480x832", 14, 480, 832, 96, 3, 3, 1, 1),
+)
+# kernel launches a decode chunk: every conv of the decode runs once a chunk
+DECODE_LAUNCHES = {"xla": {}, "halo": {"halo_conv3d": sum(c[7] for c in VAE_CONVS)},
+                   "halo_w8a8": {"halo_conv3d_w8a8": sum(c[8] for c in VAE_CONVS)}}
+
+
+def check_attention_case(label: str, out, lse, ref, ref_lse) -> tuple:
+    """Kernel vs plain version with ATTN_TOL per element and LSE_ATOL;
+    prints one line; returns (ok, max |diff|)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    rms = ref.pow(2).mean(dim=(1, 2, 3), keepdim=True).sqrt()
+    bound = ATTN_TOL * (ref.abs() + rms)
+    share = torch.where(bound > 0, diff / bound.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0)).max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = share <= 1 and lse_err <= LSE_ATOL and torch.isfinite(out).all().item()
+    print(f"{label}: max_abs {err:.3e} max |diff|/({ATTN_TOL:g}*(|ref|+rms)) "
+          f"{share:.3f} (tol 1) lse_max_abs {lse_err:.3e} (tol {LSE_ATOL:g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok, err
+
+
+def dequantize(k, k_scale, dtype=torch.bfloat16):
+    return (k.float() * k_scale[..., None]).to(dtype)
+
+
+def kv_kernel_phase(dev: torch.device) -> list:
+    """The int8-KV kernel (B2) and the e4m3 instantiation of the flash
+    kernel against their plain versions at the full-cache shape, then timed
+    beside the bound and SDPA over a dequantized bf16 copy."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q2 = torch.randn(2, SQ, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kb = torch.randn(2, SKV, H, D, generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn(2, SKV, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv_block(kb)
+    vq, vs = quantize_kv_block(vb)
+    torch.cuda.synchronize()
+    for name, x, codes, scales in (("k", kb, kq, ks), ("v", vb, vq, vs)):
+        # the int8 cache write (the act-quant kernel, act None): exact
+        ok, _ = check_quant_case(
+            f"quantize_kv_block {name} [2,{SKV},{H},{D}]",
+            (codes.reshape(-1, D), scales.reshape(-1, 1)),
+            quantize_rows_int8_reference(x.reshape(-1, D)), True)
+        if not ok:
+            raise AssertionError("the int8 K/V write disagrees with its plain version")
+    k8, v8 = (x.float().clamp(-448, 448).to(FP8) for x in (kb, vb))
+    del kb, vb
+    rows = (torch.tensor([0, 1000], device=dev), torch.tensor([9360, 32760], device=dev))
+    spans = [  # (name, batch rows, kv_start, kv_len, softmax)
+        ("len1", 1, 0, 1, "fixedm"), ("empty", 1, 4680, 4680, "fixedm"),
+        ("len32760", 1, 0, SKV, "fixedm"), ("len32760_runmax", 1, 0, SKV, "runmax"),
+        ("start1000_len14040", 1, 1000, 14040, "fixedm"),
+        ("start1000_len14040_runmax", 1, 1000, 14040, "runmax"),
+        ("b2_rows", 2, rows[0], rows[1], "fixedm"),
+        ("b2_rows_runmax", 2, rows[0], rows[1], "runmax")]
+    kinds = {
+        "flash_attention_prefix_quant": (
+            lambda b, *a, **kw: flash_attention_prefix_quant(
+                q2[:b], kq[:b], vq[:b], ks[:b], vs[:b], *a, **kw),
+            lambda b, *a, **kw: flash_attention_prefix_quant_reference(
+                q2[:b], kq[:b], vq[:b], ks[:b], vs[:b], *a, **kw)),
+        "flash_attention_prefix_fp8": (
+            lambda b, *a, **kw: flash_attention_prefix(q2[:b], k8[:b], v8[:b], *a, **kw),
+            lambda b, *a, **kw: flash_attention_prefix_reference(
+                q2[:b], k8[:b], v8[:b], *a, **kw)),
+    }
+    entries, failed = [], []
+    for name, (kern, plain) in kinds.items():
+        worst = 0.0
+        for case, b, start, end, sm in spans:
+            out, lse = kern(b, end, start, softmax=sm, return_lse=True)
+            torch.cuda.synchronize()
+            ref, ref_lse = plain(b, end, start, softmax=sm, return_lse=True)
+            ok, err = check_attention_case(f"kv case {name} {case}", out, lse, ref, ref_lse)
+            worst = max(worst, err)
+            if not ok:
+                failed.append(f"{name} {case}")
+        before = all_counts()
+        ms = time_ms(lambda: kern(1, SKV))
+        plain_ms = time_ms(lambda: plain(1, SKV), iters=3, warmup=1)
+        if name == "flash_attention_prefix_quant":
+            kd, vd = dequantize(kq[:1], ks[:1]), dequantize(vq[:1], vs[:1])
+        else:
+            kd, vd = k8[:1].to(torch.bfloat16), v8[:1].to(torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q2[:1], kd, vd))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        if name == "flash_attention_prefix_quant":
+            # for information: the in-kernel dequantization against the
+            # plain path's (dequantize K/V to bf16, then attend)
+            deq = flash_attention_prefix_reference(q2[:1], kd, vd, SKV)
+            print(f"kv {name} full cache vs dequantize-then-attend (information): "
+                  f"rel err {rel_err(kern(1, SKV), deq):.3e}", flush=True)
+            del deq
+        del kd, vd, qt, kt, vt
+        for k, (f, a) in KERNEL_COUNTERS.items():  # timing launches are not the path's
+            setattr(f, a, before[k])
+        bound_ms, bound_by = attention_bound(1, SQ, SKV)
+        print(f"kv time {name} full cache: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa over a dequantized bf16 copy {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "inferix_tpu_torch/csrc/flash_attention_prefix.cu",
+            "replaces": ("inferix_tpu/ops/flash_attention.py:390"
+                         if name == "flash_attention_prefix_quant"
+                         else "inferix_tpu/ops/flash_attention.py:53"),
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    # the wrappers refuse what their kernels cannot take
+    expect_raise("flash_attention_prefix_quant bf16 K/V", TypeError,
+                 lambda: flash_attention_prefix_quant(q2[:1], k8[:1].to(torch.bfloat16),
+                                                      k8[:1].to(torch.bfloat16), ks[:1],
+                                                      vs[:1], SKV))
+    expect_raise("flash_attention_prefix_quant bf16 scales", ValueError,
+                 lambda: flash_attention_prefix_quant(q2[:1], kq[:1], vq[:1],
+                                                      ks[:1].bfloat16(), vs[:1], SKV))
+    expect_raise("flash_attention_prefix int8 K/V", TypeError,
+                 lambda: flash_attention_prefix(q2[:1], kq[:1], vq[:1], SKV))
+    if failed:
+        raise AssertionError(f"kv kernel cases {failed} disagree with the plain versions")
+    return entries
+
+
+def plain_quant_attention(q, k, v, k_scale, v_scale, kv_mask=None, scale=None):
+    """The int8-KV mask wrapper with the plain path in place of the kernel:
+    dequantize to bf16, then attend (the plain flash version)."""
+    return plain_flash_attention(q, dequantize(k, k_scale, q.dtype),
+                                 dequantize(v, v_scale, q.dtype), kv_mask, scale)
+
+
+def kv_path_config(path: str) -> EngineConfig:
+    """The three paths of this slice, Wan2.1-T2V-1.3B at full width and
+    depth: "int8_b2" W8A8 + int8 KV at B=2, rerun, global 21-frame window
+    (bench.py:237-250); "window" W8A8 + int8 KV through a 12-frame rolling
+    window with 1 sink frame, last_step (bench.py:94-108); "fp8" bf16
+    weights + the e4m3 KV cache at B=1, rerun (JAX semi_ar.py:139-146)."""
+    blocks = WINDOW_BLOCKS if path == "window" else 2
+    cfg = main_path_config(blocks, w8a8=path != "fp8")
+    q = cfg.quant
+    q.enabled, q.quantize_kv_cache = True, True
+    q.kv_cache_dtype = "fp8" if path == "fp8" else "int8"
+    if path == "int8_b2":
+        cfg.runtime.batch_size = 2
+    if path == "window":
+        cfg.model.local_attn_size, cfg.model.sink_size = WINDOW_FRAMES, SINK_FRAMES
+        cfg.runtime.context_mode = "last_step"
+    return cfg
+
+
+def kv_path_setup(dev: torch.device, cfg: EngineConfig, w8a8: bool):
+    """main_path_setup for batch B: the seed-0 weights (quantized for
+    W8A8), text K/V of B random prompts, noise [B, F, H, W, C]."""
+    m, r = cfg.model, cfg.runtime
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(m, g, device=dev, dtype=torch.bfloat16)
+    if w8a8:
+        params = quantize_params(params, cfg.quant)
+    gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev)
+    b = r.batch_size
+    context = torch.randn(b, m.text_len, m.text_dim, generator=g,
+                          device=dev).to(torch.bfloat16)
+    xattn = gen.encode_text_context(context)
+    noise = torch.randn(b, r.num_frames, r.latent_height, r.latent_width,
+                        r.latent_channels, generator=g, device=dev).to(torch.bfloat16)
+    return gen, xattn, noise, g
+
+
+def kv_path_phase(dev: torch.device, path: str) -> tuple:
+    """Drive one path: launches per block, the output, the cache (and the
+    ring's wrap), then one layer and one forward at the last block with the
+    path's attention kernel against its plain version. Returns (launches of
+    every kernel over the path's generation, latents)."""
+    t0 = time.perf_counter()
+    cfg = kv_path_config(path)
+    m, r = cfg.model, cfg.runtime
+    fpb, b = m.num_frame_per_block, r.batch_size
+    blocks = r.num_frames // fpb
+    gen, xattn, noise, g = kv_path_setup(dev, cfg, w8a8=path != "fp8")
+    spec = gen.statics.spec
+    torch.cuda.synchronize()
+    print(f"{path} setup: {time.perf_counter() - t0:.3f} s; cache {spec.max_tokens} "
+          f"slots, ring {spec.ring}, sink {spec.sink_tokens}, "
+          f"{'int8 + scales' if spec.quantized else spec.dtype}, batch {b}", flush=True)
+    kernel = "flash_attention_prefix_fp8" if path == "fp8" else "flash_attention_prefix_quant"
+    forwards = len(gen.denoising_steps) + (1 if r.context_mode == "rerun" else 0)
+    spans, marks, per_block, snaps = [], [time.perf_counter()], [], {}
+    real_quant = attention_mod.flash_attention_quant
+
+    def spy_quant(q, k, v, k_scale, v_scale, kv_mask=None, scale=None):
+        spans.append((k.shape[1], kv_mask.sum(-1)))
+        return real_quant(q, k, v, k_scale, v_scale, kv_mask=kv_mask, scale=scale)
+
+    def on_block(x0, bi):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_block.append(count_diff(all_counts(), prev[0]))
+        prev[0] = all_counts()
+        print(f"{path} block {bi}: {marks[-1] - marks[-2]:.3f} s, launches "
+              f"{per_block[-1]}", flush=True)
+        if path == "window" and bi in (blocks - 2, blocks - 1):
+            snaps[bi] = gen_cache[0].k_scale[:, :, :, :].clone()
+
+    reset_counts()
+    prev = [all_counts()]
+    gen_cache = [gen.init_cache()]
+    with mock.patch.object(attention_mod, "flash_attention_quant", spy_quant):
+        latents, cache = gen.generate(noise, xattn, generator=g, cache=gen_cache[0],
+                                      block_callback=on_block)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    n = m.num_layers * forwards
+    for bi, got in enumerate(per_block):
+        if got.get(kernel) != n or got.get("flash_attention_prefix", 0) \
+                or (path != "fp8" and got.get("flash_attention_prefix_fp8", 0)) \
+                or (path == "fp8" and got.get("flash_attention_prefix_quant", 0)):
+            raise AssertionError(f"{path} block {bi}: launches {got}, want {n} of {kernel} "
+                                 "and no other attention kernel")
+    if path != "fp8":
+        # the int8 KV writes quantize through the act-quant kernel: 2 a layer-forward
+        want_q = 3 * n + 2 * n
+        if any(got.get("quantize_rows_int8") != want_q for got in per_block):
+            raise AssertionError(f"{path}: act-quant launches per block "
+                                 f"{[p.get('quantize_rows_int8') for p in per_block]}, "
+                                 f"want {want_q} (activations + K/V writes)")
+    shape = (b, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
+        raise AssertionError(f"{path} latents {tuple(latents.shape)} (want {shape}) "
+                             "or not finite")
+    end = min(r.num_frames * gen.frame_seq, spec.max_tokens)
+    for name in ("k", "v"):
+        for layer in getattr(cache, name):  # one layer at a time: float32 copies
+            buf = layer.float()
+            if not torch.isfinite(buf).all():
+                raise AssertionError(f"{path}: cache {name} not finite")
+            if not (buf[:, :end].abs().amax(dim=(-1, -2)) > 0).all():
+                raise AssertionError(f"{path}: a written cache slot of {name} is zero")
+            if buf[:, end:].any():
+                raise AssertionError(f"{path}: a cache slot past the span was written")
+        if spec.quantized:
+            sc = getattr(cache, name + "_scale")
+            if not (torch.isfinite(sc).all() and (sc[:, :, :end] > 0).all()):
+                raise AssertionError(f"{path}: a {name} scale is not finite and positive")
+    if path == "window":
+        keys = max(k for k, _ in spans)
+        live = torch.stack([s.max() for _, s in spans]).max().item()
+        if keys != WINDOW_KEYS or live > WINDOW_KEYS:
+            raise AssertionError(f"window: the kernel saw {keys} slots, {live} live keys "
+                                 f"(at most {WINDOW_KEYS})")
+        # the last block (frames 12-14) wrapped into ring slots of frames 1-3;
+        # the sink frame and frames 4-11 kept what the block before left
+        fs = gen.frame_seq
+        before, after = snaps[blocks - 2], snaps[blocks - 1]
+        wrapped = slice(SINK_FRAMES * fs, (SINK_FRAMES + fpb) * fs)
+        if not ((after[:, :, wrapped] != before[:, :, wrapped]).any(-1).all()
+                and torch.equal(after[:, :, :fs], before[:, :, :fs])
+                and torch.equal(after[:, :, wrapped.stop:], before[:, :, wrapped.stop:])):
+            raise AssertionError("window: the last block did not wrap into slots "
+                                 f"[{wrapped.start}, {wrapped.stop}) alone")
+        print(f"window: {len(spans)} kernel calls over {keys} slots, at most {live} live "
+              f"keys; the last block overwrote ring slots [{wrapped.start}, "
+              f"{wrapped.stop}), the sink frame and the rest kept", flush=True)
+    secs = [marks[i + 1] - marks[i] for i in range(len(per_block))]
+    print(f"{path} main path: latents {tuple(latents.shape)} finite, |x0| max "
+          f"{latents.float().abs().max().item():.3f}, s/block "
+          f"{', '.join(f'{x:.3f}' for x in secs)}, launches {launches}", flush=True)
+
+    # one layer, then one forward, at the last block's first denoise step
+    f0 = r.num_frames - fpb
+    start = f0 * gen.frame_seq
+    geo = gen.statics.geo
+    x_blk = latents[:, f0:]
+    t = torch.full((b, fpb), gen.denoising_steps[0], device=dev)
+    if path == "fp8":
+        plain = mock.patch.object(attention_mod, "flash_attention", plain_flash_attention)
+    else:
+        plain = mock.patch.object(attention_mod, "flash_attention_quant",
+                                  plain_quant_attention)
+    with torch.inference_mode():
+        tokens = patch_embed(gen.params, m, x_blk)
+        _, e0 = time_embeddings(gen.params, m, t)
+        angles = rope_angles(gen.rope_tables, fpb, geo.grid_h, geo.grid_w, f0)
+        mask = valid_mask(spec, start + geo.tokens, device=dev)
+        blk = layer_params(gen.params["blocks"], 0)
+        fields = [f for f in cache if f is not None]
+        ys, flows = [], []
+        for use_plain in (False, True):
+            before = all_counts()
+            with plain if use_plain else contextlib.nullcontext():
+                lc = tuple(f[0].clone() for f in fields)
+                y, _ = block_forward(blk, m, spec, tokens, e0, angles, lc, xattn.k[0],
+                                     xattn.v[0], start, mask)
+                flow, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                                x_blk, t, xattn, cache, start)
+            moved = count_diff(all_counts(), before).get(kernel, 0)
+            if moved != (0 if use_plain else 1 + m.num_layers):
+                raise AssertionError(f"{path}: {kernel} launched {moved} times in the "
+                                     f"{'plain' if use_plain else 'kernel'} run")
+            ys.append(y)
+            flows.append(flow)
+        layer_err = rel_err(ys[0] - tokens, ys[1] - tokens)
+        fwd_err = rel_err(flows[0], flows[1])
+    print(f"{path} block_forward {kernel} vs plain: update rel err {layer_err:.3e} "
+          f"(tol {LAYER_RTOL:g}); dit_forward_inference flow rel err {fwd_err:.3e} "
+          f"(tol {FORWARD_RTOL:g})", flush=True)
+    if not (layer_err <= LAYER_RTOL and fwd_err <= FORWARD_RTOL):
+        raise AssertionError(f"the {path} path with its kernel disagrees with the plain one")
+    del gen, cache, gen_cache, xattn, snaps
+    torch.cuda.empty_cache()
+    phase(f"{path} main", t0)
+    return launches, latents
+
+
+def conv_times(tin, h, w, cin, cout, kt, peak) -> tuple:
+    """(ops_ms, bytes_ms) of one conv: its operations at `peak`, its bf16
+    input, weights and output (and f32 bias) at the memory rate."""
+    t_out = tin - kt + 1
+    ops = 2.0 * t_out * h * w * cout * kt * 9 * cin
+    nbytes = 2.0 * (tin * h * w * cin + kt * 9 * cin * cout + t_out * h * w * cout) + 4 * cout
+    return ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def cudnn_operands(x, w, b):
+    """x [Tin, H, W, C] and w [kt, 3, 3, Cin, Cout] as cuDNN's channels-last
+    NCDHW operands."""
+    xt = x.permute(3, 0, 1, 2)[None]
+    wt = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    return xt, wt, b
+
+
+def vae_kernel_phase(dev: torch.device) -> list:
+    """B6 and B7 against their plain versions at every decode conv class,
+    then timed beside the bound and cuDNN (F.conv3d, bf16)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+                    err=0.0) for k in ("halo_conv3d", "halo_conv3d_w8a8")}
+    failed = []
+    before = all_counts()
+    for name, tin, h, w, cin, cout, kt, n_halo, n_w8a8 in VAE_CONVS:
+        x = torch.randn(tin, h, w, cin, generator=g, device=dev).to(torch.bfloat16)
+        bound = 1.0 / (kt * 9 * cin) ** 0.5
+        wt = ((torch.rand(kt, 3, 3, cin, cout, generator=g, device=dev) * 2 - 1)
+              * bound).to(torch.bfloat16)
+        b = ((torch.rand(cout, generator=g, device=dev) * 2 - 1) * bound).to(torch.bfloat16)
+        xt, wc, _ = cudnn_operands(x, wt, b)
+        lib = time_ms(lambda: F.conv3d(xt, wc, b, padding=(0, 1, 1)))
+        for kname, kern, plain, calls, peak in (
+                ("halo_conv3d", halo_conv3d, halo_conv3d_reference, n_halo, PEAK_BF16_FLOPS),
+                ("halo_conv3d_w8a8", halo_conv3d_w8a8, halo_conv3d_w8a8_reference, n_w8a8,
+                 PEAK_INT8_OPS)):
+            if kname == "halo_conv3d" and kt != 3:
+                continue  # the bf16 gate takes 3x3x3 convs only
+            # as the decode calls it: on the weight operand CausalVAE packs once
+            pk = pack_weight(wt, w8a8=kname == "halo_conv3d_w8a8")
+            out = kern(x, wt, b, packed=pk)
+            torch.cuda.synchronize()
+            ref = plain(x, wt, b)
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            if kname == "halo_conv3d":
+                rms = ref.float().pow(2).mean().sqrt()
+                share = (diff / (CONV_TOL * (ref.float().abs() + rms / 16))).max().item()
+                ok = share <= 1 and torch.isfinite(out).all().item()
+                detail = (f"max |diff|/({CONV_TOL:g}*(|ref|+rms/16)) {share:.3f} (tol 1), "
+                          f"rms(ref) {rms.item():.3e}")
+            else:
+                ok = err == 0 and torch.isfinite(out).all().item()
+                detail = "(tol 0)"
+            del diff, ref
+            ms = time_ms(lambda: kern(x, wt, b, packed=pk))
+            plain_ms = time_ms(lambda: plain(x, wt, b), iters=2, warmup=1)
+            ops_ms, bytes_ms = conv_times(tin, h, w, cin, cout, kt, peak)
+            t_out = tin - kt + 1
+            print(f"vae case {kname} {name} [{tin},{h},{w},{cin}] kt {kt} -> {cout}: "
+                  f"max_abs {err:.3e} {detail} {'ok' if ok else 'FAIL'}; "
+                  f"{ms:.4f} ms ({2 * t_out * h * w * cout * kt * 9 * cin / ms / 1e9:.1f} "
+                  f"TOP/s), bound {max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"cudnn bf16 {lib:.4f} ms; {calls} a chunk", flush=True)
+            if not ok:
+                failed.append(f"{kname} {name}")
+            acc = sums[kname]
+            acc["err"] = max(acc["err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                acc[key] += calls * v
+        del x, wt, xt, wc, pk
+    # the wrappers refuse what their kernels cannot take
+    x = torch.randn(3, 16, 16, 96, device=dev)
+    wt = torch.randn(3, 3, 3, 96, 96, device=dev)
+    b = torch.zeros(96, device=dev)
+    expect_raise("halo_conv3d float32", TypeError, lambda: halo_conv3d(x, wt, b))
+    expect_raise("halo_conv3d_w8a8 Cin 24", ValueError, lambda: halo_conv3d_w8a8(
+        x[..., :24].contiguous().to(torch.bfloat16), wt[:, :, :, :24], b))
+    expect_raise("halo_conv3d strided x", ValueError, lambda: halo_conv3d(
+        x.to(torch.bfloat16)[:, :, ::2], wt, b))
+    for k, (f, a) in KERNEL_COUNTERS.items():
+        setattr(f, a, before[k])
+    if failed:
+        raise AssertionError(f"VAE conv cases {failed} disagree with the plain versions")
+    entries = []
+    for kname, body, impl in (("halo_conv3d", 59, "halo"),
+                              ("halo_conv3d_w8a8", 113, "halo_w8a8")):
+        acc = sums[kname]
+        bound_ms, bound_by = bound_of(acc["ops_ms"], acc["bytes_ms"])
+        print(f"vae per chunk {kname}: {acc['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {acc['plain_ms']:.4f} ms, cudnn {acc['library_ms']:.4f} ms",
+              flush=True)
+        entries.append({
+            "name": kname, "route": "cuda", "source": "inferix_tpu_torch/csrc/halo_conv.cu",
+            "replaces": f"inferix_tpu/ops/halo_conv.py:{body}", "launches": None,
+            "max_abs_err": acc["err"], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": acc["library_ms"],
+            "work": "one decode chunk of 3 latent frames (not the first), "
+                    f"{DECODE_LAUNCHES[impl][kname]} convs"})
+    return entries
+
+
+def vae_params(dev: torch.device, cfg: VAEConfig):
+    """The decode's weights from seed 5. The init's attention output
+    projections are zero (the reference's training init); they are drawn
+    here, so the attention blocks change the pixels."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = init_vae_params(cfg, g, device=dev)
+    proj = params["decoder"]["middle"]["attn"]["proj"]
+    c = proj["w"].shape[-2]
+    proj["w"].uniform_(-c ** -0.5, c ** -0.5, generator=g)
+    return params
+
+
+def vae_decode_phase(dev: torch.device, latents: torch.Tensor) -> dict:
+    """Decode the fp8 path's 6 latent frames in two 3-frame chunks with each
+    conv impl; launches per chunk; pixels checked; halo against cuDNN; every
+    W8A8 conv against the float32 conv of its own input."""
+    t0 = time.perf_counter()
+    cfg = VAEConfig()
+    params = vae_params(dev, cfg)
+    if latents.shape[1] < LATENT_FRAMES:
+        raise AssertionError(f"the decode needs {LATENT_FRAMES} latent frames, got "
+                             f"{latents.shape[1]}")
+    lat = latents[:1, :LATENT_FRAMES]
+    w8a8_worst, videos, launches = [0.0], {}, {}
+    real_w8a8 = vae_mod.halo_conv3d_w8a8
+
+    def checked_w8a8(x, w, b, packed=None):
+        out = real_w8a8(x, w, b, packed=packed)
+        ref = F.conv3d(x.permute(3, 0, 1, 2)[None].float(),
+                       w.float().permute(4, 3, 0, 1, 2), b.float(), padding=(0, 1, 1))
+        ref = ref[0].permute(1, 2, 3, 0)
+        share = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        w8a8_worst[0] = max(w8a8_worst[0], share)
+        if share > W8A8_CONV_BOUND:
+            raise AssertionError(f"a W8A8 conv {tuple(x.shape)} x {tuple(w.shape)} is off "
+                                 f"its float32 conv by {share:.3e} of the output scale "
+                                 f"(bound {W8A8_CONV_BOUND:g})")
+        return out
+
+    want = DECODE_LAUNCHES
+    # the W8A8 decode runs twice: timed, then with every conv checked (the
+    # checks' float32 convs would dominate its seconds per chunk)
+    for impl, checked in (("xla", False), ("halo", False), ("halo_w8a8", False),
+                          ("halo_w8a8", True)):
+        vae = CausalVAE(cfg, params, dtype=torch.bfloat16, device=dev, conv_impl=impl)
+        reset_counts()
+        cache, chunks, per_chunk, secs = None, [], [], []
+        patch = (mock.patch.object(vae_mod, "halo_conv3d_w8a8", checked_w8a8)
+                 if checked else contextlib.nullcontext())
+        with patch:
+            for i in range(0, LATENT_FRAMES, 3):
+                before = all_counts()
+                t1 = time.perf_counter()
+                out, cache = vae.decode_chunk(lat[:, i:i + 3], cache, first=(i == 0))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t1)
+                per_chunk.append(count_diff(all_counts(), before))
+                chunks.append(out)
+        video = torch.clamp(torch.cat(chunks, dim=1), -1.0, 1.0)
+        label = impl + (" (each conv checked)" if checked else "")
+        print(f"vae decode {label}: s/chunk {', '.join(f'{x:.3f}' for x in secs)}, "
+              f"launches per chunk {per_chunk}", flush=True)
+        if per_chunk != [want[impl]] * 2:
+            raise AssertionError(f"vae {impl}: launches per chunk {per_chunk}, "
+                                 f"want {want[impl]} in each")
+        if checked:
+            if not torch.equal(video, videos[impl]):
+                raise AssertionError("the checked W8A8 decode differs from the timed one")
+            continue
+        launches[impl] = all_counts()
+        shape = (1, 1 + cfg.temporal_factor * (LATENT_FRAMES - 1),
+                 cfg.spatial_factor * lat.shape[2], cfg.spatial_factor * lat.shape[3], 3)
+        if tuple(video.shape) != shape or not torch.isfinite(video).all() \
+                or video.abs().max().item() > 1:
+            raise AssertionError(f"vae {impl}: pixels {tuple(video.shape)} (want {shape}), "
+                                 "not finite or outside [-1, 1]")
+        videos[impl] = video
+        del vae, cache, chunks
+    halo_err = rel_err(videos["halo"], videos["xla"])
+    w8a8_err = rel_err(videos["halo_w8a8"], videos["xla"])
+    print(f"vae decode: pixels {tuple(videos['xla'].shape)} finite in [-1, 1], std "
+          f"{videos['xla'].float().std().item():.3f}; halo vs xla rel err {halo_err:.3e} "
+          f"(tol {HALO_DECODE_RTOL:g}); halo_w8a8 vs xla rel err {w8a8_err:.3e} "
+          f"(information); worst W8A8 conv vs its float32 conv {w8a8_worst[0]:.3e} of "
+          f"the output scale (bound {W8A8_CONV_BOUND:g})", flush=True)
+    if halo_err > HALO_DECODE_RTOL:
+        raise AssertionError("the halo decode disagrees with the cuDNN decode")
+    del videos
+    torch.cuda.empty_cache()
+    phase("vae decode", t0)
+    return launches
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=2,
@@ -785,6 +1421,28 @@ def main() -> None:
     entries[3]["launches"] = total["adaln"] + total["ln"]
     print(f"launches on the main paths: bf16 flash_attention_prefix {bf16_launches}; "
           f"W8A8 {total}", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kv_entries = kv_kernel_phase(dev)
+    phase("kv kernels", t0)
+    paths = {}
+    for path in ("int8_b2", "window", "fp8"):
+        paths[path], latents = kv_path_phase(dev, path)
+    kv_entries[0]["launches"] = (paths["int8_b2"]["flash_attention_prefix_quant"]
+                                 + paths["window"]["flash_attention_prefix_quant"])
+    kv_entries[1]["launches"] = paths["fp8"]["flash_attention_prefix_fp8"]
+    entries[2]["launches"] += (paths["int8_b2"]["quantize_rows_int8"]
+                               + paths["window"]["quantize_rows_int8"])
+
+    t0 = time.perf_counter()
+    vae_entries = vae_kernel_phase(dev)
+    phase("vae kernels", t0)
+    decode = vae_decode_phase(dev, latents)
+    vae_entries[0]["launches"] = decode["halo"]["halo_conv3d"]
+    vae_entries[1]["launches"] = decode["halo_w8a8"]["halo_conv3d_w8a8"]
+    entries += kv_entries + vae_entries
+    print(f"launches on this slice's paths: {paths}; decode {decode}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -26,7 +26,8 @@ class ModelConfig:
     out_dim: int = 16
     num_heads: int = 12
     num_layers: int = 30
-    local_attn_size: int = -1  # frames; -1 = global window (the only one ported)
+    local_attn_size: int = -1  # frames; -1 = global window (cache cap applies)
+    sink_size: int = 0         # frames pinned at the start of the rolling cache
     cross_attn_norm: bool = True
     eps: float = 1e-6
     rope_max_seq_len: int = 1024
@@ -55,12 +56,18 @@ class QuantConfig:
     per output channel, activations quantized per token at run time by the
     fused act-quant and LN+modulate+quant passes, the product in the int8
     GEMM kernel.
+
+    With `enabled` and `quantize_kv_cache`, the self-attention KV cache is
+    stored in fewer bits: `kv_cache_dtype` "int8" holds int8 K/V with one
+    float32 scale per (token, head), "fp8" holds scale-free e4m3 K/V. Both
+    halve the cache's bytes against bf16.
     """
 
     enabled: bool = False
     dtype: str = "int8"               # "int8" | "fp8" (e4m3, not ported yet)
     granularity: str = "per_channel"  # "per_tensor" | "per_channel"
-    quantize_kv_cache: bool = False   # the int8 KV cache is not ported yet
+    quantize_kv_cache: bool = False
+    kv_cache_dtype: str = "int8"      # "int8" | "fp8" (e4m3)
     # module-path substrings kept in high precision
     exclude: Tuple[str, ...] = ("text_embedding", "head", "patch_embedding", "time_")
 

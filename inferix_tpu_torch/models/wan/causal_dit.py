@@ -1,6 +1,6 @@
 """Block-causal Wan DiT in PyTorch (port of
 `inferix_tpu/models/wan/causal_dit.py`, the single-device branches, bf16 and
-W8A8).
+W8A8, over a bf16, int8 or fp8 KV cache with a global or rolling window).
 
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
 offset, self-attention over the KV cache, cached text cross-attention, the
@@ -98,15 +98,23 @@ class DiTGeometry:
 
 
 def make_kv_spec(cfg: ModelConfig, batch: int, latent_h: int, latent_w: int,
-                 dtype: torch.dtype = torch.bfloat16) -> KVCacheSpec:
-    if cfg.local_attn_size != -1:
-        raise NotImplementedError(
-            "the rolling-window cache is not ported yet (local_attn_size=-1 only)")
+                 dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
+                 kv_dtype: Optional[torch.dtype] = None) -> KVCacheSpec:
+    """The self-attention cache of `cfg` (JAX `causal_dit.py:make_kv_spec`):
+    a window of `attention_window_frames` frames, a ring with `sink_size`
+    pinned frames when `local_attn_size != -1`, int8 K/V with scales when
+    quantized, else `kv_dtype` (e.g. float8_e4m3fn) or the model dtype.
+    Every pipeline write spans whole frames, so ring writes go granule by
+    granule, one frame a granule."""
     frame_seq = DiTGeometry(1, latent_h, latent_w, cfg.patch_size).frame_seq
     return KVCacheSpec(
         num_layers=cfg.num_layers, batch=batch,
         max_tokens=cfg.attention_window_frames * frame_seq,
-        num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim, dtype=dtype)
+        num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim,
+        sink_tokens=cfg.sink_size * frame_seq,
+        ring=cfg.local_attn_size != -1,
+        dtype=kv_dtype if kv_dtype is not None else dtype,
+        quantized=quantized, granule=frame_seq)
 
 
 def patch_embed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -187,14 +195,16 @@ def block_forward(
     x: torch.Tensor,              # [B, S, C]
     e0: torch.Tensor,             # [B, F, 6, C] fp32
     angles: torch.Tensor,         # [S, head_dim//2]
-    layer_cache: Tuple[torch.Tensor, torch.Tensor],  # this layer's [B, Smax, H, D] k, v
+    layer_cache: Tuple[torch.Tensor, ...],  # this layer's k, v [B, Smax, H, D]
+                                            # (+ k_scale, v_scale [B, Smax, H])
     xattn_k: torch.Tensor,        # [B, text_len, H, D]
     xattn_v: torch.Tensor,
-    current_start: int,           # token offset of this block
-    kv_mask: torch.Tensor,        # [Smax] bool: valid slots after the write
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    current_start,                # token offset of this block (int or [B])
+    kv_mask: torch.Tensor,        # [Smax] or [B, Smax] bool: valid slots after the write
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
-    place, then attends over the cache's live prefix. With int8 weights,
+    place (quantizing it for an int8 cache, whose layer_cache then holds the
+    scales too), then attends over the cache's live slots. With int8 weights,
     each norm prologue (LN + modulate, or the norm3 LN) is fused with its
     linear's activation quantization."""
     b, s, c = x.shape
@@ -223,10 +233,11 @@ def block_forward(
     v = v_p.reshape(b, s, nh, hd)
     q = apply_rope(q.reshape(b, s, nh, hd), angles)
     k = apply_rope(k.reshape(b, s, nh, hd), angles)
-    k_c, v_c = write_block(spec, layer_cache[0], layer_cache[1], k, v,
-                           current_start)
-    attn = cache_attention(q, k_c, v_c, kv_mask=kv_mask,
-                           logical_kv=spec.max_tokens)
+    new_cache = write_block(spec, *layer_cache[:2], k, v, current_start,
+                            *layer_cache[2:])
+    scales = dict(k_scale=new_cache[2], v_scale=new_cache[3]) if spec.quantized else {}
+    attn = cache_attention(q, new_cache[0], new_cache[1], kv_mask=kv_mask,
+                           logical_kv=spec.max_tokens, **scales)
     x = x + _gate(linear(sa["o"], attn.reshape(b, s, c)), gate_msa, frames)
 
     # --- cross-attention over the cached text K/V ---
@@ -253,7 +264,7 @@ def block_forward(
         h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
         y = quantized_ffn(ffn["fc1"], ffn["fc2"], h_f)
     x = x + _gate(y, gate_mlp, frames)
-    return x, (k_c, v_c)
+    return x, new_cache
 
 
 def head_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -272,9 +283,12 @@ class DiTStatics(NamedTuple):
 
 
 def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
-                 latent_w: int, dtype: torch.dtype = torch.bfloat16) -> DiTStatics:
+                 latent_w: int, dtype: torch.dtype = torch.bfloat16,
+                 quantized_kv: bool = False,
+                 kv_dtype: Optional[torch.dtype] = None) -> DiTStatics:
     return DiTStatics(cfg=cfg,
-                      spec=make_kv_spec(cfg, batch, latent_h, latent_w, dtype),
+                      spec=make_kv_spec(cfg, batch, latent_h, latent_w, dtype,
+                                        quantized_kv, kv_dtype),
                       geo=DiTGeometry(frames, latent_h, latent_w, cfg.patch_size))
 
 
@@ -285,21 +299,23 @@ def dit_forward_inference(
     x: torch.Tensor,             # [B, F, H, W, C] noisy latents of this block
     t: torch.Tensor,             # [B, F] timesteps
     xattn: CrossAttnCache,
-    cache: KVCache,              # [L, B, Smax, H, D] x2, updated in place
+    cache: KVCache,              # [L, B, Smax, H, D] x2 (+ scales), updated in place
     current_start: int,          # token offset of the block
     need_output: bool = True,
 ) -> Tuple[Optional[torch.Tensor], KVCache]:
     """One forward of the causal DiT over a block. Returns (flow
     [B, F, H, W, out_dim], cache).
 
-    Every call writes the block's K/V into the cache slots
-    [current_start, current_start + tokens) of each layer, in place. The JAX
-    package's denoise steps run `persist_kv=False` and attend over a
-    functional copy instead; the port needs no such mode, because each later
-    denoise step and then the context re-run (or the persisting last step)
-    rewrite the same slots, in every layer before that layer reads them, so
-    the cache after a block is the same. need_output=False (the context
-    re-run) skips the head and returns flow None.
+    Every call writes the block's K/V into the cache slots of positions
+    [current_start, current_start + tokens) of each layer (ring slots in a
+    rolling window), in place. The JAX package's denoise steps run
+    `persist_kv=False` and attend over a functional copy instead; the port
+    needs no such mode, because each later denoise step and then the context
+    re-run (or the persisting last step) rewrite the same slots, in every
+    layer before that layer reads them, so each step attends over what the
+    JAX step attends over (in a ring, with the same oldest tokens already
+    overwritten) and the cache after a block is the same. need_output=False
+    (the context re-run) skips the head and returns flow None.
     """
     cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     tokens = patch_embed(params, cfg, x)
@@ -307,11 +323,12 @@ def dit_forward_inference(
     angles = rope_angles(rope_tables, geo.frames, geo.grid_h, geo.grid_w,
                          current_start // geo.frame_seq)
     kv_mask = valid_mask(spec, current_start + geo.tokens, device=x.device)
+    fields = [f for f in cache if f is not None]
     h = tokens
     for lid in range(cfg.num_layers):
         h, _ = block_forward(
             layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
-            (cache.k[lid], cache.v[lid]), xattn.k[lid], xattn.v[lid],
+            tuple(f[lid] for f in fields), xattn.k[lid], xattn.v[lid],
             current_start, kv_mask)
     if not need_output:
         return None, cache

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import FP8, flash_attention, flash_attention_quant
 
 
 def _bhqd(x: torch.Tensor) -> torch.Tensor:
@@ -88,16 +88,27 @@ def cache_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
     logical_kv: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatcher: the hand-written CUDA flash kernel for self-attention over
-    a long cache on the card, plain tensor ops otherwise.
+    """Dispatcher: the hand-written CUDA flash kernels for self-attention
+    over a long cache on the card, plain tensor ops otherwise.
 
-    On CUDA tensors, attention over more than 1024 keys (or with a logits
-    tensor past 256 MiB) goes to `flash_attention`, which launches the kernel
-    on the live prefix of `kv_mask`. Smaller attention (cross-attention over
-    the 512 text tokens) stays plain matmul + softmax, as the JAX package
-    keeps it in fused XLA ops. On the CPU every call takes the plain path.
+    k_scale/v_scale ([B, Skv, H] f32) mark k/v as an int8 cache: on CUDA
+    tensors it always goes to `flash_attention_quant` (the int8-KV kernel,
+    in-kernel dequantization); elsewhere it is dequantized to q.dtype and
+    attended on the plain path, as the JAX package's XLA fallback does. An
+    e4m3 cache (scale-free) goes to the kernel like a bf16 one, and is cast
+    to q.dtype on the plain paths. On CUDA tensors, attention over more
+    than 1024 keys (or with a logits tensor past 256 MiB) goes to
+    `flash_attention`, which launches the kernel on the live prefix of
+    `kv_mask`. Smaller attention (cross-attention over the 512 text tokens)
+    stays plain matmul + softmax, as the JAX package keeps it in fused XLA
+    ops. On the CPU every call takes the plain path.
     """
+    if k_scale is not None and q.is_cuda:
+        return flash_attention_quant(q, k, v, k_scale, v_scale,
+                                     kv_mask=kv_mask, scale=scale)
     skv = k.shape[1] if logical_kv is None else logical_kv
     logits_bytes = 4 * q.shape[0] * q.shape[2] * q.shape[1] * skv
     if q.is_cuda and (skv > 1024 or logits_bytes > 256 * 2**20):
@@ -107,8 +118,16 @@ def cache_attention(
     # chunking (and with it the reduction order) matches an exact-size cache.
     if logical_kv is not None and logical_kv < k.shape[1]:
         k, v = k[:, :logical_kv], v[:, :logical_kv]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[:, :logical_kv], v_scale[:, :logical_kv]
         if kv_mask is not None:
             kv_mask = kv_mask[..., :logical_kv]
+    if k_scale is not None:
+        # dequantize, then attend
+        k = (k.float() * k_scale[..., None].float()).to(q.dtype)
+        v = (v.float() * v_scale[..., None].float()).to(q.dtype)
+    elif k.dtype == FP8:
+        k, v = k.to(q.dtype), v.to(q.dtype)
     if q.is_cuda:
         return attention_reference(q, k, v, kv_mask=kv_mask, scale=scale)[0]
     return attention_chunked(q, k, v, kv_mask=kv_mask, scale=scale)[0]

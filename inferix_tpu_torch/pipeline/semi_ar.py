@@ -14,6 +14,11 @@ kernel is compiled. The port's CUDA kernel reads the live span from a device
 tensor and loops over that span only, so there are no buckets and no host
 sync here.
 
+The KV cache is bf16, or with `quant.quantize_kv_cache` int8 with scales or
+scale-free fp8 e4m3 (`quant.kv_cache_dtype`); `model.local_attn_size` sets a
+rolling window with `model.sink_size` pinned frames, whose ring the cache
+wraps around once the clip outgrows it.
+
 W8A8: a tree quantized by `quant.api.quantize_params` runs every block
 linear through the int8 GEMM kernel, each input quantized by the fused
 act-quant or LN+modulate+quant kernel. The generator is single-device, so
@@ -46,15 +51,22 @@ class SemiARGenerator:
         self.cfg = cfg
         self.device = resolve_device(device)
         m, r, qc = cfg.model, cfg.runtime, cfg.quant
-        if qc.enabled and qc.quantize_kv_cache:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP.md A3, kernel B2)")
+        # KV cache storage (JAX `semi_ar.py:139-146`): int8 + scales
+        # (in-kernel dequantization) or scale-free fp8 e4m3 (cast-only);
+        # both halve the cache's bytes, so they buy capacity for streams
+        quant_kv = qc.enabled and qc.quantize_kv_cache
+        if quant_kv and qc.kv_cache_dtype not in ("int8", "fp8"):
+            raise ValueError("kv_cache_dtype must be 'int8' or 'fp8', "
+                             f"got {qc.kv_cache_dtype!r}")
+        fp8_kv = quant_kv and qc.kv_cache_dtype == "fp8"
         # q/k/v fused into one [D, 3D] projection, as the JAX generator does;
         # int8 weights then held once, in the int8 GEMM's K-contiguous layout
         self.params = to_kernel_layout(fuse_qkv_params(params) if m.fuse_qkv
                                        else params)
-        self.statics = make_statics(m, r.batch_size, m.num_frame_per_block,
-                                    r.latent_height, r.latent_width, dtype)
+        self.statics = make_statics(
+            m, r.batch_size, m.num_frame_per_block, r.latent_height,
+            r.latent_width, dtype, quantized_kv=quant_kv and not fp8_kv,
+            kv_dtype=torch.float8_e4m3fn if fp8_kv else None)
         self.rope_tables = build_rope_tables(m.head_dim, m.rope_max_seq_len,
                                              device=self.device)
         self.schedule = FlowMatchSchedule.create(shift=r.timestep_shift,
@@ -171,11 +183,13 @@ class SemiARGenerator:
                     start_frame)
                 start_frame += fpb
             outputs.append(initial_latent.to(self.device))
+        spec = self.statics.spec
         total = (start_frame + num_frames) * self.frame_seq
-        if total > self.statics.spec.max_tokens:
+        if not spec.ring and total > spec.max_tokens:
             raise ValueError(
                 f"clip needs {total} cache tokens but the global window holds "
-                f"{self.statics.spec.max_tokens}")
+                f"{spec.max_tokens}; raise max_attention_frames or enable the "
+                "rolling window (local_attn_size)")
         for bi in range(num_frames // fpb):
             x0, cache = self.denoise_block(
                 cache, xattn, noise[:, bi * fpb:(bi + 1) * fpb], start_frame,

@@ -1,15 +1,17 @@
 """Model parameters for the port: carried across from the JAX package's tree,
 or drawn from a seed.
 
-The tree is the JAX package's own layout (`causal_dit.py:init_params`):
-nested dicts whose transformer-block leaves are stacked on a leading [L]
-axis, linear weights stored [in, out]. The port keeps that layout, so a layer
-is a view `leaf[l]` and a checkpoint converted for one package fits both.
+The tree is the JAX package's own layout (`causal_dit.py:init_params`,
+`vae.py:init_decoder`): nested dicts (and, in the VAE decoder, a list of
+`upsamples`) whose transformer-block leaves are stacked on a leading [L]
+axis, linear weights stored [in, out], conv weights [kt, kh, kw, in, out].
+The port keeps that layout, so a layer is a view `leaf[l]` and a checkpoint
+converted for one package fits both.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -32,13 +34,16 @@ def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
     `jax.tree.map(np.asarray, params)`) into the port's tree of tensors on
     `device`. Floating leaves become `dtype`, except the float32 keys
     above; integer leaves (int8 `w_q`) keep their type. Works for stacked
-    layers, for unfused or fused (`qkv`) self-attention projections, and for
-    float or int8-quantized trees alike."""
+    layers, for unfused or fused (`qkv`) self-attention projections, for
+    float or int8-quantized trees alike, and for the VAE's tree (lists are
+    walked like dicts)."""
     dev = resolve_device(device)
 
     def convert(node, fp32: bool):
         if isinstance(node, dict):
             return {k: convert(v, fp32 or k in _FP32_KEYS) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v, fp32) for v in node]
         arr = np.asarray(node)
         if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 from JAX
             arr = arr.astype(np.float32)
@@ -104,3 +109,68 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "head": {"head": linear(d, patch * cfg.out_dim),
                  "modulation": modulation(2, d)},
     }
+
+
+def init_vae_params(cfg, generator: torch.Generator,
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype = torch.float32) -> Params:
+    """Random VAE decode parameters `{"decoder": ..., "conv2": ...}` from the
+    same distributions as the JAX package's `init_decoder` and the
+    `CausalVAE` 1x1x1 conv (not the same bits): conv weights and biases
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), RMS-norm gammas 1, and the attention
+    output projections zero (the reference's init). cfg: a
+    `models.wan.vae.VAEConfig`; `generator` must live on `device`."""
+    dev = resolve_device(device)
+
+    def conv(kt, kh, kw, cin, cout):
+        bound = 1.0 / math.sqrt(kt * kh * kw * cin)
+
+        def u(*shape):
+            w = torch.empty(shape, dtype=torch.float32, device=dev)
+            return w.uniform_(-bound, bound, generator=generator).to(dtype)
+
+        return {"w": u(kt, kh, kw, cin, cout), "b": u(cout)}
+
+    def gamma(c):
+        return {"gamma": torch.ones(c, dtype=dtype, device=dev)}
+
+    def res(cin, cout):
+        p = {"norm1": gamma(cin), "conv1": conv(3, 3, 3, cin, cout),
+             "norm2": gamma(cout), "conv2": conv(3, 3, 3, cout, cout)}
+        if cin != cout:
+            p["shortcut"] = conv(1, 1, 1, cin, cout)
+        return p
+
+    def attn(c):
+        return {"norm": gamma(c), "qkv": conv(1, 1, 1, c, 3 * c),
+                "proj": {"w": torch.zeros(1, 1, 1, c, c, dtype=dtype, device=dev),
+                         "b": torch.zeros(c, dtype=dtype, device=dev)}}
+
+    def resample(c, mode):
+        p = {"conv": conv(1, 3, 3, c, c // 2)}
+        if mode == "upsample3d":
+            p["time_conv"] = conv(3, 1, 1, c, 2 * c)
+        return p
+
+    dims = [cfg.dim * u for u in (cfg.dim_mult[-1], *reversed(cfg.dim_mult))]
+    dec: Params = {"conv1": conv(3, 3, 3, cfg.z_dim, dims[0]),
+                   "middle": {"res1": res(dims[0], dims[0]), "attn": attn(dims[0]),
+                              "res2": res(dims[0], dims[0])}}
+    ups: List[Params] = []
+    scale = 1.0 / 2 ** (len(cfg.dim_mult) - 2)
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        if i in (1, 2, 3):
+            cin = cin // 2
+        for _ in range(cfg.num_res_blocks + 1):
+            ups.append({"res": res(cin, cout)})
+            if scale in cfg.attn_scales:
+                ups.append({"attn": attn(cout)})
+            cin = cout
+        if i != len(cfg.dim_mult) - 1:
+            mode = "upsample3d" if cfg.temperal_upsample[i] else "upsample2d"
+            ups.append({f"resample:{mode}": resample(cout, mode)})
+            scale *= 2.0
+    dec["upsamples"] = ups
+    dec["head_norm"] = gamma(cfg.dim)
+    dec["head_conv"] = conv(3, 3, 3, cfg.dim, 3)
+    return {"decoder": dec, "conv2": conv(1, 1, 1, cfg.z_dim, cfg.z_dim)}

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from inferix_tpu.kvcache.cache import quantize_kv_block as jax_quantize_kv_block
 from inferix_tpu.ops.flash_attention import flash_attention_prefix as jax_flash
+from inferix_tpu.ops.flash_attention import flash_attention_prefix_quant as jax_flash_quant
 from inferix_tpu_torch import _build
 from inferix_tpu_torch.ops import flash_attention as tfa
 
@@ -79,6 +81,101 @@ def test_reference_per_row_bounds(softmax):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
 
 
+def _assert_within_pv_ulp(got, want, q, kq, vq, ks, vs, starts, ends):
+    """The int8-KV kernels round each p * v_scale to bf16 from float32
+    logits whose last bits differ between the two versions (other summation
+    orders), so a p may round the other way: an output may differ by up to
+    one bf16 ulp (2^-8 relative) of each of its terms p_j v_j / l. The bound
+    per element is 2^-8 sum_j (p_j / l) |v_j| + 1e-5, from a float64
+    softmax over the dequantized keys of each row's span."""
+    b, sq, h, d = q.shape
+    bound = np.empty_like(got)
+    for i in range(b):
+        s0, e0 = starts[i], ends[i]
+        for hh in range(h):
+            kd = kq[i, s0:e0, hh].astype(np.float64) * ks[i, s0:e0, hh, None]
+            vd = np.abs(vq[i, s0:e0, hh].astype(np.float64) * vs[i, s0:e0, hh, None])
+            logits = q[i, :, hh].astype(np.float64) @ kd.T * d ** -0.5
+            p = np.exp(logits - logits.max(-1, keepdims=True))
+            bound[i, :, hh] = 2.0 ** -8 * (p / p.sum(-1, keepdims=True)) @ vd + 1e-5
+    err = np.abs(got - np.asarray(want))
+    assert (err <= bound).all(), (err.max(), (err / bound).max())
+
+
+def _quant_inputs(b, seed):
+    """q float32 and an int8 K/V cache with its scales, quantized by the
+    JAX package's own cache quantizer."""
+    q, k, v = _inputs(b, seed)
+    kq, ks = (np.array(a) for a in jax_quantize_kv_block(jnp.asarray(k)))
+    vq, vs = (np.array(a) for a in jax_quantize_kv_block(jnp.asarray(v)))
+    return q, kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+@pytest.mark.parametrize("kv_start,kv_len", [(0, 640), (0, 300), (200, 517)])
+def test_quant_reference_matches_pallas_kernel(kv_start, kv_len, softmax):
+    """The int8-KV plain version against `_flash_kernel_quant` in interpret
+    mode: the whole cache, a prefix and a span starting past 0, scalar
+    bounds. Both round p * v_scale to bf16 before PV: the output within one
+    bf16 ulp of its p.v terms (see _assert_within_pv_ulp), the LSE 1e-5."""
+    q, kq, vq, ks, vs = _quant_inputs(1, seed=3)
+    want, want_lse = jax_flash_quant(
+        *map(jnp.asarray, (q, kq, vq, ks, vs)), jnp.int32(kv_len), kv_start,
+        return_lse=True, interpret=True, q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_quant_reference(
+        *map(torch.from_numpy, (q, kq, vq, ks, vs)), kv_len, kv_start,
+        softmax=softmax, return_lse=True)
+    _assert_within_pv_ulp(got.numpy(), want, q, kq, vq, ks, vs, [kv_start], [kv_len])
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+def test_quant_reference_per_row_bounds(softmax):
+    """B=2 with a span per batch row ([B] bounds), int8 K/V."""
+    q, kq, vq, ks, vs = _quant_inputs(2, seed=4)
+    want, want_lse = jax_flash_quant(
+        *map(jnp.asarray, (q, kq, vq, ks, vs)), jnp.asarray(B2_END, jnp.int32),
+        jnp.asarray(B2_START, jnp.int32), return_lse=True, interpret=True,
+        q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_quant_reference(
+        *map(torch.from_numpy, (q, kq, vq, ks, vs)), torch.tensor(B2_END),
+        torch.tensor(B2_START), softmax=softmax, return_lse=True)
+    _assert_within_pv_ulp(got.numpy(), want, q, kq, vq, ks, vs, B2_START, B2_END)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("softmax", ["fixedm", "runmax"])
+@pytest.mark.parametrize("kv_start,kv_len", [(0, 640), (200, 517)])
+def test_reference_fp8_kv_matches_pallas_kernel(kv_start, kv_len, softmax):
+    """The plain version over a scale-free e4m3 K/V cache against
+    `_flash_kernel` in interpret mode, which casts e4m3 to q's dtype in the
+    kernel (exact, as in the port)."""
+    q, k, v = _inputs(1, seed=5)
+    k8, v8 = (torch.from_numpy(a).clamp(-448, 448).to(tfa.FP8) for a in (k, v))
+    jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.float8_e4m3fn) for t in (k8, v8))
+    np.testing.assert_array_equal(np.asarray(jk).view(np.uint8), k8.view(torch.uint8).numpy())
+    want, want_lse = jax_flash(
+        jnp.asarray(q), jk, jv, jnp.int32(kv_len), kv_start, return_lse=True,
+        interpret=True, q_block=16, kv_block=128, softmax=softmax)
+    got, lse = tfa.flash_attention_prefix_reference(
+        torch.from_numpy(q), k8, v8, kv_len, kv_start, softmax=softmax,
+        return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+def test_quant_wrapper_on_cpu_takes_the_plain_version():
+    """On CPU tensors the int8-KV wrapper and its mask wrapper are the plain
+    version and count no launch."""
+    q, kq, vq, ks, vs = (torch.from_numpy(np.array(a)) for a in _quant_inputs(1, seed=6))
+    before = tfa.flash_attention_prefix_quant.launches
+    want = tfa.flash_attention_prefix_quant_reference(q, kq, vq, ks, vs, 300)
+    assert torch.equal(tfa.flash_attention_prefix_quant(q, kq, vq, ks, vs, 300), want)
+    masked = tfa.flash_attention_quant(q, kq, vq, ks, vs, kv_mask=torch.arange(640) < 300)
+    assert torch.equal(masked, want)
+    assert tfa.flash_attention_prefix_quant.launches == before
+
+
 def test_wrapper_on_cpu_takes_the_plain_version():
     """On CPU tensors the wrapper is the plain version and counts no launch;
     the mask wrapper reads the span end from the mask's population count."""
@@ -104,7 +201,8 @@ def test_bounds_tensor_for_the_kernel():
         tfa._bounds_tensor(0, torch.tensor([1, 2, 3]), 2, "cpu")
 
 
-@pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant"])
+@pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant",
+                                  "halo_conv"])
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
     build of each kernel library stops with an error that says so."""

@@ -172,8 +172,23 @@ def test_default_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w_q": np.zeros((2, 2), np.int8),
                            "scale": np.ones(2, np.float32)})
+    # this slice's entry points: the int8 and fp8 KV caches, the window, the VAE
+    from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
+    from inferix_tpu_torch.utils.params import init_vae_params
+    cfg.quant.quantize_kv_cache = True
+    cfg.model.local_attn_size, cfg.model.sink_size = 3, 1
+    for kv in ("int8", "fp8"):
+        cfg.quant.kv_cache_dtype = kv
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SemiARGenerator(cfg, params)
+    vcfg = VAEConfig(dim=16, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
+                     temperal_downsample=(True,))
     spec = KVCacheSpec(num_layers=1, batch=1, max_tokens=8, num_kv_heads=1, head_dim=4)
+    qspec = KVCacheSpec(num_layers=1, batch=1, max_tokens=8, num_kv_heads=1, head_dim=4,
+                        quantized=True, ring=True, sink_tokens=2)
     for call in (lambda: init_kv_cache(spec), lambda: valid_mask(spec, 4),
+                 lambda: init_kv_cache(qspec), lambda: valid_mask(qspec, torch.tensor([4])),
+                 lambda: CausalVAE(vcfg), lambda: init_vae_params(vcfg, torch.Generator()),
                  lambda: build_rope_tables(32), lambda: FlowMatchSchedule.create()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

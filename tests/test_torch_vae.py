@@ -1,0 +1,265 @@
+"""The port's halo conv plain versions and Wan causal-VAE decode against the
+JAX package (`inferix_tpu/ops/halo_conv.py`, `inferix_tpu/models/wan/vae.py`),
+float32 on the CPU, inputs drawn with numpy from a seed.
+
+The Pallas halo kernels run in interpret mode, as tests/test_halo_conv.py
+runs them. The CUDA kernels themselves are held against these plain versions
+on the card by chip_smoke.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferix_tpu.models.wan import vae as jvae
+from inferix_tpu.ops.halo_conv import halo_conv3d as jax_halo
+from inferix_tpu.ops.halo_conv import halo_conv3d_w8a8 as jax_halo_w8a8
+from inferix_tpu_torch.models.wan import vae as tvae
+from inferix_tpu_torch.ops import halo_conv as thc
+from inferix_tpu_torch.utils.params import init_vae_params, params_from_numpy
+
+# the tiny decoder of tests/test_halo_conv.py: one upsample3d, 16x24 pixels
+# after it (H*W >= 256: the halo gate takes the convs there)
+TINY = dict(dim=16, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
+            temperal_downsample=(True,))
+DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
+# W8A8 decode: the float32 activations entering each W8A8 conv differ
+# between the two packages in their last bits (convs and norms sum in other
+# orders), so an activation code at a rounding boundary may round the other
+# way, moving s_x * w into up to 27 * Cout outputs; measured 2.1% of the
+# pixels off by more than 1e-4, at most 3.6e-3 of the video's scale, 5.8e-4
+# in norm. Given the same input the two W8A8 convs agree to 1e-6
+# (test_halo_conv_w8a8_reference_matches_pallas).
+W8A8_DECODE_RTOL = 2e-3   # ||port - jax|| / ||jax||
+W8A8_DECODE_MAX = 1e-2    # max |port - jax| / max |jax|
+
+
+def _conv_inputs(tin, h, w, cin, cout, kt, seed=7):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((tin, h, w, cin)) * 0.1).astype(np.float32),
+            (rng.standard_normal((kt, 3, 3, cin, cout)) * 0.05).astype(np.float32),
+            rng.standard_normal((cout,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("tin,h,w,cin,cout,kt", [
+    (4, 13, 17, 192, 192, 3),   # H % block != 0, W not 16-aligned
+    (5, 10, 12, 96, 3, 3),      # RGB head (tiny cout)
+    (3, 12, 20, 96, 48, 1),     # upsample half-channel conv
+    (3, 9, 11, 16, 32, 3),      # Cin 16 (the decoder's first conv)
+])
+def test_halo_conv_reference_matches_pallas(tin, h, w, cin, cout, kt):
+    """The bf16 kernel's plain version (27 tap-shifted f32 products) against
+    the Pallas kernel in interpret mode, float32: the two sum up to 27*192
+    products in other orders; atol 3e-5, rtol 1e-5 (the JAX package's own
+    tolerance for this kernel against lax.conv)."""
+    x, wt, b = _conv_inputs(tin, h, w, cin, cout, kt)
+    want = jax_halo(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), interpret=True)
+    got = thc.halo_conv3d(*map(torch.from_numpy, (x, wt, b)))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("tin,h,w,cin,cout,kt", [
+    (4, 12, 20, 96, 96, 3),     # single cout block
+    (3, 7, 40, 128, 256, 3),    # cout blocking (n_co > 1)
+    (4, 12, 20, 192, 96, 1),    # kt=1: the upsample conv class (w8a8-only)
+])
+def test_halo_conv_w8a8_reference_matches_pallas(tin, h, w, cin, cout, kt):
+    """The W8A8 kernel's plain version against the int8 Pallas kernel in
+    interpret mode: the same codes (the quantization is the JAX wrapper's,
+    divisions included), exact integer sums and the same f32 epilogue, so
+    the outputs agree to 1e-6; and within the JAX test's W8A8 bound (0.05 of
+    the output scale) of the float32 conv."""
+    x, wt, b = _conv_inputs(tin, h, w, cin, cout, kt, seed=11)
+    b = b * 0.1
+    want = jax_halo_w8a8(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), interpret=True)
+    tx, tw, tb = map(torch.from_numpy, (x, wt, b))
+    got = thc.halo_conv3d_w8a8(tx, tw, tb)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+    ref = thc.halo_conv3d_reference(tx, tw, tb).numpy()
+    assert np.abs(got.numpy() - ref).max() <= 0.05 * np.abs(ref).max()
+
+
+def test_conv_wrappers_count_no_launch_on_the_cpu():
+    x, wt, b = map(torch.from_numpy, _conv_inputs(4, 8, 8, 16, 16, 3))
+    before = (thc.halo_conv3d.launches, thc.halo_conv3d_w8a8.launches)
+    assert torch.equal(thc.halo_conv3d(x, wt, b), thc.halo_conv3d_reference(x, wt, b))
+    assert torch.equal(thc.halo_conv3d_w8a8(x, wt, b),
+                       thc.halo_conv3d_w8a8_reference(x, wt, b))
+    assert (thc.halo_conv3d.launches, thc.halo_conv3d_w8a8.launches) == before
+    with pytest.raises(ValueError, match="3x3"):
+        thc.halo_conv3d(x, wt[:, :1], b)
+    with pytest.raises(ValueError, match="too few"):
+        thc.halo_conv3d(x[:2], wt, b)
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_pack_weight_lays_out_each_output_channel_contiguously(w8a8):
+    """pack_weight: wk[n, dt, 3 dh + dw, c] = w[dt, dh, dw, c, n] (bf16, or
+    the W8A8 weight codes with their s_w, exactly as quantize_conv_w8a8
+    draws them), Cin zero-padded to 32; a wrapper given it returns what it
+    returns without, and refuses an operand built for another weight or
+    precision."""
+    x, wt, b = map(torch.from_numpy, _conv_inputs(4, 8, 8, 48, 24, 3))
+    packed = thc.pack_weight(wt, w8a8=w8a8)
+    if w8a8:
+        _, w_el, sv = thc.quantize_conv_w8a8(x, wt)
+        s_x = torch.clamp_min(x.abs().amax(), 1e-8) / torch.tensor(127.0)
+        assert torch.equal(s_x * packed.s_w, sv)
+    else:
+        w_el = wt.to(torch.bfloat16)
+        assert packed.s_w is None
+    assert packed.wk.shape == (24, 3, 9, 64) and packed.wk.dtype == w_el.dtype
+    assert packed.wk.is_contiguous() and not packed.wk[..., 48:].any()
+    for dt, dh, dw in ((0, 0, 0), (1, 2, 1), (2, 1, 2)):
+        assert torch.equal(packed.wk[:, dt, 3 * dh + dw, :48], w_el[dt, dh, dw].T)
+    kern = thc.halo_conv3d_w8a8 if w8a8 else thc.halo_conv3d
+    assert torch.equal(kern(x, wt, b, packed=packed), kern(x, wt, b))
+    with pytest.raises(ValueError, match="does not belong"):
+        kern(x[..., :16], wt[:, :, :, :16], b, packed=packed)
+    with pytest.raises(ValueError, match="does not belong"):
+        kern(x, wt, b, packed=thc.pack_weight(wt, w8a8=not w8a8))
+
+
+def _jax_tree(cfg):
+    """The JAX package's CausalVAE parameters from a key, with the attention
+    output projections (zeros at init) drawn at random so the attention
+    blocks change the decode."""
+    vae = jvae.CausalVAE(cfg, key=jax.random.key(0))
+    params = jax.tree.map(np.asarray, vae.params)
+    rng = np.random.default_rng(5)
+    proj = params["decoder"]["middle"]["attn"]["proj"]
+    proj["w"] = (rng.standard_normal(proj["w"].shape) * 0.1).astype(np.float32)
+    proj["b"] = (rng.standard_normal(proj["b"].shape) * 0.1).astype(np.float32)
+    return params
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = jvae.VAEConfig(**TINY)
+    params = _jax_tree(cfg)
+    z = (np.random.default_rng(1).standard_normal((1, 3, 8, 12, 4)) * 0.3
+         ).astype(np.float32)
+    return cfg, params, z
+
+
+def _decode_jax(cfg, params, z, conv_impl, upsample_impl, chunk=2):
+    try:
+        jvae.set_vae_conv_impl(conv_impl, interpret_ok=True)
+        jvae.set_vae_upsample_impl(upsample_impl)
+        vae = jvae.CausalVAE(cfg, params=jax.tree.map(jnp.asarray, params))
+        return np.asarray(vae.decode(jnp.asarray(z), chunk=chunk))
+    finally:
+        jvae.set_vae_conv_impl("xla")
+        jvae.set_vae_upsample_impl("repeat")
+
+
+def _port_vae(cfg, params, conv_impl="xla", upsample_impl="repeat"):
+    return tvae.CausalVAE(tvae.VAEConfig(**TINY), params_from_numpy(params, "cpu",
+                                                                    torch.float32),
+                          dtype=torch.float32, device="cpu", conv_impl=conv_impl,
+                          upsample_impl=upsample_impl)
+
+
+@pytest.mark.parametrize("upsample_impl", ["repeat", "phase"])
+@pytest.mark.parametrize("conv_impl", ["xla", "shifted_matmul", "halo", "halo_w8a8"])
+def test_decode_matches_jax(tiny, conv_impl, upsample_impl):
+    """A 3-frame decode in chunks of 2 (the first chunk's 'Rep' frame, then
+    the temporal cache) through every conv impl and both upsample impls,
+    against the JAX decode with the same switches (the halo kernels in
+    interpret mode): float32, 1e-4 (convs that sum in other orders through
+    the decoder); halo_w8a8 within W8A8_DECODE_RTOL / W8A8_DECODE_MAX."""
+    cfg, params, z = tiny
+    want = _decode_jax(cfg, params, z, conv_impl, upsample_impl)
+    vae = _port_vae(cfg, params, conv_impl, upsample_impl)
+    got = vae.decode(torch.from_numpy(z), chunk=2).numpy()
+    assert got.shape == want.shape == (1, 5, 16, 24, 3)
+    if conv_impl != "halo_w8a8":
+        np.testing.assert_allclose(got, want, **DECODE_TOL)
+    else:
+        assert np.linalg.norm(got - want) <= W8A8_DECODE_RTOL * np.linalg.norm(want)
+        assert np.abs(got - want).max() <= W8A8_DECODE_MAX * np.abs(want).max()
+
+
+def test_halo_impls_route_to_the_halo_conv(tiny, monkeypatch):
+    """The JAX gate: `halo` takes the 3x3x3 convs of frames with H*W >= 256
+    only, `halo_w8a8` the 1x3x3 upsample conv as well; `xla` neither."""
+    cfg, params, z = tiny
+    seen = []
+    for impl, name in (("halo", "halo_conv3d"), ("halo_w8a8", "halo_conv3d_w8a8")):
+        orig = getattr(tvae, name)
+        monkeypatch.setattr(tvae, name, lambda x, w, b, packed=None, _o=orig, _i=impl: (
+            seen.append((_i, tuple(w.shape[:3]), x.shape[1] * x.shape[2])),
+            _o(x, w, b, packed=packed))[1])
+    for impl in ("xla", "halo", "halo_w8a8"):
+        _port_vae(cfg, params, impl).decode(torch.from_numpy(z), chunk=3)
+    assert {s[0] for s in seen} == {"halo", "halo_w8a8"}
+    assert all(hw >= 256 for _, _, hw in seen)
+    assert {k for i, k, _ in seen if i == "halo"} == {(3, 3, 3)}
+    assert {k for i, k, _ in seen if i == "halo_w8a8"} == {(3, 3, 3), (1, 3, 3)}
+    # 2 res blocks' 4 convs + the head conv at 16x24; w8a8 adds the upsample conv
+    assert sum(i == "halo" for i, _, _ in seen) == 5
+    assert sum(i == "halo_w8a8" for i, _, _ in seen) == 6
+
+
+@pytest.mark.parametrize("conv_impl", ["halo", "halo_w8a8"])
+def test_packed_halo_weights_decode_as_unpacked(tiny, conv_impl):
+    """The weights CausalVAE lays out once on the card: every conv of the
+    halo gate's class (3x3x3; under halo_w8a8 1x3x3 too) gets one, at every
+    resolution (the H*W >= 256 part of the gate is the input's), no other
+    conv does, and the decode through them equals the decode without."""
+    cfg, params, z = tiny
+    plain = _port_vae(cfg, params, conv_impl)
+    vae = _port_vae(cfg, params, conv_impl)
+    tvae._pack_halo_weights(vae.params, conv_impl)
+    leaves = _leaves(vae.params)
+    packed = {p[:p.index("packed")] for p, _ in leaves if "packed" in p}
+    kinds = {(3, 3, 3), (1, 3, 3)} if conv_impl == "halo_w8a8" else {(3, 3, 3)}
+    want = {p[:-1] for p, t in leaves
+            if p[-1] == "w" and "packed" not in p and tuple(t.shape[:3]) in kinds}
+    assert packed == want and len(want) >= 5
+    assert torch.equal(vae.decode(torch.from_numpy(z), chunk=2),
+                       plain.decode(torch.from_numpy(z), chunk=2))
+
+
+def test_chunked_decode_equals_frame_by_frame(tiny):
+    """Decoding 3 latent frames in one chunk equals decoding them one at a
+    time (the temporal caches carry the context): float32, 1e-5."""
+    cfg, params, z = tiny
+    vae = _port_vae(cfg, params)
+    whole = vae.decode(torch.from_numpy(z), chunk=3)
+    frames = vae.decode(torch.from_numpy(z), chunk=1)
+    np.testing.assert_allclose(whole.numpy(), frames.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs of a nested dict/list tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
+def test_vae_param_bridge_and_seeded_init(tiny):
+    """params_from_numpy walks the decoder's `upsamples` list and keeps every
+    leaf's value; init_vae_params draws a tree of the JAX init's structure
+    and shapes, from its distributions (U(+-1/sqrt(fan_in)) convs, zero
+    attention projections, unit gammas)."""
+    cfg, params, _ = tiny
+    bridged = _leaves(params_from_numpy(params, "cpu", torch.float32))
+    want = _leaves(params)
+    assert [p for p, _ in bridged] == [p for p, _ in want]
+    for (_, t), (_, j) in zip(bridged, want):
+        np.testing.assert_array_equal(t.numpy(), j)
+    seeded = init_vae_params(tvae.VAEConfig(**TINY), torch.Generator().manual_seed(0),
+                             device="cpu")
+    jdec = {"decoder": jvae.init_decoder(jax.random.key(1), cfg), "conv2": params["conv2"]}
+    assert [(p, tuple(t.shape)) for p, t in _leaves(seeded)] == \
+        [(p, tuple(a.shape)) for p, a in _leaves(jdec)]
+    head = seeded["decoder"]["head_conv"]["w"]
+    bound = 1 / np.sqrt(27 * cfg.dim)
+    assert head.abs().max() <= bound and head.std() > bound / 3
+    assert not seeded["decoder"]["middle"]["attn"]["proj"]["w"].any()
+    assert (seeded["decoder"]["head_norm"]["gamma"] == 1).all()
