@@ -56,6 +56,29 @@ Phases, each timed on a line of its own:
                 "halo" and "halo_w8a8": kernel launches per chunk, pixels
                 [1, 21, 480, 832, 3] finite in [-1, 1], halo against xla,
                 every W8A8 conv against the float32 conv of its input.
+ 11. fp8w kernels - the fp8 (e4m3) weight-only GEMM against its plain version
+                at every main-path shape of the fp8 path (M 4680 x the four
+                (K, N) classes, M 512 text K/V) and edges (M 70 with K 8960,
+                M 1, one scale for all, f32 out), within one bf16 ulp; the
+                weight codes quantized on the card bit-equal to the CPU
+                quantizer's; the wrapper refusing bad operands; per-layer
+                time beside the bound, the plain version and cuBLAS bf16
+                over a dequantized copy.
+ 12. fp8w main - N blocks with fp8 weights (`--quant fp8`: e4m3 per-channel
+                block linears, bf16 KV, rerun): 900 fp8 GEMM and 150 flash
+                launches a block, 60 fp8 GEMMs at text encode and no int8
+                kernel; latents and cache checked; one layer and one forward
+                with the kernel against the plain GEMM; the flow against
+                bf16's, for information.
+ 13. quant-attention kernels - the int8-QK and int8-PV attention entry
+                points (TPU kernels 3, 4) against their plain versions code
+                by code at the full cache (B=1 and B=2 with [B] lengths,
+                kv_len 30000, 1 and 0, with and without lse, kv_block 128):
+                a code may differ by 1 only at a rounding tie, the output
+                is bounded through the differing codes; timed beside the
+                bound and SDPA over a dequantized bf16 copy. No path calls
+                them (0 launches).
+(Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -89,8 +112,10 @@ from inferix_tpu_torch.ops.act_quant import (
     ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
     quantize_rows_int8_reference)
 from inferix_tpu_torch.ops.flash_attention import (
-    FP8, flash_attention_prefix, flash_attention_prefix_quant,
-    flash_attention_prefix_quant_reference, flash_attention_prefix_reference)
+    FP8, LOG2E, quant_ext_reference, flash_attention_prefix,
+    flash_attention_prefix_quant, flash_attention_prefix_quant_i8,
+    flash_attention_prefix_quant_reference, flash_attention_prefix_quant_v2,
+    flash_attention_prefix_reference, quant_ext_kernel)
 from inferix_tpu_torch.ops.halo_conv import (
     halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight)
@@ -98,15 +123,16 @@ from inferix_tpu_torch.ops.rope import rope_angles
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
 from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
 from inferix_tpu_torch.quant.kernels import (
-    int8_matmul, int8_matmul_reference, quantize_act_int8_per_token,
-    quantize_weight_int8)
+    fp8_matmul, fp8_matmul_reference, int8_matmul, int8_matmul_reference,
+    quantize_act_int8_per_token, quantize_weight_fp8, quantize_weight_int8)
 from inferix_tpu_torch.utils.params import init_params, init_vae_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant", "halo_conv")
+LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant", "halo_conv",
+             "fp8_matmul", "flash_attention_quant_ext")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -687,6 +713,9 @@ KERNEL_COUNTERS = {  # name -> (wrapper, attribute holding its launch count)
     "flash_attention_prefix_quant": (flash_attention_prefix_quant, "launches"),
     "halo_conv3d": (halo_conv3d, "launches"),
     "halo_conv3d_w8a8": (halo_conv3d_w8a8, "launches"),
+    "fp8_matmul": (fp8_matmul, "launches"),
+    "flash_attention_prefix_quant_i8": (flash_attention_prefix_quant_i8, "launches"),
+    "flash_attention_prefix_quant_v2": (flash_attention_prefix_quant_v2, "launches"),
 }
 
 
@@ -1378,6 +1407,440 @@ def vae_decode_phase(dev: torch.device, latents: torch.Tensor) -> dict:
     phase("vae decode", t0)
     return launches
 
+# ---------------------------------------------------------------------------
+# fp8 (e4m3) weight-only linears (TPU kernel 9), and the int8-PV attention
+# entry points (TPU kernels 3 and 4)
+# ---------------------------------------------------------------------------
+
+# fp8 GEMM against its plain version, bf16 x on the card. Both sum exact
+# products (bf16 times e4m3 is exact in f32) in f32, in other orders, then
+# apply the same scale product and one rounding: an output may round to the
+# neighbouring bf16 value, at most one bf16 ulp of the larger of the two.
+# An output near 0 (a sum that cancels) differs by the f32 difference of the
+# two sums itself, bounded by FP8_SUM_TOL times the sum of the products'
+# magnitudes (|x| @ |dequantized w|; the orders' actual differences are
+# ~2^-24 of it). Per element:
+#     |out_kernel - out_plain| <= ulp_bf16(max(|kernel|, |plain|))
+#                                 + FP8_SUM_TOL * (|x| @ |w_deq|)
+# (measured from the plain product before the bias; with a bias, whose sum
+# rounds once more, plus one ulp of the output). A wrong k tile, column or
+# scale moves outputs by O(|out|). A moved rounding point (the product
+# rounded to bf16 before the scale, as the JAX XLA chain does) stays within
+# one ulp but flips ~20% of the outputs, where the summation orders flip
+# 7e-5 to 7e-4 of them (H100 SXM): at most FP8_DIFF_SHARE may differ.
+FP8_SUM_TOL = 2.0 ** -20
+FP8_DIFF_SHARE = 1e-2
+# One layer / one forward with the fp8 kernel against the same with the plain
+# GEMM (the one-ulp differences above carried through bf16 layers): the bf16
+# path's LAYER_RTOL and FORWARD_RTOL.
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (f32 tensor): 2^(e - 8) for |x| in
+    [2^(e-1), 2^e); the smallest normal's spacing at 0."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def fp8_operands(dev, g, m, k, n, per_channel=True):
+    """x bf16 N(0, 1); a weight U(-1/sqrt(K), 1/sqrt(K)) as init_params
+    draws it, quantized on the card, its codes and scales checked bit for
+    bit against the CPU quantizer's; the weight K-contiguous as the
+    generator holds it; a bf16 bias. Returns (x, w_q, scale, bias)."""
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    w = ((torch.rand(k, n, generator=g, device=dev) * 2 - 1) / k ** 0.5).to(torch.bfloat16)
+    w_q, scale = quantize_weight_fp8(w, per_channel)
+    cq, cs = quantize_weight_fp8(w.cpu(), per_channel)
+    if not (torch.equal(w_q.view(torch.uint8).cpu(), cq.view(torch.uint8))
+            and torch.equal(scale.cpu(), cs)):
+        raise AssertionError(f"e4m3 codes or scales of a [{k}x{n}] weight quantized "
+                             "on the card differ from the CPU quantizer's")
+    b = (torch.randn(n, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    return x, w_q.t().contiguous().t(), scale, b
+
+
+def fp8_gemm_times(m, k, n, out_bytes=2):
+    """(ops_ms, bytes_ms) of one fp8 GEMM: its operations at the bf16 peak;
+    bf16 x, e4m3 w, f32 scales, bias and out read or written once."""
+    nbytes = 2 * m * k + n * k + 4 * n + 2 * n + m * n * out_bytes
+    return 2e3 * m * n * k / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def fp8w_kernel_phase(dev: torch.device) -> dict:
+    """B8 against its plain version at every main-path shape and a few
+    edges, the wrapper refusing bad operands, then timed per layer beside
+    its bound, the plain version and cuBLAS bf16 over a dequantized copy."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    before = all_counts()
+    cases = [(nm, m, k, n, {}) for nm, m, k, n, _ in LAYER_GEMMS] + [
+        ("text_kv", TEXT, DIM, DIM, {}), ("m70_k8960", 70, FFN, DIM, {}),
+        ("m1", 1, DIM, DIM, {}), ("per_tensor", SQ, DIM, DIM, dict(per_channel=False)),
+        ("f32_out", SQ, DIM, DIM, dict(out_dtype=torch.float32)),
+        ("no_bias_k16", 100, 16, 8, dict(bias=False))]
+    worst, failed = 0.0, []
+    for nm, m, k, n, kw in cases:
+        x, w_q, ws, b = fp8_operands(dev, g, m, k, n, kw.get("per_channel", True))
+        if not kw.get("bias", True):
+            b = None
+        od = kw.get("out_dtype", torch.bfloat16)
+        out = fp8_matmul(x, w_q, ws, out_dtype=od, bias=b)
+        torch.cuda.synchronize()
+        ref = fp8_matmul_reference(x, w_q, ws, out_dtype=od, bias=b)
+        o, r = out.float(), ref.float()
+        diff = (o - r).abs()
+        mag = torch.matmul(x.float().abs(), (w_q.float() * ws.reshape(1, -1)).abs())
+        pre = fp8_matmul_reference(x, w_q, ws, out_dtype=od).float()  # before the bias
+        if od == torch.bfloat16:
+            bound = bf16_ulp(pre.abs()) + FP8_SUM_TOL * mag
+            if b is not None:  # the bias sum rounds once more
+                bound = bound + bf16_ulp(torch.maximum(o.abs(), r.abs()))
+        else:
+            bound = FP8_SUM_TOL * mag + 2.0 ** -23 * (pre.abs() + r.abs())
+        share = (diff / bound).max().item()
+        err = diff.max().item()
+        differ = (diff > 0).float().mean().item()
+        ok = (share <= 1 and (od == torch.float32 or differ <= FP8_DIFF_SHARE)
+              and out.dtype == od and torch.isfinite(out).all().item())
+        print(f"fp8w case fp8_matmul {nm} [{m}x{k}]x[{k}x{n}] -> {od}: max_abs {err:.3e}, "
+              f"share of outputs that differ {differ:.3e} (tol {FP8_DIFF_SHARE:g} in bf16), "
+              f"max |diff|/(ulp + {FP8_SUM_TOL:g} |x||w|) {share:.3f} (tol 1) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        worst = max(worst, err)
+        if not ok:
+            failed.append(nm)
+    # the wrapper refuses what its kernel cannot take
+    x, w_q, ws, b = fp8_operands(dev, g, 64, DIM, DIM)
+    expect_raise("fp8_matmul float32 x", TypeError,
+                 lambda: fp8_matmul(x.float(), w_q, ws, bias=b))
+    expect_raise("fp8_matmul N-contiguous weight", ValueError,
+                 lambda: fp8_matmul(x, w_q.contiguous(), ws, bias=b))
+    expect_raise("fp8_matmul int8 weight", TypeError,
+                 lambda: fp8_matmul(x, w_q.view(torch.int8), ws, bias=b))
+    expect_raise("fp8_matmul scale length", ValueError,
+                 lambda: fp8_matmul(x, w_q, ws[:7], bias=b))
+    expect_raise("fp8_matmul K mismatch", ValueError,
+                 lambda: fp8_matmul(x[:, :DIM - 16], w_q, ws, bias=b))
+    if failed:
+        raise AssertionError(f"fp8 GEMM cases {failed} disagree with the plain version")
+
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    for nm, m, k, n, calls in LAYER_GEMMS + (("text_kv", TEXT, DIM, DIM, 0),):
+        x, w_q, ws, b = fp8_operands(dev, g, m, k, n)
+        ms = time_ms(lambda: fp8_matmul(x, w_q, ws, bias=b))
+        plain = time_ms(lambda: fp8_matmul_reference(x, w_q, ws, bias=b))
+        wd = (w_q.float() * ws).to(torch.bfloat16)      # [K, N], a dequantized copy
+        lib = time_ms(lambda: torch.matmul(x, wd))
+        ops_ms, bytes_ms = fp8_gemm_times(m, k, n)
+        bound, by = bound_of(ops_ms, bytes_ms)
+        print(f"fp8w time fp8_matmul {nm} [{m}x{k}]x[{k}x{n}]: {ms:.4f} ms "
+              f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({by}), "
+              f"plain {plain:.4f} ms, cuBLAS bf16 matmul {lib:.4f} ms; {calls} a layer",
+              flush=True)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+            sums[key] += calls * v
+    for key, (f, a) in KERNEL_COUNTERS.items():  # timing launches are not the path's
+        setattr(f, a, before[key])
+    bound_ms, bound_by = bound_of(sums["ops_ms"], sums["bytes_ms"])
+    print(f"fp8w per layer: fp8_matmul {sums['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; bytes {sums['bytes_ms']:.4f}), plain {sums['plain_ms']:.4f} ms, "
+          f"cuBLAS bf16 {sums['library_ms']:.4f} ms", flush=True)
+    return {"name": "fp8_matmul", "route": "cuda",
+            "source": "inferix_tpu_torch/csrc/fp8_matmul.cu",
+            "replaces": "inferix_tpu/quant/kernels.py:171", "launches": None,
+            "max_abs_err": worst, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sums["library_ms"],
+            "work": "one fp8 layer at M=4680 (sum over its 6 GEMMs); library: "
+                    "torch.matmul over a dequantized bf16 weight"}
+
+
+def fp8w_config(blocks: int) -> EngineConfig:
+    """Wan2.1-T2V-1.3B with fp8 weight-only linears (`--quant fp8`,
+    inferix_tpu/cli.py:33: e4m3 per-channel block linears, bf16 KV, rerun)."""
+    cfg = main_path_config(blocks)
+    q = cfg.quant
+    q.enabled, q.dtype, q.granularity = True, "fp8", "per_channel"
+    q.quantize_kv_cache = False
+    return cfg
+
+
+def fp8w_main_phase(dev: torch.device, blocks: int) -> dict:
+    """Generate `blocks` blocks with fp8 weights; launches at text encode and
+    per block (B8 and flash only), output and cache checked, one layer and
+    one forward against the plain GEMM, the flow against bf16's."""
+    t0 = time.perf_counter()
+    cfg = fp8w_config(blocks)
+    m, r = cfg.model, cfg.runtime
+    fpb = m.num_frame_per_block
+    reset_counts()
+    gen, xattn, noise, g = main_path_setup(dev, cfg)
+    torch.cuda.synchronize()
+    text = count_diff(all_counts(), {k: 0 for k in KERNEL_COUNTERS})
+    qkv = gen.params["blocks"]["self_attn"]["qkv"]
+    print(f"fp8w setup (weights quantized to e4m3, {memory_bytes(gen.params['blocks']) / 2**30:.3f} "
+          f"GiB of block weights, qkv w_q {qkv['w_q'].dtype} strides {qkv['w_q'][0].stride()}, "
+          f"text K/V): {time.perf_counter() - t0:.3f} s, launches at text encode {text}",
+          flush=True)
+    if text != {"fp8_matmul": 2 * m.num_layers} or qkv["w_q"].dtype != FP8:
+        raise AssertionError(f"fp8w text-encode launches {text}, want "
+                             f"{{'fp8_matmul': {2 * m.num_layers}}} and nothing else")
+    n = m.num_layers * (len(gen.denoising_steps) + 1)
+    want_block = {"fp8_matmul": 6 * n, "flash_attention_prefix": n}
+    per_block, marks, prev = [], [time.perf_counter()], [all_counts()]
+
+    def on_block(x0, bi):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_block.append(count_diff(all_counts(), prev[0]))
+        prev[0] = all_counts()
+        print(f"fp8w block {bi}: {marks[-1] - marks[-2]:.3f} s, launches {per_block[-1]}",
+              flush=True)
+
+    latents, cache = gen.generate(noise, xattn, generator=g, block_callback=on_block)
+    torch.cuda.synchronize()
+    total = all_counts()
+    if per_block != [want_block] * blocks:
+        raise AssertionError(f"fp8w launches per block {per_block}, want {want_block} "
+                             "(no int8 GEMM, act-quant or LN prologue)")
+    shape = (1, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
+        raise AssertionError(f"fp8w latents {tuple(latents.shape)} (want {shape}) "
+                             "or not finite")
+    end = r.num_frames * gen.frame_seq
+    for buf in (cache.k, cache.v):
+        if not (buf[:, :, :end].abs().amax(dim=(-1, -2)) > 0).all():
+            raise AssertionError("a written fp8w cache slot is zero")
+        if buf[:, :, end:].any():
+            raise AssertionError("an fp8w cache slot past the span was written")
+    secs = [marks[i + 1] - marks[i] for i in range(len(per_block))]
+    print(f"fp8w main path: latents {tuple(latents.shape)} finite, |x0| max "
+          f"{latents.float().abs().max().item():.3f}, s/block "
+          f"{', '.join(f'{x:.3f}' for x in secs)}, cache slots [0, {end}) written in all "
+          f"{m.num_layers} layers, rest zero", flush=True)
+
+    # one layer, then one whole forward, B8 vs the plain GEMM
+    f0 = r.num_frames - fpb
+    start = f0 * gen.frame_seq
+    geo, spec = gen.statics.geo, gen.statics.spec
+    x_blk = latents[:, f0:]
+    t = torch.full((1, fpb), gen.denoising_steps[0], device=dev)
+    with torch.inference_mode():
+        tokens = patch_embed(gen.params, m, x_blk)
+        _, e0 = time_embeddings(gen.params, m, t)
+        angles = rope_angles(gen.rope_tables, fpb, geo.grid_h, geo.grid_w, f0)
+        mask = valid_mask(spec, start + geo.tokens, device=dev)
+        blk = layer_params(gen.params["blocks"], 0)
+        ys, flows = [], []
+        for plain in (False, True):
+            before = all_counts()
+            with (mock.patch.object(quant_api, "fp8_matmul", fp8_matmul_reference)
+                  if plain else contextlib.nullcontext()):
+                lc = (cache.k[0].clone(), cache.v[0].clone())
+                y, _ = block_forward(blk, m, spec, tokens, e0, angles, lc, xattn.k[0],
+                                     xattn.v[0], start, mask)
+                flow, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                                x_blk, t, xattn, cache, start)
+            moved = count_diff(all_counts(), before).get("fp8_matmul", 0)
+            if moved != (0 if plain else 6 * (1 + m.num_layers)):
+                raise AssertionError(f"fp8w: fp8_matmul launched {moved} times in the "
+                                     f"{'plain' if plain else 'kernel'} run")
+            ys.append(y)
+            flows.append(flow)
+        layer_err = rel_err(ys[0] - tokens, ys[1] - tokens)
+        fwd_err = rel_err(flows[0], flows[1])
+    print(f"fp8w block_forward fp8_matmul vs plain: update rel err {layer_err:.3e} "
+          f"(tol {LAYER_RTOL:g}); dit_forward_inference flow rel err {fwd_err:.3e} "
+          f"(tol {FORWARD_RTOL:g})", flush=True)
+    if not (layer_err <= LAYER_RTOL and fwd_err <= FORWARD_RTOL):
+        raise AssertionError("the fp8w path with its kernel disagrees with the plain GEMM")
+
+    # for information: the fp8 flow against the bf16 flow, same weights
+    del gen
+    torch.cuda.empty_cache()
+    bgen, bxattn, _, _ = main_path_setup(dev, main_path_config(blocks))
+    with torch.inference_mode():
+        bflow, _ = dit_forward_inference(bgen.params, bgen.statics, bgen.rope_tables,
+                                         x_blk, t, bxattn, cache, start)
+    print(f"fp8w vs bf16 (information, not a gate): flow rel err "
+          f"{rel_err(flows[0], bflow):.3e}", flush=True)
+    del bgen, bxattn, cache
+    torch.cuda.empty_cache()
+    phase("fp8w main", t0)
+    return total
+
+
+# The int8-PV attention kernels against their plain versions, code by code:
+# the kernel writes every p code it forms (an output the path never asks
+# for) and each group's codes are compared with the plain version's
+# round(u). The i8 kernel repeats the plain arithmetic exactly (integer QK,
+# the same _rn products and quotients, the same exp2f); the v2 kernel sums
+# its bf16 QK products in f32 in another order than the plain version's
+# exact sum, so its logits differ in their last bits (at worst ~1e-4 of the
+# |q||k| sum over 128 products, typically ~1e-6), which moves u = p * ratio
+# by up to ~1e-2 of a code step at u ~ 127. A code may therefore differ only
+# by 1 and only where the plain u lies within CODE_TIE of a rounding tie;
+# at most CODE_FLIP_SHARE of the live codes may do so. The output is then
+# bounded through the flips: per element
+#     |out_kernel - out_plain| <= sum over flips of |v_q| deq 2^(m_g - m) / l
+#                                 + 2^-7 max(|out_kernel|, |out_plain|)
+#                                 + ACC_TOL sum over groups of |PV_g| 2^(m_g - m) / l
+# (the second term: one bf16 ulp; the third: an output that cancels to ~0
+# over the groups, where the f32 accumulator's roundings and corrections
+# exp2(m - m_new) from maxima a few ulps apart dominate: ~1e-7 of the
+# groups' magnitudes at |out| ~ 1e-9, H100 SXM), and the LSE within
+# LSE_ATOL + 1e-6 |lse| (kv_len 0: -6.9e29).
+CODE_TIE = 1e-2
+CODE_FLIP_SHARE = 1e-4
+ACC_TOL = 2.0 ** -16
+
+
+def quant_attention_bound(mode: str, b: int, span: int):
+    """(bound_ms, bound_by) of an int8-PV kernel over `span` live keys: QK
+    and PV operations at their peaks (i8: both int8; v2: QK bf16, PV int8);
+    bytes of q, the int8 K/V span, their scales and the bf16 output."""
+    prod = 2.0 * b * H * SQ * span * D
+    ops_s = prod / PEAK_INT8_OPS + (prod / PEAK_INT8_OPS if mode == "i8"
+                                    else prod / PEAK_BF16_FLOPS)
+    q_bytes = b * SQ * H * (D + 4 if mode == "i8" else 2 * D)
+    nbytes = q_bytes + b * span * H * (2 * D + 8) + 2.0 * b * SQ * H * D
+    return bound_of(ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def check_quant_ext_case(mode, label, q, kq, vq, ks, vs, kv_len, kv_block, lse_on):
+    """Run the kernel with its code output and the plain version group by
+    group; returns (ok, max |out diff|, flips)."""
+    b = q.shape[0]
+    skv = kq.shape[1]
+    codes = torch.zeros(b, H, SQ, skv, dtype=torch.uint8, device=q.device)
+    res = quant_ext_kernel(mode, q, kq, vq, ks, vs, kv_len, kv_block=kv_block,
+                           return_lse=True, codes=codes)
+    out, lse = res
+    if not lse_on:  # the kernel without an lse output writes the same out
+        if not torch.equal(quant_ext_kernel(mode, q, kq, vq, ks, vs, kv_len,
+                                            kv_block=kv_block), out):
+            raise AssertionError(f"{label}: the kernel's out depends on return_lse")
+    torch.cuda.synchronize()
+    stats = dict(live=0, flips=0, far=0, big=0, worst_tie=0.0)
+    carried = {}  # batch row -> (flip mass, accumulator mass, running max)
+
+    def on_group(i, g0, g1, u, m, deq):
+        want = torch.round(u)
+        d = codes[i, :, :, g0:g1].float() - want
+        stats["live"] += u.numel()
+        flips = d != 0
+        v_abs = vq[i, g0:g1].permute(1, 0, 2).float().abs()
+        acc_mass = torch.matmul(want, v_abs) * deq
+        flip_mass = torch.zeros_like(acc_mass)
+        nf = int(flips.sum())
+        if nf:
+            stats["flips"] += nf
+            stats["big"] += int((d.abs() > 1).sum())
+            tie = (u - torch.floor(u) - 0.5).abs()
+            stats["worst_tie"] = max(stats["worst_tie"], tie[flips].max().item())
+            stats["far"] += int((tie[flips] > CODE_TIE).sum())
+            flip_mass = torch.matmul(d.abs(), v_abs) * deq
+        if i in carried:  # carried as the accumulator is: rescaled to the new max
+            f0, a0, m0 = carried[i]
+            c = torch.exp2(m0 - m)
+            flip_mass, acc_mass = f0 * c + flip_mass, a0 * c + acc_mass
+        carried[i] = (flip_mass, acc_mass, m)
+
+    ref, ref_lse = quant_ext_reference(mode, q, kq, vq, ks, vs, kv_len, None,
+                                        kv_block, True, on_group=on_group)
+    o, r = out.float(), ref.float()
+    bound = 2.0 ** -7 * torch.maximum(o.abs(), r.abs())
+    for i, (flip_mass, acc_mass, m_fin) in carried.items():
+        denom = torch.exp2(ref_lse[i][..., None] * LOG2E - m_fin)
+        bound[i] += ((flip_mass + ACC_TOL * acc_mass) / denom).permute(1, 0, 2)
+    diff = (o - r).abs()
+    share = torch.where(bound > 0, diff / bound.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0)).max().item()
+    lse_err = ((lse - ref_lse).abs() - 1e-6 * ref_lse.abs()).max().item()
+    flip_share = stats["flips"] / max(stats["live"], 1)
+    ok = (stats["big"] == 0 and stats["far"] == 0 and flip_share <= CODE_FLIP_SHARE
+          and share <= 1 and lse_err <= LSE_ATOL and torch.isfinite(out).all().item())
+    print(f"{label}: {stats['live']} live codes, {stats['flips']} differ (share "
+          f"{flip_share:.2e}, tol {CODE_FLIP_SHARE:g}; by more than 1: {stats['big']}; "
+          f"further than {CODE_TIE:g} from a tie: {stats['far']}, worst "
+          f"{stats['worst_tie']:.2e}); out max_abs {diff.max().item():.3e}, max |diff| / "
+          f"bound {share:.3f} (tol 1); lse max_abs - 1e-6|lse| {lse_err:.3e} "
+          f"(tol {LSE_ATOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    del codes
+    return ok, diff.max().item(), stats["flips"]
+
+
+def quant_attention_kernel_phase(dev: torch.device) -> list:
+    """B9 and B10 against their plain versions at the full-cache shape and
+    the edges, the wrappers refusing bad operands, then timed beside the
+    bound, the plain version and SDPA over a dequantized bf16 copy."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    before = all_counts()
+    q2 = torch.randn(2, SQ, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv_block(torch.randn(2, SKV, H, D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    vq, vs = quantize_kv_block(torch.randn(2, SKV, H, D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    rows = torch.tensor([SKV, 18720], device=dev)
+    cases = [  # (name, batch rows, kv_len, kv_block, lse)
+        ("full_b1", 1, SKV, None, True), ("full_b1_no_lse", 1, SKV, None, False),
+        ("b2_rows", 2, rows, None, True), ("len30000", 1, 30000, None, True),
+        ("len1", 1, 1, None, True), ("len0", 1, 0, None, True),
+        ("kv_block128", 1, SKV, 128, True)]
+    entries, failed = [], []
+    for mode, kern, body in (("i8", flash_attention_prefix_quant_i8, 660),
+                             ("v2", flash_attention_prefix_quant_v2, 962)):
+        worst = 0.0
+        for case, b, kv_len, kvb, lse_on in cases:
+            ok, err, _ = check_quant_ext_case(
+                mode, f"qattn case {kern.__name__} {case}", q2[:b], kq[:b], vq[:b],
+                ks[:b], vs[:b], kv_len, kvb, lse_on)
+            worst = max(worst, err)
+            if not ok:
+                failed.append(f"{mode} {case}")
+            torch.cuda.empty_cache()
+        args = (q2[:1], kq[:1], vq[:1], ks[:1], vs[:1], SKV)
+        ms = time_ms(lambda: kern(*args))
+        plain_ms = time_ms(lambda: quant_ext_reference(mode, *args, None, None, False),
+                           iters=3, warmup=1)
+        kd, vd = dequantize(kq[:1], ks[:1]), dequantize(vq[:1], vs[:1])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q2[:1], kd, vd))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)
+        print(f"qattn {kern.__name__} full cache vs SDPA over the dequantized bf16 cache "
+              f"(information): rel err {rel_err(kern(*args), sdpa):.3e}", flush=True)
+        del kd, vd, qt, kt, vt, sdpa
+        bound_ms, bound_by = quant_attention_bound(mode, 1, SKV)
+        print(f"qattn time {kern.__name__} full cache: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa over a dequantized bf16 copy {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        entries.append({
+            "name": kern.__name__, "route": "cuda",
+            "source": "inferix_tpu_torch/csrc/flash_attention_quant_ext.cu",
+            "replaces": f"inferix_tpu/ops/flash_attention.py:{body}", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "work": "B=1, 4680 q over 32760 int8 keys, kv group 2048; entry point only "
+                    "(no engine path calls it)"})
+    # the wrappers refuse what their kernels cannot take
+    kb16 = kq[:1].to(torch.bfloat16)
+    expect_raise("flash_attention_prefix_quant_i8 bf16 K/V", TypeError,
+                 lambda: flash_attention_prefix_quant_i8(q2[:1], kb16, kb16, ks[:1], vs[:1], SKV))
+    expect_raise("flash_attention_prefix_quant_v2 float32 q", TypeError,
+                 lambda: flash_attention_prefix_quant_v2(q2[:1].float(), kq[:1], vq[:1],
+                                                         ks[:1], vs[:1], SKV))
+    expect_raise("flash_attention_prefix_quant_v2 kv_block 96", ValueError,
+                 lambda: flash_attention_prefix_quant_v2(q2[:1], kq[:1], vq[:1], ks[:1],
+                                                         vs[:1], SKV, kv_block=96))
+    expect_raise("flash_attention_prefix_quant_i8 bf16 scales", ValueError,
+                 lambda: flash_attention_prefix_quant_i8(q2[:1], kq[:1], vq[:1],
+                                                         ks[:1].bfloat16(), vs[:1], SKV))
+    for key, (f, a) in KERNEL_COUNTERS.items():  # these launches are not a path's
+        setattr(f, a, before[key])
+    if failed:
+        raise AssertionError(f"int8-PV attention cases {failed} disagree with the plain versions")
+    return entries
+
+
 
 
 def main() -> None:
@@ -1424,8 +1887,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    fp8_entry = fp8w_kernel_phase(dev)
+    phase("fp8w kernels", t0)
+    fp8_total = fp8w_main_phase(dev, args.blocks)
+    fp8_entry["launches"] = fp8_total["fp8_matmul"]
+    entries[0]["launches"] += fp8_total["flash_attention_prefix"]
+    print(f"launches on the fp8w path: {count_diff(fp8_total, {k: 0 for k in fp8_total})}",
+          flush=True)
+
+    t0 = time.perf_counter()
     kv_entries = kv_kernel_phase(dev)
     phase("kv kernels", t0)
+    t0 = time.perf_counter()
+    qattn_entries = quant_attention_kernel_phase(dev)
+    phase("quant-attention kernels", t0)
     paths = {}
     for path in ("int8_b2", "window", "fp8"):
         paths[path], latents = kv_path_phase(dev, path)
@@ -1441,7 +1916,7 @@ def main() -> None:
     decode = vae_decode_phase(dev, latents)
     vae_entries[0]["launches"] = decode["halo"]["halo_conv3d"]
     vae_entries[1]["launches"] = decode["halo_w8a8"]["halo_conv3d_w8a8"]
-    entries += kv_entries + vae_entries
+    entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries
     print(f"launches on this slice's paths: {paths}; decode {decode}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(smi, flush=True)

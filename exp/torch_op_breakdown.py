@@ -4,7 +4,7 @@
 One Self-Forcing block, or one Wan causal-VAE decode chunk, of the PyTorch
 port, traced on one CUDA card.
 
-    PYTHONPATH=. python3 exp/torch_op_breakdown.py [--block N] [--w8a8]   # from the repo root
+    PYTHONPATH=. python3 exp/torch_op_breakdown.py [--block N] [--w8a8 | --fp8]   # from the repo root
     PYTHONPATH=. python3 exp/torch_op_breakdown.py --vae {xla,halo,halo_w8a8}
 
 Generates blocks 0..N-1 (random weights from a seed, bf16, context_mode
@@ -14,7 +14,8 @@ torch.profiler and prints the device time by kernel group and the top
 kernels, the device's idle share over the traced window, and one JSON line.
 Block 6 (the default) is the last block of a 21-frame clip: its attention
 covers the full 32760-token cache. --w8a8 runs chip_smoke.py's W8A8 path
-instead (int8 per-channel linears, fused act-quant prologues). --vae decodes
+instead (int8 per-channel linears, fused act-quant prologues), --fp8 its fp8
+weight-only path (e4m3 per-channel linears through the fp8 GEMM). --vae decodes
 6 random latent frames (480x832 pixels, chip_smoke.py's decode weights,
 bf16) with the given conv impl and traces the second 3-frame chunk.
 """
@@ -31,13 +32,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import main_path_config, main_path_setup, vae_params
+from chip_smoke import fp8w_config, main_path_config, main_path_setup, vae_params
 from inferix_tpu_torch.models.wan.vae import CONV_IMPLS, CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.flash_attention import flash_attention_prefix
 
 GROUPS = (  # first match wins
     ("flash_attention_prefix (ours)", re.compile(r"flash_prefix_kernel")),
     ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
+    ("fp8_matmul (ours)", re.compile(r"fp8_matmul_kernel")),
     ("halo_conv3d (ours)", re.compile(r"halo_conv_kernel")),
     ("conv (cuDNN)", re.compile(r"conv|fprop|implicit", re.I)),
     ("quantize_rows_int8 (ours)", re.compile(r"quant_rows_kernel")),
@@ -111,8 +113,9 @@ def report(title: str, wall_ms: float, kernels, smi: str, extra: dict) -> None:
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
-def trace_block(dev, smi: str, block: int, w8a8: bool) -> None:
-    cfg = main_path_config(block + 1, w8a8=w8a8)
+def trace_block(dev, smi: str, block: int, path: str) -> None:
+    cfg = (fp8w_config(block + 1) if path == "fp8" else
+           main_path_config(block + 1, w8a8=path == "w8a8"))
     gen, xattn, noise, g = main_path_setup(dev, cfg)  # chip_smoke.py's main path
     cache = gen.init_cache()
     fpb = cfg.model.num_frame_per_block
@@ -126,10 +129,10 @@ def trace_block(dev, smi: str, block: int, w8a8: bool) -> None:
         lambda: gen.denoise_block(cache, xattn, blk, block * fpb, generator=g))
     launches = flash_attention_prefix.launches - launches0
     live = (block + 1) * fpb * gen.frame_seq
-    report(f"{'W8A8' if w8a8 else 'bf16'} block {block}: 5 forwards over a live "
+    report(f"{path} block {block}: 5 forwards over a live "
            f"cache of {live} tokens, kernel launches of ours {launches}",
            wall_ms, kernels, smi,
-           {"path": "w8a8" if w8a8 else "bf16", "block": block, "live_tokens": live,
+           {"path": path, "block": block, "live_tokens": live,
             "flash_launches": launches})
 
 
@@ -151,6 +154,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--block", type=int, default=6, help="block to trace, 0..6")
     ap.add_argument("--w8a8", action="store_true", help="trace the W8A8 path")
+    ap.add_argument("--fp8", action="store_true", help="trace the fp8 weight-only path")
     ap.add_argument("--vae", choices=CONV_IMPLS,
                     help="trace a VAE decode chunk with this conv impl instead")
     args = ap.parse_args()
@@ -164,7 +168,8 @@ def main() -> None:
     if args.vae:
         trace_decode(dev, smi, args.vae)
     else:
-        trace_block(dev, smi, args.block, args.w8a8)
+        trace_block(dev, smi, args.block,
+                    "fp8" if args.fp8 else "w8a8" if args.w8a8 else "bf16")
 
 
 if __name__ == "__main__":

@@ -55,7 +55,9 @@ class QuantConfig:
     int8 per_channel is the W8A8 serving recipe: int8 weights with one scale
     per output channel, activations quantized per token at run time by the
     fused act-quant and LN+modulate+quant passes, the product in the int8
-    GEMM kernel.
+    GEMM kernel. fp8 is weight-only: e4m3 weights with float32 scales,
+    widened to bf16 inside the fp8-dequant GEMM kernel; activations stay
+    bf16.
 
     With `enabled` and `quantize_kv_cache`, the self-attention KV cache is
     stored in fewer bits: `kv_cache_dtype` "int8" holds int8 K/V with one
@@ -64,12 +66,16 @@ class QuantConfig:
     """
 
     enabled: bool = False
-    dtype: str = "int8"               # "int8" | "fp8" (e4m3, not ported yet)
+    dtype: str = "int8"               # "int8" | "fp8" (e4m3 weight-only)
     granularity: str = "per_channel"  # "per_tensor" | "per_channel"
     quantize_kv_cache: bool = False
     kv_cache_dtype: str = "int8"      # "int8" | "fp8" (e4m3)
     # module-path substrings kept in high precision
     exclude: Tuple[str, ...] = ("text_embedding", "head", "patch_embedding", "time_")
+
+    def __post_init__(self):
+        if self.dtype not in ("int8", "fp8"):
+            raise ValueError(f"quant dtype must be 'int8' or 'fp8', got {self.dtype!r}")
 
 
 @dataclasses.dataclass

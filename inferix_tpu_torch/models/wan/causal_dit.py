@@ -1,6 +1,7 @@
 """Block-causal Wan DiT in PyTorch (port of
-`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, bf16 and
-W8A8, over a bf16, int8 or fp8 KV cache with a global or rolling window).
+`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, bf16,
+W8A8 and fp8 weight-only, over a bf16, int8 or fp8 KV cache with a global or
+rolling window).
 
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
 offset, self-attention over the KV cache, cached text cross-attention, the
@@ -8,10 +9,12 @@ GELU-tanh FFN, the modulated output head and unpatchify. Latents are
 channels-last `[B, F, H, W, C]`; parameters keep the JAX tree with layers
 stacked on a leading [L] axis (`utils/params.py`). fp32 promotion points
 mirror the JAX package: time embeddings and modulation in fp32, norms
-accumulate in fp32, attention softmax in fp32. A quantized tree (int8
-`{"w_q", "scale", "b"}` linears from `quant.api.quantize_params`) runs every
-block linear through the int8 GEMM; the three norm prologues and the other
-linears' inputs are quantized by the fused act-quant kernels.
+accumulate in fp32, attention softmax in fp32. A quantized tree
+(`{"w_q", "scale", "b"}` linears from `quant.api.quantize_params`) runs every
+block linear through a quantized GEMM: with int8 weights the int8 GEMM, the
+three norm prologues and the other linears' inputs quantized by the fused
+act-quant kernels; with e4m3 weights the fp8-dequant GEMM on the bf16
+activations, after the plain norm chain.
 """
 from __future__ import annotations
 
@@ -42,6 +45,14 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p["w"].to(x.dtype).t(), p["b"].to(x.dtype))
 
 
+def _cat_last(ts) -> torch.Tensor:
+    """torch.cat on the last axis; e4m3 tensors through uint8 views (the
+    bits carried as they are, on any device)."""
+    if ts[0].dtype == torch.float8_e4m3fn:
+        return torch.cat([t.view(torch.uint8) for t in ts], dim=-1).view(ts[0].dtype)
+    return torch.cat(ts, dim=-1)
+
+
 def fuse_qkv_params(params: Params) -> Params:
     """Merge the stacked self-attention q/k/v projections into one [D, 3D]
     projection (numerically identical: the output is split back before the
@@ -61,7 +72,7 @@ def fuse_qkv_params(params: Params) -> Params:
         parts = [{**p, "scale": p["scale"].expand(*p["scale"].shape[:-1],
                                                   p["w_q"].shape[-1])}
                  for p in parts]
-    fused = {n: torch.cat([p[n] for p in parts], dim=-1) for n in names}
+    fused = {n: _cat_last([p[n] for p in parts]) for n in names}
     new_sa = {k: v for k, v in sa.items() if k not in ("q", "k", "v")}
     new_sa["qkv"] = fused
     return {**params, "blocks": {**blocks, "self_attn": new_sa}}

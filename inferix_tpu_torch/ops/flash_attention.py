@@ -326,3 +326,275 @@ def flash_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Mask-based wrapper of `flash_attention_prefix_quant`."""
     return flash_attention_prefix_quant(q, k, v, k_scale, v_scale,
                                         _mask_len(k, kv_mask), scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Int8-PV attention over an int8 K/V cache: the int8-QK variant (TPU kernel 3)
+# and the bf16-QK variant (TPU kernel 4), whose numerics depend on the kv
+# group (`kv_block`) over which p is quantized
+# ---------------------------------------------------------------------------
+
+DEFAULT_KV_BLOCK = 2048
+_QUANT_EXT_MODES = ("i8", "v2")
+
+
+def _kv_group(kv_block: Optional[int], skv: int) -> int:
+    """The JAX package's kv group: min(kv_block or 2048, max(128,
+    ceil(Skv / 128) * 128))."""
+    g = DEFAULT_KV_BLOCK if kv_block is None else int(kv_block)
+    if g <= 0:
+        raise ValueError(f"kv_block must be positive, got {kv_block}")
+    return min(g, max(128, -(-skv // 128) * 128))
+
+
+def _true_div(a: torch.Tensor, b) -> torch.Tensor:
+    """a / b as one correctly rounded division (PyTorch divides by a Python
+    number, and a Python number by a tensor, through a reciprocal)."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), float(b), dtype=torch.float32, device=a.device)
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), float(a), dtype=torch.float32, device=b.device)
+    return a / b
+
+
+def quantize_q_int8(q: torch.Tensor, scale: float):
+    """The int8-QK wrapper's per-(token, head) quantization of q (JAX
+    `flash_attention.py:777-783`): absmax = max(max |q|, 1e-8) over D,
+    codes round(q * (127 / absmax)) clipped to +-127, and a row scale
+    (absmax / 127) * (scale * log2(e)) that folds the dequantization, the
+    softmax scale and the exp2 domain. Returns (q_i8 [B, Sq, H, D] int8,
+    q_scale [B, Sq, H] f32), contiguous."""
+    qf = q.float()
+    absmax = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True), 1e-8)
+    q_i8 = torch.clamp(torch.round(qf * _true_div(127.0, absmax)), -127, 127)
+    qs = _true_div(absmax, 127.0) * (scale * LOG2E)
+    return q_i8.to(torch.int8).contiguous(), qs[..., 0].contiguous()
+
+
+def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed exactly (float64) and rounded once to float32: the
+    int8 products' int32 sums (|sum| < 2^53), and bf16 or int8 products."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def quant_ext_reference(mode, q, k_q, v_q, k_scale, v_scale, kv_len, scale,
+                         kv_block, return_lse, on_group=None):
+    """The plain version of both int8-PV kernels (mode "i8": TPU kernel 3,
+    "v2": TPU kernel 4), group by group; one batch row at a time holds
+    [H, Sq, group] tensors only. on_group(i, g0, g1, u,
+    m, deq), when given, sees each group's unrounded code values u [H, Sq,
+    g1 - g0] (the codes are round(u); keys g0..g1 of batch row i), the
+    running max m [H, Sq, 1] they were formed against and the step deq that
+    dequantizes the group's PV sums."""
+    if mode not in _QUANT_EXT_MODES:
+        raise ValueError(f"mode must be one of {_QUANT_EXT_MODES}, got {mode}")
+    b, sq, h, d = q.shape
+    skv = k_q.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    grp = _kv_group(kv_block, skv)
+    if mode == "i8":
+        q_i8, qs = quantize_q_int8(q, scale)
+        qh, qsh = q_i8.permute(0, 2, 1, 3), qs.permute(0, 2, 1)[..., None]
+    else:
+        qh = (q.float() * (scale * LOG2E)).to(q.dtype).permute(0, 2, 1, 3)
+    out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    ends = _row_values(kv_len, b)
+    for i in range(b):
+        end = min(max(int(ends[i]), 0), skv)
+        m = torch.full((h, sq, 1), _NEG_INF, device=q.device)
+        l = torch.zeros(h, sq, 1, device=q.device)
+        acc = torch.zeros(h, sq, d, device=q.device)
+        for g0 in range(0, end, grp):
+            g1 = min(g0 + grp, end)                      # live keys of the group
+            kk = k_q[i, g0:g1].permute(1, 0, 2)           # [H, n, D]
+            ks = k_scale[i, g0:g1].permute(1, 0).float()[:, None, :]
+            vs = v_scale[i, g0:g1].permute(1, 0).float()[:, None, :]
+            s = _exact_matmul(qh[i], kk.transpose(1, 2))   # [H, Sq, n]
+            s = (s * qsh[i] * ks) if mode == "i8" else s * ks
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            if mode == "i8":
+                p_v = p * vs
+                row_max = torch.clamp_min(p_v.amax(-1, keepdim=True), 1e-20)
+                u = p_v * _true_div(127.0, row_max)
+                deq = _true_div(row_max, 127.0)
+            else:
+                # the group's max V scale, over every key of the group in
+                # the cache (past kv_len too), as the TPU kernel takes it
+                vsb = torch.clamp_min(
+                    v_scale[i, g0:min(g0 + grp, skv)].float().amax(0), 1e-20)
+                vsb = vsb[:, None, None]
+                u = p * (vs * _true_div(127.0, vsb))
+                deq = _true_div(vsb, 127.0)
+            if on_group is not None:
+                on_group(i, g0, g1, u, m_new, deq)
+            pv = _exact_matmul(torch.round(u), v_q[i, g0:g1].permute(1, 0, 2)) * deq
+            acc = acc * corr + pv
+            m = m_new
+        denom = torch.clamp_min(l, 1e-30)
+        out[i] = _true_div(acc, denom).to(q.dtype).permute(1, 0, 2)
+        lse[i] = _true_div(m + torch.log2(denom), LOG2E)[..., 0]
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_prefix_quant_i8_reference(
+    q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor, k_scale: torch.Tensor,
+    v_scale: torch.Tensor, kv_len, scale: Optional[float] = None,
+    kv_block: Optional[int] = None, return_lse: bool = False,
+):
+    """Plain version of the int8-QK kernel (`_flash_kernel_quant_i8`'s
+    arithmetic): q quantized per (token, head) (`quantize_q_int8`); logits
+    f32(q_i8 . k_q) * q_scale * k_scale in that order; per kv group (the
+    kernel's `kv_block`) the running max takes in the whole group before
+    p = exp2(s - m) is formed, p_v = p * v_scale is requantized against the
+    row's max over the group, max(max p_v, 1e-20): codes round(p_v * (127 /
+    row_max)), half to even; the group's int32 PV times row_max / 127; the
+    1e-30 floor. Keys past kv_len are masked (p = 0)."""
+    return quant_ext_reference("i8", q, k_q, v_q, k_scale, v_scale, kv_len,
+                                scale, kv_block, return_lse)
+
+
+def flash_attention_prefix_quant_v2_reference(
+    q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor, k_scale: torch.Tensor,
+    v_scale: torch.Tensor, kv_len, scale: Optional[float] = None,
+    kv_block: Optional[int] = None, return_lse: bool = False,
+):
+    """Plain version of the int8-PV kernel (`_flash_kernel_quant_v2`'s
+    arithmetic): q pre-scaled by scale*log2(e) and rounded to q.dtype; f32
+    logits (q . k_q) * k_scale; per kv group the running max takes in the
+    whole group, vsb = max(the group's largest v_scale, 1e-20), codes
+    round(p * (v_scale * (127 / vsb))), half to even; the group's int32 PV
+    times vsb / 127; the 1e-30 floor. Keys past kv_len are masked (p = 0)."""
+    return quant_ext_reference("v2", q, k_q, v_q, k_scale, v_scale, kv_len,
+                                scale, kv_block, return_lse)
+
+
+_ARGTYPES_QUANT_EXT = (
+    [ctypes.c_void_p] * 10                 # q, q_scale, k, v, k_scale, v_scale,
+                                           # out, lse, kv_len, codes
+    + [ctypes.c_int] * 5                   # B, H, Sq, Skv, kv group
+    + _STRIDES * 5                         # q, k, v, k_scale, v_scale
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # q_scale, mode, stream
+)
+
+
+def _lib_quant_ext():
+    lib = _build.load_library("flash_attention_quant_ext")
+    fn = lib.inferix_flash_attention_quant_ext
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_QUANT_EXT
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def quant_ext_kernel(mode: str, q, k_q, v_q, k_scale, v_scale, kv_len,
+                     scale=None, kv_block=None, return_lse=False,
+                     codes: Optional[torch.Tensor] = None):
+    """Launch the int8-PV kernel of `mode` ("i8": TPU kernel 3, "v2": TPU
+    kernel 4) on CUDA tensors; raises on an operand it cannot take. codes,
+    when given ([B, H, Sq, Skv] uint8, zeroed), receives every p code the
+    kernel forms (keys past kv_len stay 0): the check of the kernel's
+    rounding events on the card; the path never passes it. Counts the launch
+    in the mode's wrapper's `launches`."""
+    if mode not in _QUANT_EXT_MODES:
+        raise ValueError(f"mode must be one of {_QUANT_EXT_MODES}, got {mode}")
+    _check_cuda_operands(q, k_q, v_q, (torch.int8,))
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != tuple(k_q.shape[:3]):
+            raise ValueError(f"{name} must be float32 {tuple(k_q.shape[:3])} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    b, sq, h, d = q.shape
+    skv = k_q.shape[1]
+    grp = _kv_group(kv_block, skv)
+    if grp % 64:
+        raise ValueError(f"the kernel takes a kv group that is a multiple of its "
+                         f"64-key tile, got {grp}")
+    if scale is None:
+        scale = d ** -0.5
+    if codes is not None and (codes.dtype != torch.uint8 or not codes.is_contiguous()
+                              or tuple(codes.shape) != (b, h, sq, skv)
+                              or codes.device != q.device):
+        raise ValueError(f"codes must be a contiguous uint8 [{b}, {h}, {sq}, {skv}] "
+                         "tensor on q's device")
+    lens = _bounds_tensor(0, kv_len, b, q.device)[:, 1].contiguous()  # no host sync
+    if mode == "i8":
+        qk, qs = quantize_q_int8(q, scale)
+        q_strides = qk.stride()[:3]
+    else:
+        qk, qs = q, None
+        q_strides = q.stride()[:3]
+    out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    wrapper = (flash_attention_prefix_quant_i8 if mode == "i8"
+               else flash_attention_prefix_quant_v2)
+    if sq > 0:
+        with torch.cuda.device(q.device):
+            err = _lib_quant_ext()(
+                qk.data_ptr(), qs.data_ptr() if qs is not None else None,
+                k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if lse is not None else None, lens.data_ptr(),
+                codes.data_ptr() if codes is not None else None,
+                b, h, sq, skv, grp,
+                *q_strides, *k_q.stride()[:3], *v_q.stride()[:3],
+                *k_scale.stride(), *v_scale.stride(),
+                scale * LOG2E, int(mode == "v2"),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _check_launch(err, f"flash_attention_prefix_quant_{mode}")
+        wrapper.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def _quant_ext(mode, reference, q, k_q, v_q, k_scale, v_scale, kv_len, scale,
+               kv_block, return_lse):
+    if not q.is_cuda:
+        if any(t.is_cuda for t in (k_q, v_q, k_scale, v_scale)):
+            raise ValueError("q, k, v and the scales must lie on one device")
+        return reference(q, k_q, v_q, k_scale, v_scale, kv_len, scale, kv_block,
+                         return_lse)
+    return quant_ext_kernel(mode, q, k_q, v_q, k_scale, v_scale, kv_len, scale,
+                            kv_block, return_lse)
+
+
+def flash_attention_prefix_quant_i8(
+    q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor, k_scale: torch.Tensor,
+    v_scale: torch.Tensor, kv_len, scale: Optional[float] = None,
+    kv_block: Optional[int] = None, return_lse: bool = False,
+):
+    """Attention of q [B, Sq, H, D] over the prefix [0, kv_len) of an int8
+    K/V cache with float32 scales [B, Skv, H], with both products in int8:
+    q quantized per (token, head), p requantized per row and kv group (see
+    the plain version). kv_len: an int, a 0-d or a [B] tensor. kv_block: the
+    kv group, min(kv_block or 2048, max(128, ceil(Skv / 128) * 128)) as in
+    the JAX package. Returns out [B, Sq, H, D] in q.dtype, and lse [B, H,
+    Sq] float32 when return_lse. On CUDA tensors this launches the
+    hand-written kernel (bf16 q, D = 128) and counts the launch in
+    `flash_attention_prefix_quant_i8.launches`; on CPU tensors it takes the
+    plain version. No engine path calls it (nor the JAX package's)."""
+    return _quant_ext("i8", flash_attention_prefix_quant_i8_reference, q, k_q, v_q,
+                      k_scale, v_scale, kv_len, scale, kv_block, return_lse)
+
+
+flash_attention_prefix_quant_i8.launches = 0
+
+
+def flash_attention_prefix_quant_v2(
+    q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor, k_scale: torch.Tensor,
+    v_scale: torch.Tensor, kv_len, scale: Optional[float] = None,
+    kv_block: Optional[int] = None, return_lse: bool = False,
+):
+    """Attention over an int8 K/V cache with bf16 QK and int8 PV: p
+    quantized with the fixed 127 against the kv group's largest V scale (see
+    the plain version). Same contract as `flash_attention_prefix_quant_i8`;
+    launches are counted in `flash_attention_prefix_quant_v2.launches`."""
+    return _quant_ext("v2", flash_attention_prefix_quant_v2_reference, q, k_q, v_q,
+                      k_scale, v_scale, kv_len, scale, kv_block, return_lse)
+
+
+flash_attention_prefix_quant_v2.launches = 0

@@ -1,10 +1,17 @@
-"""W8A8 quantization API: quantize the parameter tree, and the int8 linears
-that read it (port of `inferix_tpu/quant/api.py:1-225`, without MAGI's
-`magi_*` functions and without fp8).
+"""Quantization API: quantize the parameter tree, and the quantized linears
+that read it (port of `inferix_tpu/quant/api.py:1-258`, without MAGI's
+`magi_*` functions).
 
 `quantize_params` replaces each eligible linear's {"w", "b"} with
-{"w_q", "scale", "b"}: int8 weights [.., K, N] and f32 scales, one per output
-channel (or one per layer). The model's `linear` dispatches on "w_q".
+{"w_q", "scale", "b"}: int8 or e4m3 weights [.., K, N] and f32 scales, one
+per output channel (or one per layer). The model's `linear` dispatches on
+"w_q", and `quantized_linear` on its dtype.
+
+fp8 (e4m3) weights are weight-only: the bf16 activation goes unquantized
+into the fp8-dequant GEMM (`quant.kernels.fp8_matmul`, TPU kernel 9), which
+widens the codes to bf16 in the kernel and applies the scale in its
+epilogue; the FFN's gelu is a plain pass between fc1 and fc2, and the norm
+prologues are the plain chain (the fused prologues quantize to int8).
 
 Every int8 product goes through the hand-written int8 GEMM
 (`quant.kernels.int8_matmul`, TPU kernel 8). The JAX package hands the same
@@ -29,7 +36,7 @@ import torch.nn.functional as F
 from ..core.config import QuantConfig
 from ..ops.act_quant import (adaln_quantize_rows_int8, ln_quantize_rows_int8,
                              quantize_rows_int8)
-from .kernels import (fp8_not_ported, int8_matmul, quantize_weight_fp8,
+from .kernels import (FP8, fp8_matmul, int8_matmul, quantize_weight_fp8,
                       quantize_weight_int8)
 
 Params = Dict[str, Any]
@@ -45,7 +52,7 @@ _BLOCK_LINEARS = (
 
 def _require_int8(p: Params) -> None:
     if p["w_q"].dtype != torch.int8:
-        fp8_not_ported()
+        raise TypeError(f"this path takes int8 weights, got {p['w_q'].dtype}")
 
 
 def _int8_linear(p: Params, x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -69,16 +76,29 @@ def _quantized_rows_linear(p: Params, x: torch.Tensor,
     return _int8_linear(p, x_q, x_scale, x.dtype).reshape(*lead, -1)
 
 
+def _fp8_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x [..., K] through the fp8-dequant GEMM, unquantized; the bias added
+    after the cast to x's dtype."""
+    *lead, k = x.shape
+    out = fp8_matmul(x.reshape(-1, k), p["w_q"], p["scale"], out_dtype=x.dtype,
+                     bias=p["b"])
+    return out.reshape(*lead, out.shape[-1])
+
+
 def quantized_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x [..., K] through p = {"w_q", "scale", "b"}: per-token int8 quant of
-    x, then the int8 GEMM. Returns [..., N] in x's dtype."""
+    """x [..., K] through p = {"w_q", "scale", "b"}: int8 weights take a
+    per-token int8 quant of x, then the int8 GEMM; e4m3 weights the
+    fp8-dequant GEMM on x as it is. Returns [..., N] in x's dtype."""
+    if p["w_q"].dtype == FP8:
+        return _fp8_linear(p, x)
     return _quantized_rows_linear(p, x)
 
 
 def use_fused_prologue(p: Params) -> bool:
-    """True when linear p is quantized, so the fused LN[/modulate]+quant
-    prologue feeds it (a float linear takes the plain norm chain)."""
-    return isinstance(p, dict) and "w_q" in p
+    """True when linear p holds int8 weights, so the fused LN[/modulate] +
+    int8 quant prologue feeds it (float and e4m3 linears take the plain
+    norm chain)."""
+    return isinstance(p, dict) and "w_q" in p and p["w_q"].dtype == torch.int8
 
 
 def adaln_quant(x: torch.Tensor, shift: torch.Tensor, scale_mod: torch.Tensor,
@@ -106,29 +126,33 @@ def quantized_ffn(fc1: Params, fc2: Params, x: Optional[torch.Tensor] = None,
                   x_q: Optional[torch.Tensor] = None,
                   x_scale: Optional[torch.Tensor] = None,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """fc2(gelu_tanh(fc1(x))). With quantized fc2 weights the gelu runs
-    inside fc2's one-pass quantization, so the [M, ffn_dim] gelu tensor is
-    never written; float fc2 weights take the plain bf16 chain. x_q/x_scale:
-    fc1's input, already quantized by the fused AdaLN prologue."""
+    """fc2(gelu_tanh(fc1(x))). With int8 fc2 weights the gelu runs inside
+    fc2's one-pass quantization, so the [M, ffn_dim] gelu tensor is never
+    written; e4m3 and float fc2 weights take a plain gelu, then fc2.
+    x_q/x_scale: fc1's input, already quantized by the fused AdaLN
+    prologue."""
     if x_q is not None:
         h = quantized_linear_prequant(fc1, x_q, x_scale, out_dtype)
     elif "w_q" in fc1:
         h = quantized_linear(fc1, x)
     else:
         h = F.linear(x, fc1["w"].to(x.dtype).t(), fc1["b"].to(x.dtype))
-    if "w_q" in fc2:
+    if "w_q" in fc2 and fc2["w_q"].dtype == torch.int8:
         return _quantized_rows_linear(fc2, h, act="gelu")
     h = F.gelu(h, approximate="tanh")
+    if "w_q" in fc2:
+        return _fp8_linear(fc2, h)
     return F.linear(h, fc2["w"].to(h.dtype).t(), fc2["b"].to(h.dtype))
 
 
 def _quantize_leaf_linear(p: Params, qcfg: QuantConfig) -> Params:
     """{"w": [.., K, N], "b"} -> {"w_q", "scale", "b"}; a leading stacked
     layer axis is quantized layer by layer."""
+    per_channel = qcfg.granularity == "per_channel"
     if qcfg.dtype == "int8":
-        w_q, scale = quantize_weight_int8(p["w"], qcfg.granularity == "per_channel")
+        w_q, scale = quantize_weight_int8(p["w"], per_channel)
     elif qcfg.dtype == "fp8":
-        w_q, scale = quantize_weight_fp8(p["w"])  # raises: not ported yet
+        w_q, scale = quantize_weight_fp8(p["w"], per_channel)
     else:
         raise ValueError(f"unknown quant dtype {qcfg.dtype!r}")
     return {"w_q": w_q, "scale": scale, "b": p["b"]}
@@ -157,13 +181,13 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
 
 
 def to_kernel_layout(params: Params) -> Params:
-    """The tree with every int8 weight held K-contiguous: `w_q` keeps its
-    [.., K, N] shape but lies in memory as [.., N, K] (strides (.., 1, K)),
-    the layout the int8 GEMM kernel reads. One copy is made per weight that
-    is not in that layout already, and the tree holds only that copy. Float
-    leaves pass through."""
+    """The tree with every int8 and e4m3 weight held K-contiguous: `w_q`
+    keeps its [.., K, N] shape but lies in memory as [.., N, K] (strides
+    (.., 1, K)), the layout the int8 and fp8 GEMM kernels read. One copy is
+    made per weight that is not in that layout already, and the tree holds
+    only that copy. Float leaves pass through."""
     if isinstance(params, dict):
-        if "w_q" in params and params["w_q"].dtype == torch.int8:
+        if "w_q" in params and params["w_q"].dtype in (torch.int8, FP8):
             w = params["w_q"]
             return {**params, "w_q": w.transpose(-1, -2).contiguous().transpose(-1, -2)}
         return {k: to_kernel_layout(v) for k, v in params.items()}

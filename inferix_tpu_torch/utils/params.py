@@ -33,10 +33,12 @@ def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
     """Turn the JAX parameter tree (nested dicts of numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`) into the port's tree of tensors on
     `device`. Floating leaves become `dtype`, except the float32 keys
-    above; integer leaves (int8 `w_q`) keep their type. Works for stacked
-    layers, for unfused or fused (`qkv`) self-attention projections, for
-    float or int8-quantized trees alike, and for the VAE's tree (lists are
-    walked like dicts)."""
+    above; integer leaves (int8 `w_q`) keep their type, and e4m3 leaves
+    (fp8 `w_q`, ml_dtypes' float8_e4m3fn from JAX) become
+    torch.float8_e4m3fn through a uint8 view, so their bits are carried, not
+    re-rounded. Works for stacked layers, for unfused or fused (`qkv`)
+    self-attention projections, for float, int8- or fp8-quantized trees
+    alike, and for the VAE's tree (lists are walked like dicts)."""
     dev = resolve_device(device)
 
     def convert(node, fp32: bool):
@@ -45,11 +47,13 @@ def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
         if isinstance(node, (list, tuple)):
             return [convert(v, fp32) for v in node]
         arr = np.asarray(node)
+        if arr.dtype.name == "float8_e4m3fn":
+            t = torch.from_numpy(np.array(arr.view(np.uint8)))
+            return t.view(torch.float8_e4m3fn).to(dev)
+        if arr.dtype.name.startswith("float8"):
+            raise TypeError(f"only float8_e4m3fn leaves are ported, got {arr.dtype}")
         if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 from JAX
             arr = arr.astype(np.float32)
-        elif arr.dtype.name.startswith("float8"):
-            raise NotImplementedError(
-                "fp8 weights are not ported yet (TPU kernel 9, ROADMAP.md B8)")
         t = torch.from_numpy(np.array(arr))  # a writable copy
         if t.is_floating_point():
             t = t.to(torch.float32 if fp32 else dtype)

@@ -202,7 +202,7 @@ def test_bounds_tensor_for_the_kernel():
 
 
 @pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant",
-                                  "halo_conv"])
+                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext"])
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
     build of each kernel library stops with an error that says so."""

@@ -181,6 +181,14 @@ def test_default_entry_points_raise_without_a_card():
         cfg.quant.kv_cache_dtype = kv
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SemiARGenerator(cfg, params)
+    # the fp8 weight-only entry points: an e4m3 tree, its generator, the bridge
+    import ml_dtypes
+    cfg.quant.quantize_kv_cache, cfg.quant.dtype = False, "fp8"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SemiARGenerator(cfg, quantize_params(params, cfg.quant))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w_q": np.zeros((2, 2), np.uint8).view(ml_dtypes.float8_e4m3fn),
+                           "scale": np.ones(2, np.float32)})
     vcfg = VAEConfig(dim=16, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
                      temperal_downsample=(True,))
     spec = KVCacheSpec(num_layers=1, batch=1, max_tokens=8, num_kv_heads=1, head_dim=4)

@@ -366,12 +366,45 @@ def test_wrappers_on_cpu_take_the_plain_version():
 
 
 def test_fp8_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="B8"):
-        tapi.quantize_params({"blocks": {"ffn": {"fc1": {"w": torch.ones(2, 4, 4),
-                                                         "b": torch.zeros(2, 4)}}}},
-                             QuantConfig(enabled=True, dtype="fp8"))
-    with pytest.raises(NotImplementedError, match="B8"):
-        tk.fp8_matmul(torch.ones(2, 2), torch.ones(2, 2), torch.ones(2))
+    """The fp8 entry points return (e4m3 trees, the GEMM, the param bridge),
+    the fp8 GEMM refuses operands it cannot take (on the CPU through its
+    plain version; the card's operand checks are called directly), and the
+    int8 paths refuse bad arguments."""
+    tree = tapi.quantize_params({"blocks": {"ffn": {"fc1": {"w": torch.ones(2, 4, 4),
+                                                            "b": torch.zeros(2, 4)}}}},
+                                QuantConfig(enabled=True, dtype="fp8"))
+    fc1 = tree["blocks"]["ffn"]["fc1"]
+    assert fc1["w_q"].dtype == torch.float8_e4m3fn and fc1["scale"].shape == (2, 4)
+    w8 = torch.ones(16, 8).to(torch.float8_e4m3fn)
+    out = tk.fp8_matmul(torch.ones(2, 16), w8, torch.full((8,), 0.5))
+    assert out.dtype == torch.bfloat16 and torch.equal(out, torch.full((2, 8), 8.0).bfloat16())
+    carried = params_from_numpy({"w_q": np.asarray(jnp.ones((2, 2), jnp.float8_e4m3fn)),
+                                 "scale": np.ones(2, np.float32)}, "cpu")
+    assert carried["w_q"].dtype == torch.float8_e4m3fn and carried["scale"].dtype == torch.float32
+    with pytest.raises(ValueError, match="quant dtype"):
+        QuantConfig(enabled=True, dtype="int4")
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        tk.fp8_matmul(torch.ones(2, 16), torch.ones(16, 8, dtype=torch.int8), torch.ones(8))
+    with pytest.raises(ValueError, match="w_q"):
+        tk.fp8_matmul(torch.ones(2, 32), w8, torch.ones(8))
+    with pytest.raises(ValueError, match="w_scale"):
+        tk.fp8_matmul(torch.ones(2, 16), w8, torch.ones(3))
+    xb = torch.ones(2, 16, dtype=torch.bfloat16)
+    wk = w8.t().contiguous().t()
+    check = tk._check_fp8_cuda_operands
+    check(xb, wk, torch.ones(8), None, torch.bfloat16)  # takes what the kernel takes
+    for exc, match, args in (
+            (TypeError, "bfloat16", (xb.float(), wk, torch.ones(8), None, torch.bfloat16)),
+            (TypeError, "float8_e4m3fn", (xb, wk.float(), torch.ones(8), None, torch.bfloat16)),
+            (ValueError, "K-contiguous", (xb, w8, torch.ones(8), None, torch.bfloat16)),
+            (ValueError, "w_scale", (xb, wk, torch.ones(7), None, torch.bfloat16)),
+            (ValueError, "w_scale", (xb, wk, torch.ones(9), None, torch.bfloat16)),
+            (TypeError, "w_scale", (xb, wk, torch.ones(8).double(), None, torch.bfloat16)),
+            (ValueError, "bias", (xb, wk, torch.ones(1), torch.ones(3), torch.bfloat16)),
+            (TypeError, "out_dtype", (xb, wk, torch.ones(1), None, torch.float16)),
+            (ValueError, "K % 16", (xb[:, :8], wk[:8], torch.ones(8), None, torch.bfloat16))):
+        with pytest.raises(exc, match=match):
+            check(*args)
     with pytest.raises(ValueError, match="unknown act"):
         taq.quantize_rows_int8(torch.ones(2, 128), act="relu")
     with pytest.raises(ValueError, match="x_scale"):
@@ -380,6 +413,3 @@ def test_fp8_and_bad_arguments_raise():
                        torch.ones(8))
     with pytest.raises(ValueError, match="weight and bias"):
         taq.ln_quantize_rows_int8(torch.ones(2, 128), torch.ones(128))
-    with pytest.raises(NotImplementedError, match="B8"):
-        params_from_numpy({"w_q": np.asarray(jnp.zeros((2, 2), jnp.float8_e4m3fn)),
-                           "scale": np.ones(2, np.float32)}, "cpu")
