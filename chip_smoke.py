@@ -30,12 +30,14 @@ Phases, each timed on a line of its own:
                 checked; one layer and one whole forward with every kernel
                 against the same with every plain version; the W8A8 flow
                 against the bf16 one, printed for information.
-  7. kv kernels - the int8-KV flash kernel and the e4m3-K/V instantiation
-                of the flash kernel against their plain versions at the
-                full-cache shape (kv_start > 0, [B] bounds, one key, an empty
-                span, fixedm and runmax; phase 3's tolerance), each wrapper
-                refusing a bad operand, then timed beside the bound and SDPA
-                over a dequantized bf16 copy.
+  7. kv kernels - the int8-KV flash kernel (wgmma, TMA) and the e4m3-K/V
+                instantiation of the flash kernel against their plain versions
+                at the full-cache shape (kv_start > 0, [B] bounds, one key, an
+                empty span, fixedm and runmax; phase 3's tolerance), each
+                wrapper refusing a bad operand (for the int8-KV kernel also
+                K/V strides its tensor maps cannot take), then timed beside
+                the bound and SDPA over a dequantized bf16 copy; the int8-KV
+                kernel also at spans 4680, 14040 and 32760, B=1 and B=2.
   8. int8_b2 / window / fp8 main - this slice's paths: W8A8 with the int8
                 KV cache at B=2 (2 blocks); W8A8 with the int8 KV cache
                 through a 12-frame rolling window with 1 sink frame,
@@ -132,7 +134,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant", "halo_conv",
-             "fp8_matmul", "flash_attention_quant_ext")
+             "fp8_matmul", "flash_attention_quant_ext", "flash_attention_sm90")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -993,6 +995,22 @@ def kv_kernel_phase(dev: torch.device) -> list:
                   f"rel err {rel_err(kern(1, SKV), deq):.3e}", flush=True)
             del deq
         del kd, vd, qt, kt, vt
+        if name == "flash_attention_prefix_quant":
+            # the spans of the int8-KV paths (block 0 / 2 / 6 of a clip), at
+            # B=1 and B=2, each beside its bound and SDPA over a dequantized
+            # copy of the same span
+            for b in (1, 2):
+                for span in (SQ, 3 * SQ, SKV):
+                    t = time_ms(lambda: kern(b, span))
+                    kd, vd = (dequantize(c[:b, :span], sc[:b, :span])
+                              for c, sc in ((kq, ks), (vq, vs)))
+                    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q2[:b], kd, vd))
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                    del kd, vd, qt, kt, vt
+                    bnd, by = attention_bound(b, SQ, span)
+                    print(f"kv time {name} B={b} span {span}: {t:.4f} ms, sdpa over a "
+                          f"dequantized bf16 copy {lib:.4f} ms, bound {bnd:.4f} ms ({by})",
+                          flush=True)
         for k, (f, a) in KERNEL_COUNTERS.items():  # timing launches are not the path's
             setattr(f, a, before[k])
         bound_ms, bound_by = attention_bound(1, SQ, SKV)
@@ -1001,7 +1019,9 @@ def kv_kernel_phase(dev: torch.device) -> list:
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         entries.append({
             "name": name, "route": "cuda",
-            "source": "inferix_tpu_torch/csrc/flash_attention_prefix.cu",
+            "source": ("inferix_tpu_torch/csrc/flash_attention_sm90.cu"
+                       if name == "flash_attention_prefix_quant"
+                       else "inferix_tpu_torch/csrc/flash_attention_prefix.cu"),
             "replaces": ("inferix_tpu/ops/flash_attention.py:390"
                          if name == "flash_attention_prefix_quant"
                          else "inferix_tpu/ops/flash_attention.py:53"),
@@ -1017,6 +1037,20 @@ def kv_kernel_phase(dev: torch.device) -> list:
                                                       ks[:1].bfloat16(), vs[:1], SKV))
     expect_raise("flash_attention_prefix int8 K/V", TypeError,
                  lambda: flash_attention_prefix(q2[:1], kq[:1], vq[:1], SKV))
+    # the tensor maps' rule: K/V strides that are positive multiples of 16
+    # bytes, at least one token
+    kpad = torch.zeros(1, 64, H * D + 8, dtype=torch.int8, device=dev)
+    k_odd = kpad[..., :H * D].view(1, 64, H, D)          # token stride 1544 bytes
+    expect_raise("flash_attention_prefix_quant token stride 1544 bytes", ValueError,
+                 lambda: flash_attention_prefix_quant(q2[:1], k_odd, k_odd, ks[:1, :64],
+                                                      vs[:1, :64], 64))
+    k_bcast = kq[:1, :1].expand(1, 64, H, D)              # token stride 0
+    expect_raise("flash_attention_prefix_quant token stride 0", ValueError,
+                 lambda: flash_attention_prefix_quant(q2[:1], k_bcast, k_bcast, ks[:1, :64],
+                                                      vs[:1, :64], 64))
+    expect_raise("flash_attention_prefix_quant empty cache", ValueError,
+                 lambda: flash_attention_prefix_quant(q2[:1], kq[:1, :0], vq[:1, :0],
+                                                      ks[:1, :0], vs[:1, :0], 0))
     if failed:
         raise AssertionError(f"kv kernel cases {failed} disagree with the plain versions")
     return entries

@@ -38,6 +38,7 @@ from inferix_tpu_torch.ops.flash_attention import flash_attention_prefix
 
 GROUPS = (  # first match wins
     ("flash_attention_prefix (ours)", re.compile(r"flash_prefix_kernel")),
+    ("flash_attention_prefix_quant (ours)", re.compile(r"flash_sm90_kernel")),
     ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
     ("fp8_matmul (ours)", re.compile(r"fp8_matmul_kernel")),
     ("halo_conv3d (ours)", re.compile(r"halo_conv_kernel")),

@@ -1,20 +1,17 @@
 // Prefix-span flash attention for NVIDIA Hopper (sm_90a): q attends over the
 // live span [kv_start, kv_end) of a KV cache, per batch row.
 //
-// Replaces two TPU kernels of inferix_tpu/ops/flash_attention.py:
-//   `_flash_kernel` (body :53, pallas_call :329, wrapper
-//   flash_attention_prefix :204) over a bf16 or a scale-free fp8 e4m3 K/V
-//   cache (the TPU kernel casts e4m3 to q's dtype, :126, :142), and
-//   `_flash_kernel_quant` (body :390, pallas_call :622, wrapper
-//   flash_attention_prefix_quant :497) over an int8 K/V cache with one f32
-//   scale per (token, head).
+// Replaces the TPU kernel `_flash_kernel` of
+// inferix_tpu/ops/flash_attention.py (body :53, pallas_call :329, wrapper
+// flash_attention_prefix :204) over a bf16 or a scale-free fp8 e4m3 K/V
+// cache (the TPU kernel casts e4m3 to q's dtype, :126, :142). The int8-KV
+// kernel (`_flash_kernel_quant`, :390) runs on csrc/flash_attention_sm90.cu.
 //
-// Contract (the same as the TPU kernels'):
-//   q [B, Sq, H, 128] bf16, k/v [B, Skv, H, 128] bf16, e4m3 or int8
+// Contract (the same as the TPU kernel's):
+//   q [B, Sq, H, 128] bf16, k/v [B, Skv, H, 128] bf16 or e4m3
 //   (token-major cache layer slices, any row/batch/head strides; the head dim
-//   is contiguous), for int8 also k_scale/v_scale [B, Skv, H] f32 (any
-//   strides), bounds [B, 2] int32 on the device = (kv_start, kv_end) per
-//   batch row, out [B, Sq, H, 128] bf16, optional lse [B, H, Sq] float32.
+//   is contiguous), bounds [B, 2] int32 on the device = (kv_start, kv_end)
+//   per batch row, out [B, Sq, H, 128] bf16, optional lse [B, H, Sq] float32.
 //
 // The exp2 domain: q is pre-multiplied by scale*log2(e) and rounded back to
 // bf16 (as the TPU wrapper does, flash_attention.py:270-271; here on the load
@@ -23,19 +20,15 @@
 // Softmax modes: `fixedm` (no running max; exact while |natural logit| <~ 60,
 // which every normalised-QK attention satisfies, :79-86) and `runmax` (the
 // classic running max, for unbounded logits).
-// int8 dequantization, as `_flash_kernel_quant` does it (:423-463): the
-// logits' columns are scaled by k_scale (q . (k_q * s) == (q . k_q) * s), l
-// sums the unscaled p, and p * v_scale is rounded to bf16 before the PV
-// product (p . (v_q * s) == (p * s) . v_q). int8 and e4m3 values widen to
-// bf16 exactly, so the products are those of a bf16 cache holding the same
-// values.
+// e4m3 values widen to bf16 exactly, so the products are those of a bf16
+// cache holding the same values.
 //
 // Bound on an H100 SXM: 4*Sq*span*H*128 FLOP on the tensor cores against
 // (Sq + 2*span)*H*128 bytes of q and K/V at their widths. At the main path's
 // full cache (B=1, Sq=4680, H=12, span=32760) that is 0.94 TFLOP -> 0.95 ms
 // at 989 TFLOP/s, against 201 MB of bf16 K/V (0.06 ms at 3.35 TB/s) or half
-// that in int8 or e4m3: every variant is bound by operations, and the 1-byte
-// caches buy capacity, not speed.
+// that in e4m3: both variants are bound by operations, and the 1-byte
+// cache buys capacity, not speed.
 //
 // Design (simple and right first; wgmma/TMA and warp specialisation are later
 // work): one CTA of 4 warps per (64-row q tile, batch*head). Each warp owns
@@ -44,16 +37,15 @@
 // K/V tiles that start at kv_start (so only the last tile is ragged), staged
 // through shared memory by cp.async with two buffers, so the next tile loads
 // while this one is multiplied. A bf16 tile lands directly in its swizzled
-// bf16 buffer. A 1-byte tile (e4m3 or int8, 16 values per 16-byte copy)
-// lands in a raw buffer, with its 64 k and v scales (4-byte copies, stride
-// H), and one pass over shared memory widens it into the swizzled bf16 tile
+// bf16 buffer. An e4m3 tile (16 values per 16-byte copy) lands in a raw
+// buffer, and one pass over shared memory widens it into the swizzled bf16 tile
 // that the bf16 path's ldmatrix loads read unchanged. Products are bf16
 // mma.sync m16n8k16 with fp32 accumulation; shared memory is XOR-swizzled
 // in 16-byte chunks so ldmatrix reads are free of bank conflicts. Where the
 // TPU grid padded Sq and Skv to its q/kv blocks, this kernel masks the
 // ragged edges: q rows past Sq are neither loaded nor stored, and key
 // columns past kv_end get a logit of -1e30 (p = 0) while their K/V rows
-// (and scales) are zero-filled. The span bounds are read from device memory,
+// are zero-filled. The span bounds are read from device memory,
 // so a caller needs no host sync and no span buckets.
 //
 // C interface: raw pointers, element strides, the stream; the launchers
@@ -77,22 +69,20 @@ constexpr int kRawChunksPerThread = kRawTile / 16 / kThreads;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// K/V storage kinds; the first two are the launcher's `kv_kind` codes.
-constexpr int kBF16 = 0, kE4M3 = 1, kInt8 = 2;
+// K/V storage kinds, the launcher's `kv_kind` codes (kind 2, int8, is
+// csrc/flash_attention_sm90.cu's).
+constexpr int kBF16 = 0, kE4M3 = 1;
 
-// Shared memory: bf16 K/V: Q + 2 x (K, V) tiles = 80 KB. 1-byte K/V: Q + the
-// widened K and V + 2 x (raw K, raw V) + 2 x (64 k, 64 v scales) = 81 KB.
+// Shared memory: bf16 K/V: Q + 2 x (K, V) tiles = 80 KB. e4m3 K/V: Q + the
+// widened K and V + 2 x (raw K, raw V) = 80 KB.
 constexpr int smem_bytes(int kv) {
-  return kv == kBF16 ? 5 * kTileElems * 2
-                     : 3 * kTileElems * 2 + 4 * kRawTile + 4 * kBlockKV * 4;
+  return kv == kBF16 ? 5 * kTileElems * 2 : 3 * kTileElems * 2 + 4 * kRawTile;
 }
 
 struct Params {
   const __nv_bfloat16* q;
   const void* k;
   const void* v;
-  const float* ks;  // int8 only
-  const float* vs;
   __nv_bfloat16* out;
   float* lse;
   const int* bounds;
@@ -100,8 +90,6 @@ struct Params {
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
-  long long ks_sb, ks_ss, ks_sh;
-  long long vs_sb, vs_ss, vs_sh;
   long long o_sb, o_ss, o_sh;
   float q_scale;  // scale * log2(e)
 };
@@ -121,13 +109,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                    "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4-byte async copy (a scale), zero-filled when not valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -168,16 +149,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// One stored byte as a float: int8 or e4m3 (both exact in bf16).
+// One stored e4m3 byte as a float (exact in bf16).
 template <int kKV>
 __device__ __forceinline__ float byte_to_float(uint32_t byte) {
-  if constexpr (kKV == kInt8) {
-    return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(byte)));
-  } else {
-    __nv_fp8_e4m3 f;
-    f.__x = static_cast<__nv_fp8_storage_t>(byte);
-    return static_cast<float>(f);
-  }
+  __nv_fp8_e4m3 f;
+  f.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(f);
 }
 
 // Four stored bytes (one 32-bit word) widened to four bf16 values.
@@ -197,8 +174,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + kTileElems;                // 2 buffers for bf16
   __nv_bfloat16* sV = sK + (kByte ? 1 : 2) * kTileElems;
-  uint8_t* sRaw = reinterpret_cast<uint8_t*>(sV + kTileElems);  // 1-byte K/V
-  float* sScale = reinterpret_cast<float*>(sRaw + 4 * kRawTile);  // [2][k|v][64]
+  uint8_t* sRaw = reinterpret_cast<uint8_t*>(sV + kTileElems);  // e4m3 K/V
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -245,16 +221,6 @@ __global__ void __launch_bounds__(kThreads, 2)
         const long long tok = ok ? base + row : kv_start;
         cp_async16(dk + row * kHeadDim + col, kbase + tok * p.k_ss + col, ok);
         cp_async16(dv + row * kHeadDim + col, vbase + tok * p.v_ss + col, ok);
-      }
-      if constexpr (kKV == kInt8) {
-        if (tid < kBlockKV) {
-          const bool ok = base + tid < kv_end;
-          const long long tok = ok ? base + tid : kv_start;
-          float* ds = sScale + buf * 2 * kBlockKV;
-          cp_async4(ds + tid, p.ks + b * p.ks_sb + h * p.ks_sh + tok * p.ks_ss, ok);
-          cp_async4(ds + kBlockKV + tid,
-                    p.vs + b * p.vs_sb + h * p.vs_sh + tok * p.vs_ss, ok);
-        }
       }
     }
   };
@@ -327,8 +293,6 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     const __nv_bfloat16* cK = sK + (kByte ? 0 : (it & 1) * kTileElems);
     const __nv_bfloat16* cV = sV + (kByte ? 0 : (it & 1) * kTileElems);
-    const float* cks = sScale + (it & 1) * 2 * kBlockKV;  // int8 only
-    const float* cvs = cks + kBlockKV;
 
     // s = q k^T for this warp's 16 rows x 64 keys
     float s[8][4];
@@ -345,16 +309,6 @@ __global__ void __launch_bounds__(kThreads, 2)
         mma_bf16(s[2 * np + 1], qf[kc], kb[2], kb[3]);
       }
     }
-    if constexpr (kKV == kInt8) {
-      // k dequantization: each logit column times its key's scale
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float k0 = cks[nt * 8 + 2 * t4], k1 = cks[nt * 8 + 2 * t4 + 1];
-        s[nt][0] = __fmul_rn(s[nt][0], k0); s[nt][1] = __fmul_rn(s[nt][1], k1);
-        s[nt][2] = __fmul_rn(s[nt][2], k0); s[nt][3] = __fmul_rn(s[nt][3], k1);
-      }
-    }
-
     const int tile_base = kv_start + it * kBlockKV;
     if (tile_base + kBlockKV > kv_end) {
 #pragma unroll
@@ -401,19 +355,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       l_r[0] += s[nt][0] + s[nt][1];
       l_r[1] += s[nt][2] + s[nt][3];
     }
-    if constexpr (kKV == kInt8) {
-      // v dequantization: each probability column times its value's scale
-      // (after l has summed the unscaled p)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float v0 = cvs[nt * 8 + 2 * t4], v1 = cvs[nt * 8 + 2 * t4 + 1];
-        s[nt][0] = __fmul_rn(s[nt][0], v0); s[nt][1] = __fmul_rn(s[nt][1], v1);
-        s[nt][2] = __fmul_rn(s[nt][2], v0); s[nt][3] = __fmul_rn(s[nt][3], v1);
-      }
-    }
-
-    // o += p v, p rounded to bf16 (the TPU kernel's p.astype(v.dtype), or
-    // (p * v_scale).astype(bf16) for int8)
+    // o += p v, p rounded to bf16 (the TPU kernel's p.astype(v.dtype))
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint32_t pa[4] = {
@@ -487,14 +429,10 @@ void set_common(Params& p, const void* q, const void* k, const void* v,
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = k;
   p.v = v;
-  p.ks = nullptr;
-  p.vs = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.bounds = static_cast<const int*>(bounds);
   p.B = B; p.H = H; p.Sq = Sq; p.Skv = Skv;
-  p.ks_sb = p.ks_ss = p.ks_sh = 0;
-  p.vs_sb = p.vs_ss = p.vs_sh = 0;
   p.q_scale = q_scale;
 }
 
@@ -519,29 +457,4 @@ extern "C" int inferix_flash_attention_prefix(
   if (kv_kind == kBF16) return static_cast<int>(launch<kBF16>(p, runmax, s));
   if (kv_kind == kE4M3) return static_cast<int>(launch<kE4M3>(p, runmax, s));
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// int8 K/V with f32 per-(token, head) scales.
-extern "C" int inferix_flash_attention_prefix_quant(
-    const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, void* out, void* lse, const void* bounds, int B,
-    int H, int Sq, int Skv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long ks_sb, long long ks_ss, long long ks_sh,
-    long long vs_sb, long long vs_ss, long long vs_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    float q_scale, int runmax, void* stream) {
-  Params p;
-  set_common(p, q, k, v, out, lse, bounds, B, H, Sq, Skv, q_scale);
-  p.ks = static_cast<const float*>(k_scale);
-  p.vs = static_cast<const float*>(v_scale);
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.ks_sb = ks_sb; p.ks_ss = ks_ss; p.ks_sh = ks_sh;
-  p.vs_sb = vs_sb; p.vs_ss = vs_ss; p.vs_sh = vs_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  return static_cast<int>(launch<kInt8>(p, runmax, static_cast<cudaStream_t>(stream)));
 }

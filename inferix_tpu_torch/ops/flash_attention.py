@@ -1,5 +1,7 @@
 """Prefix-span flash attention: the wrappers of the hand-written CUDA
-kernels (`csrc/flash_attention_prefix.cu`) and their plain PyTorch versions.
+kernels (`csrc/flash_attention_prefix.cu` for bf16 and e4m3 K/V,
+`csrc/flash_attention_sm90.cu` for int8 K/V) and their plain PyTorch
+versions.
 
 Port of `inferix_tpu/ops/flash_attention.py`:
 - `flash_attention_prefix` (`:204`, TPU kernel `_flash_kernel` `:53`) and its
@@ -140,12 +142,14 @@ _ARGTYPES = (
     + _STRIDES * 4                         # q, k, v, out
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )                                          # q_scale, runmax, kv kind, stream
-_ARGTYPES_QUANT = (
+_ARGTYPES_SM90 = (
     [ctypes.c_void_p] * 8                  # q, k, v, k_scale, v_scale, out, lse, bounds
     + [ctypes.c_int] * 4                   # B, H, Sq, Skv
     + _STRIDES * 6                         # q, k, v, k_scale, v_scale, out
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # q_scale, runmax, stream
-)
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)                                          # q_scale, runmax, kv kind, stream
+_KV_KIND_SM90 = {torch.int8: 2}            # the sm90 kernel's K/V kinds
+_TMA_MAX_STRIDE = 1 << 40
 
 
 def _lib():
@@ -153,9 +157,34 @@ def _lib():
     if lib.inferix_flash_attention_prefix.argtypes is None:
         lib.inferix_flash_attention_prefix.argtypes = _ARGTYPES
         lib.inferix_flash_attention_prefix.restype = ctypes.c_int
-        lib.inferix_flash_attention_prefix_quant.argtypes = _ARGTYPES_QUANT
-        lib.inferix_flash_attention_prefix_quant.restype = ctypes.c_int
     return lib
+
+
+def _lib_sm90():
+    fn = _build.load_library("flash_attention_sm90").inferix_flash_attention_sm90
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_SM90
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tma_kv(name: str, t: torch.Tensor) -> None:
+    """The rule of the sm90 kernel's K/V tensor maps, on a [B, Skv, H, 128]
+    tensor of 1-byte codes: a contiguous head dim, a 16-byte aligned base,
+    and batch, token and head strides that are positive multiples of 16
+    bytes below 2^40 (TMA's rule for its global strides); at least one
+    token. A cache layer slice (token stride H*128 bytes) qualifies. Raises
+    ValueError otherwise; the wrapper never falls back."""
+    if t.dim() != 4 or t.shape[-1] != HEAD_DIM or t.shape[1] == 0:
+        raise ValueError(f"{name} must be [B, Skv > 0, H, {HEAD_DIM}], got {tuple(t.shape)}")
+    es = t.element_size()
+    strides = [s * es for s in t.stride()[:3]]
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            s <= 0 or s % 16 or s >= _TMA_MAX_STRIDE for s in strides):
+        raise ValueError(
+            f"{name}: the kernel's tensor map needs a contiguous head dim, a "
+            f"16-byte aligned base and batch/token/head strides that are "
+            f"positive multiples of 16 bytes; got byte strides {strides}")
 
 
 def _check_cuda_operands(q, k, v, kv_dtypes):
@@ -259,7 +288,8 @@ def flash_attention_prefix_quant(
     """Flash attention of q over the span [kv_start, kv_len) of an int8 K/V
     cache with float32 scales k_scale/v_scale [B, Skv, H], dequantized in
     the kernel. Same contract as `flash_attention_prefix` otherwise. On CUDA
-    tensors this launches the int8-KV kernel (bf16 q, D = 128) and counts
+    tensors this launches the int8-KV kernel (`csrc/flash_attention_sm90.cu`:
+    wgmma, TMA; bf16 q, D = 128; k/v as `check_tma_kv` states) and counts
     the launch in `flash_attention_prefix_quant.launches`; on CPU tensors
     it takes the plain version. The scales are read through their strides
     (a cache layer's `k_scale[l]` as it is)."""
@@ -271,7 +301,9 @@ def flash_attention_prefix_quant(
         return flash_attention_prefix_quant_reference(
             q, k, v, k_scale, v_scale, kv_len, kv_start, scale, softmax,
             return_lse)
-    _check_cuda_operands(q, k, v, (torch.int8,))
+    _check_cuda_operands(q, k, v, tuple(_KV_KIND_SM90))
+    check_tma_kv("k", k)
+    check_tma_kv("v", v)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t.device != q.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != tuple(k.shape[:3]):
@@ -284,14 +316,14 @@ def flash_attention_prefix_quant(
     out, lse = _outputs(q, return_lse)
     if sq > 0:
         with torch.cuda.device(q.device):
-            err = _lib().inferix_flash_attention_prefix_quant(
+            err = _lib_sm90()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None, bounds.data_ptr(),
                 b, h, sq, k.shape[1],
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *k_scale.stride(), *v_scale.stride(), *out.stride()[:3],
-                scale * LOG2E, int(softmax == "runmax"),
+                scale * LOG2E, int(softmax == "runmax"), _KV_KIND_SM90[k.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _check_launch(err, "flash_attention_prefix_quant")

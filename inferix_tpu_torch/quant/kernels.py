@@ -18,8 +18,8 @@ kernels take it as a K-contiguous [K, N] view: an [N, K] tensor in memory,
 seen through `.t()` (strides (1, K)). The int8 kernel needs that layout
 because its tensor-core operand wants each output channel's K bytes
 contiguous and ldmatrix transposes 16-bit elements only; the fp8 kernel
-widens each e4m3 [N, K] tile to bf16 in shared memory and reads it with the
-same non-transposed ldmatrix as the flash kernel reads its keys.
+loads [N, K] tiles by TMA and widens each channel's e4m3 bytes in registers
+into wgmma's A operand (it computes out^T = W x^T).
 `quant.api.to_kernel_layout` makes that layout once, when the generator is
 built; the weight is then held in that one copy only. The plain versions
 take either layout.
@@ -273,8 +273,8 @@ def _check_fp8_cuda_operands(x, w_q, w_scale, bias, out_dtype):
     m, k = x.shape
     n = w_q.shape[1]
     if k % 16 or n % 8:
-        raise ValueError(f"the kernel needs K % 16 == 0 (16-byte cp.async) and "
-                         f"N % 8 == 0, got K={k}, N={n}")
+        raise ValueError(f"the kernel needs K % 16 == 0 (16-byte rows of its "
+                         f"tensor maps) and N % 8 == 0, got K={k}, N={n}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous with a 16-byte aligned base")
     if w_q.stride() != (1, k) or w_q.data_ptr() % 16:
@@ -289,8 +289,16 @@ def _check_fp8_cuda_operands(x, w_q, w_scale, bias, out_dtype):
         raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias must hold N={n} values, got {tuple(bias.shape)}")
-    if (m + 127) // 128 > 65535:
+    if fp8_grid(m, n)[1] > 65535:
         raise ValueError(f"M = {m} exceeds the kernel's grid limit")
+
+
+FP8_TILE_M, FP8_TILE_N = 256, 128   # tokens x channels a CTA of the fp8 kernel
+
+
+def fp8_grid(m: int, n: int) -> Tuple[int, int]:
+    """The fp8 kernel's grid: (channel tiles, token tiles)."""
+    return -(-n // FP8_TILE_N), -(-m // FP8_TILE_M)
 
 
 def fp8_matmul(

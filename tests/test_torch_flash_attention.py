@@ -202,7 +202,8 @@ def test_bounds_tensor_for_the_kernel():
 
 
 @pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant",
-                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext"])
+                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext",
+                                  "flash_attention_sm90"])
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
     build of each kernel library stops with an error that says so."""
@@ -256,3 +257,43 @@ def test_build_reports_a_failed_source(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="failed to build int8_matmul.cu:\n.*bad ptx"):
         _build.build(["int8_matmul"])
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def _int8_cache(layers=2, b=2, s=96, h=3):
+    """An int8 K cache [L, B, S, H, 128] as `init_kv_cache` lays it out."""
+    return torch.zeros(layers, b, s, h, 128, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("view", ["layer", "batch_row", "token_window"])
+def test_check_tma_kv_takes_cache_layer_slices(view):
+    """The int8-KV kernel's tensor-map rule admits what the paths pass it: a
+    cache layer slice, one batch row of it, and a window of its tokens (its
+    base moves by whole 384-byte token rows)."""
+    layer = _int8_cache()[1]
+    t = {"layer": layer, "batch_row": layer[1:], "token_window": layer[:, 10:50]}[view]
+    tfa.check_tma_kv("k", t)
+
+
+def _odd_token_stride():
+    return torch.zeros(1, 64, 3 * 128 + 8, dtype=torch.int8)[..., :3 * 128].view(1, 64, 3, 128)
+
+
+def _misaligned():
+    flat = torch.zeros(64 * 3 * 128 + 64, dtype=torch.int8)
+    return flat[8:8 + 64 * 3 * 128].view(1, 64, 3, 128)
+
+
+@pytest.mark.parametrize("make,match", [
+    (_odd_token_stride, "multiples of 16 bytes"),       # token stride 392 bytes
+    (_misaligned, "16-byte aligned base"),              # base 8 bytes off
+    (lambda: _int8_cache()[0, :, :1].expand(2, 96, 3, 128), "positive"),  # stride 0
+    (lambda: torch.zeros(1, 64, 128, 3, dtype=torch.int8).transpose(2, 3), "contiguous head"),
+    (lambda: _int8_cache()[0, :, :0], "Skv > 0"),       # an empty cache
+    (lambda: torch.zeros(1, 64, 3, 64, dtype=torch.int8), "128"),
+])
+def test_check_tma_kv_refuses(make, match):
+    """What the kernel's 4-D tensor maps cannot describe raises ValueError:
+    a token stride or a base off the 16-byte grid, a broadcast (zero)
+    stride, a strided head dim, no token at all, another head dim."""
+    with pytest.raises(ValueError, match=match):
+        tfa.check_tma_kv("k", make())

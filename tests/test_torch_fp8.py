@@ -369,3 +369,12 @@ def test_kernel_layout_and_memory_of_e4m3_leaves():
     assert got[1].stride() == (1, 64)
     assert torch.equal(got.view(torch.uint8), w_q.view(torch.uint8))
     assert tapi.memory_bytes(tree) == 2 * 64 * 48 + 2 * 2 * 48 * 4
+
+
+@pytest.mark.parametrize("m,n,grid", [
+    (4680, 4608, (36, 19)), (4680, 1536, (12, 19)), (4680, 8960, (70, 19)),
+    (512, 1536, (12, 2)), (70, 1536, (12, 1)), (1, 1536, (12, 1)), (100, 8, (1, 1))])
+def test_fp8_grid(m, n, grid):
+    """The fp8 kernel's grid at the path's and the gates' shapes: one CTA per
+    128 channels x 256 tokens, ragged edges rounded up."""
+    assert tk.fp8_grid(m, n) == grid
