@@ -8,11 +8,12 @@ Phases, each timed on a line of its own:
                 (nvidia-smi), the torch, CUDA and nvcc versions.
   2. build    - build every kernel library from `csrc/`, one nvcc per source,
                 all started together (-Xptxas -v output above the build time).
-  3. kernels  - the flash-attention kernel against its plain PyTorch version
-                on the card, at the main path's shapes, with the stated
-                tolerance; its time (CUDA events, median of 10 after warm-up)
-                beside its bound, the plain version's time and one library
-                call's time.
+  3. kernels  - the flash-attention kernel (bf16 K/V) against its plain
+                PyTorch version on the card, at the main path's shapes, with
+                the stated tolerance; its time (CUDA events, median of 10
+                after warm-up) at the spans of blocks 0, 2 and 6 beside its
+                bound and SDPA, and at the full cache beside the plain
+                version's time.
   4. main     - Self-Forcing Wan2.1-T2V-1.3B semi-AR generation at full width
                 and depth (random weights from a seed, random text features),
                 bf16, context_mode "rerun", over N blocks of 3 latent frames
@@ -30,14 +31,14 @@ Phases, each timed on a line of its own:
                 checked; one layer and one whole forward with every kernel
                 against the same with every plain version; the W8A8 flow
                 against the bf16 one, printed for information.
-  7. kv kernels - the int8-KV flash kernel (wgmma, TMA) and the e4m3-K/V
-                instantiation of the flash kernel against their plain versions
-                at the full-cache shape (kv_start > 0, [B] bounds, one key, an
-                empty span, fixedm and runmax; phase 3's tolerance), each
-                wrapper refusing a bad operand (for the int8-KV kernel also
-                K/V strides its tensor maps cannot take), then timed beside
-                the bound and SDPA over a dequantized bf16 copy; the int8-KV
-                kernel also at spans 4680, 14040 and 32760, B=1 and B=2.
+  7. kv kernels - the int8-KV and the e4m3-K/V instantiations of the flash
+                kernel against their plain versions at the full-cache shape
+                (kv_start > 0, [B] bounds, one key, an empty span, fixedm and
+                runmax; phase 3's tolerance), each wrapper refusing a bad
+                operand (for all three K/V kinds also K/V strides the tensor
+                maps cannot take and an empty cache), then timed beside the
+                bound and SDPA over a dequantized bf16 copy, also at spans
+                4680, 14040 and 32760 (int8 at B=1 and B=2).
   8. int8_b2 / window / fp8 main - this slice's paths: W8A8 with the int8
                 KV cache at B=2 (2 blocks); W8A8 with the int8 KV cache
                 through a 12-frame rolling window with 1 sink frame,
@@ -133,8 +134,8 @@ from inferix_tpu_torch.utils.params import init_params, init_vae_params
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_prefix", "int8_matmul", "act_quant", "halo_conv",
-             "fp8_matmul", "flash_attention_quant_ext", "flash_attention_sm90")
+LIBRARIES = ("flash_attention_sm90", "int8_matmul", "act_quant", "halo_conv",
+             "fp8_matmul", "flash_attention_quant_ext")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -156,6 +157,7 @@ LAYER_RTOL = 2e-2       # ||update_kernel - update_plain|| / ||update_plain||
 FORWARD_RTOL = 5e-2     # ||flow_kernel - flow_plain|| / ||flow_plain||
 
 SQ, H, D, SKV = 4680, 12, 128, 32760  # one 3-frame block over a 21-frame cache
+SPANS = (SQ, 3 * SQ, SKV)  # the live spans of blocks 0, 2 and 6 of a clip
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of each timed call
 
 # W8A8 kernels against their plain versions, bf16 activations on the card.
@@ -238,6 +240,31 @@ def device_phase(dev: torch.device) -> str:
     return smi
 
 
+def span_times(kern, label, q, k, v, batches, k_scale=None, v_scale=None):
+    """The kernel at the spans of a clip's blocks 0, 2 and 6, for each batch
+    size, beside its bound and SDPA over a bf16 (dequantized) copy of the
+    same span. kern(q, k, v, [k_scale, v_scale,] span); timing launches are
+    taken off the counts."""
+    before = all_counts()
+    for b in batches:
+        for span in SPANS:
+            extra = (k_scale[:b], v_scale[:b]) if k_scale is not None else ()
+            t = time_ms(lambda: kern(q[:b], k[:b], v[:b], *extra, span))
+            if k_scale is not None:
+                kd, vd = (dequantize(c[:b, :span], sc[:b, :span])
+                          for c, sc in ((k, k_scale), (v, v_scale)))
+            else:
+                kd, vd = (c[:b, :span].to(torch.bfloat16) for c in (k, v))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q[:b], kd, vd))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            del kd, vd, qt, kt, vt
+            bnd, by = attention_bound(b, SQ, span)
+            print(f"{label} B={b} span {span}: {t:.4f} ms, sdpa {lib:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}), {4 * b * SQ * span * H * D / t / 1e9:.1f} "
+                  f"TFLOP/s", flush=True)
+    restore_counts(before)
+
+
 def kernel_phase(dev: torch.device) -> dict:
     """Kernel vs plain version over the main path's shapes and bounds."""
     g = torch.Generator(device=dev).manual_seed(1)
@@ -288,11 +315,7 @@ def kernel_phase(dev: torch.device) -> dict:
     if failed:
         raise AssertionError(f"kernel cases {failed} disagree with the plain version")
 
-    for span in (4680, 9360, 14040, 32760):
-        ms = time_ms(lambda: flash_attention_prefix(q, k, v, span))
-        bound, by = attention_bound(1, SQ, span)
-        print(f"kernel time kv_len {span}: {ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}), {4 * SQ * span * H * D / ms / 1e9:.1f} TFLOP/s", flush=True)
+    span_times(flash_attention_prefix, "kernel time", q2, k2, v2, (1,))
     # the steady-state shape of the main path: a block over the full cache
     ms = time_ms(lambda: flash_attention_prefix(q, k, v, SKV))
     plain_ms = time_ms(lambda: flash_attention_prefix_reference(q, k, v, SKV))
@@ -304,7 +327,7 @@ def kernel_phase(dev: torch.device) -> dict:
           f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     return {"name": "flash_attention_prefix", "route": "cuda",
-            "source": "inferix_tpu_torch/csrc/flash_attention_prefix.cu",
+            "source": "inferix_tpu_torch/csrc/flash_attention_sm90.cu",
             "replaces": "inferix_tpu/ops/flash_attention.py:53",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -730,6 +753,12 @@ def reset_counts() -> None:
         setattr(f, a, 0)
 
 
+def restore_counts(before: dict) -> None:
+    """Put the counts back to `before`: timing launches are not a path's."""
+    for k, (f, a) in KERNEL_COUNTERS.items():
+        setattr(f, a, before[k])
+
+
 def count_diff(now: dict, before: dict) -> dict:
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
@@ -995,33 +1024,22 @@ def kv_kernel_phase(dev: torch.device) -> list:
                   f"rel err {rel_err(kern(1, SKV), deq):.3e}", flush=True)
             del deq
         del kd, vd, qt, kt, vt
+        restore_counts(before)
+        # the spans of the paths (block 0 / 2 / 6 of a clip), each beside its
+        # bound and SDPA over a dequantized copy of the same span; int8 at
+        # B=1 and B=2 (the int8-KV path runs at B=2)
         if name == "flash_attention_prefix_quant":
-            # the spans of the int8-KV paths (block 0 / 2 / 6 of a clip), at
-            # B=1 and B=2, each beside its bound and SDPA over a dequantized
-            # copy of the same span
-            for b in (1, 2):
-                for span in (SQ, 3 * SQ, SKV):
-                    t = time_ms(lambda: kern(b, span))
-                    kd, vd = (dequantize(c[:b, :span], sc[:b, :span])
-                              for c, sc in ((kq, ks), (vq, vs)))
-                    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q2[:b], kd, vd))
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-                    del kd, vd, qt, kt, vt
-                    bnd, by = attention_bound(b, SQ, span)
-                    print(f"kv time {name} B={b} span {span}: {t:.4f} ms, sdpa over a "
-                          f"dequantized bf16 copy {lib:.4f} ms, bound {bnd:.4f} ms ({by})",
-                          flush=True)
-        for k, (f, a) in KERNEL_COUNTERS.items():  # timing launches are not the path's
-            setattr(f, a, before[k])
+            span_times(flash_attention_prefix_quant, f"kv time {name}", q2, kq, vq,
+                       (1, 2), ks, vs)
+        else:
+            span_times(flash_attention_prefix, f"kv time {name}", q2, k8, v8, (1,))
         bound_ms, bound_by = attention_bound(1, SQ, SKV)
         print(f"kv time {name} full cache: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa over a dequantized bf16 copy {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         entries.append({
             "name": name, "route": "cuda",
-            "source": ("inferix_tpu_torch/csrc/flash_attention_sm90.cu"
-                       if name == "flash_attention_prefix_quant"
-                       else "inferix_tpu_torch/csrc/flash_attention_prefix.cu"),
+            "source": "inferix_tpu_torch/csrc/flash_attention_sm90.cu",
             "replaces": ("inferix_tpu/ops/flash_attention.py:390"
                          if name == "flash_attention_prefix_quant"
                          else "inferix_tpu/ops/flash_attention.py:53"),
@@ -1051,6 +1069,21 @@ def kv_kernel_phase(dev: torch.device) -> list:
     expect_raise("flash_attention_prefix_quant empty cache", ValueError,
                  lambda: flash_attention_prefix_quant(q2[:1], kq[:1, :0], vq[:1, :0],
                                                       ks[:1, :0], vs[:1, :0], 0))
+    # the same rule for the bf16 and e4m3 instantiations
+    for kind, cache in (("bf16", k8[:1].to(torch.bfloat16)), ("e4m3", k8[:1])):
+        k_bcast = cache[:, :1].expand(1, 64, H, D)        # token stride 0
+        expect_raise(f"flash_attention_prefix {kind} token stride 0", ValueError,
+                     lambda: flash_attention_prefix(q2[:1], k_bcast, k_bcast, 64))
+        expect_raise(f"flash_attention_prefix {kind} empty cache", ValueError,
+                     lambda: flash_attention_prefix(q2[:1], cache[:, :0], cache[:, :0], 0))
+        # a token stride off the 16-byte grid: 1540 bf16 (3080 bytes), 1544 e4m3
+        pad = 4 if kind == "bf16" else 8
+        wide = torch.zeros(1, 64, H * D + pad, dtype=cache.dtype, device=dev)
+        k_odd = wide[..., :H * D].view(1, 64, H, D)
+        expect_raise(f"flash_attention_prefix {kind} token stride "
+                     f"{(H * D + pad) * cache.element_size()} bytes", ValueError,
+                     lambda: flash_attention_prefix(q2[:1], k_odd, k_odd, 64))
+        del cache, k_bcast, wide, k_odd
     if failed:
         raise AssertionError(f"kv kernel cases {failed} disagree with the plain versions")
     return entries

@@ -1,26 +1,51 @@
 #!/usr/bin/env python3
-"""Where the time of the int8-KV flash kernel (B2) and the fp8 GEMM (B8) goes:
-measurement-only variants of their sources, timed against the kernels as
-they are, in turns, on one card.
+"""Where the time of the flash kernel (`csrc/flash_attention_sm90.cu`: B1 over
+bf16 and e4m3 K/V, B2 over int8) and of the fp8 GEMM (B8) goes: what ptxas
+made of variants of the sources, and the variants timed against the shipped
+kernels, in turns, on one card.
 
-    python3 exp/kernel_variants.py
+    python3 exp/kernel_variants.py [--no-fp8]
 
-Each variant is the checked-in source with one piece of work taken out (its
-output is wrong; it is compared with the real kernel only to show how much it
-moved), built with nvcc into inferix_tpu_torch/_build/variants/ and called
-through the real wrapper with its library swapped in:
-  B2 (full cache, B=1 and B=2, fixedm): no widening at all, no widening of
-     the keys (the producer warpgroup's share), no widening of the values
-     (the consumer warpgroups' share), no exp2.
-  B8 (one layer's six GEMMs at M = 4680, and the text K/V): e4m3 bytes used
-     as bf16 bits (no widening), no output store, 5 ring stages.
-Prints the card's name and power limit first, then one line per shape with
-the real kernel's times and each variant's, as real, variant, variant, real.
+Each variant is the checked-in source with one piece changed (most give
+wrong outputs; they are compared with the real kernel only to show how much
+the piece costs), built with nvcc into inferix_tpu_torch/_build/variants/
+and called through the real wrapper with its library swapped in.
+1. Registers: the flash source and each flash variant compiled with
+   `-Xptxas -v`; per instantiation (kind, runmax): ptxas's performance
+   warnings (C75xx), spill stores, the highest register the SASS names,
+   local loads/stores after the consumers' `setmaxnreg.inc` and after the
+   producer's `.dec` (the SASS lays the branches out in that order), and
+   the wgmma waits (WARPGROUP.DEPBAR: 4 when none is serialised).
+2. Flash variants at the full cache (B=1, 4680 q rows over 32760 keys,
+   fixedm), for each kind:
+     trap_wait: the mbarrier wait bounded by __trap() instead of a
+       faulting store;
+     sequential: a warpgroup's QK^T waits for its PV (wait_group 0 where
+       the kernel waits for S alone): no intra-warpgroup overlap;
+     no_exp2: p = s * 2^-10 instead of exp2(s);
+     q_smem: QK^T's A operand (q) read from shared memory by every wgmma
+       instead of held in registers;
+     no_widening, no_key_widening, no_value_widening (e4m3, int8): the
+       producer (keys) and/or the consumers (values) leave the bf16 ring as
+       it is;
+     widen_copy (e4m3, int8): the widening moves the bytes without
+       converting them;
+     regs_56_224 (e4m3, int8): the producer at 56 registers (its widening
+       unrolled by 4), the consumers at 224.
+3. The wave tail: bf16 over 32760 keys at Sq 4224 (33 q tiles x 12 heads =
+   396 units, 3 whole rounds on 132 SMs) and 4680 (444 units), each with
+   the tail split (`tail_split`) and with every unit whole.
+4. B8 (one layer's six GEMMs at M = 4680, and the text K/V): e4m3 bytes
+   used as bf16 bits (no widening), no output store, 5 ring stages.
+Prints the card's name and power limit first; times are as real, variant,
+variant, real.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -34,18 +59,31 @@ from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from inferix_tpu_torch.quant import kernels as tk  # noqa: E402
 
-B2_KEYS = ("      for (int jj = 0; jj < 4; ++jj) {\n        const int i = pt + 128 * jj;",
-           "      for (int jj = 0; jj < 0; ++jj) {\n        const int i = pt + 128 * jj;")
-B2_VALUES = ("      for (int jj = 0; jj < 2; ++jj) {\n        const int i = tid + 256 * jj;",
-             "      for (int jj = 0; jj < 0; ++jj) {\n        const int i = tid + 256 * jj;")
+FLASH = {
+    "trap_wait": [("    if (n == (1u << 22)) asm volatile(", "    if (n == (1u << 22)) __trap();\n"
+                   "    if (false) asm volatile(")],
+    "sequential": [("        wgmma_wait<1>();  // S of tile j", "        wgmma_wait<0>();  // S of tile j")],
+    "no_exp2": [("        for (int i = 0; i < 64; ++i) s[i] = ex2(s[i]);",
+                 "        for (int i = 0; i < 64; ++i) s[i] = s[i] * 0.0009765625f;")],
+    "no_widening": [("  for (int jj = 0; jj < kRawTile / 16 / kN; ++jj) {",
+                     "  for (int jj = 0; jj < 0; ++jj) {")],
+    "no_key_widening": [("        widen_tile<kKV, 128>(", "        if (false) widen_tile<kKV, 128>(")],
+    "no_value_widening": [("      widen_tile<kKV, 256>(", "      if (false) widen_tile<kKV, 256>(")],
+    "widen_copy": [("    const uint2 a = widen4<kKV>(v.x), bb = widen4<kKV>(v.y);\n"
+                    "    const uint2 cc = widen4<kKV>(v.z), d = widen4<kKV>(v.w);",
+                    "    const uint2 a = make_uint2(v.x, v.y), bb = make_uint2(v.z, v.w);\n"
+                    "    const uint2 cc = make_uint2(v.y, v.x), d = make_uint2(v.w, v.z);")],
+    "q_smem": [("        wgmma_m64n128k16_rs<0>(s, qa[kk], sw128_desc(ka + (kk >> 2) * kHalf + (kk & 3) * 32),\n"
+                "                               kk > 0);",
+                "        wgmma_m64n128k16_ss(s, sw128_desc(smem_u32(tiles) + wg * 8192 + (kk >> 2) * 16384 "
+                "+ (kk & 3) * 32),\n sw128_desc(ka + (kk >> 2) * kHalf + (kk & 3) * 32), kk > 0);")],
+    "regs_56_224": [("  static constexpr int kProducerRegs = 40;\n  static constexpr int kConsumerRegs = 232;",
+                     "  static constexpr int kProducerRegs = kByte ? 56 : 40;\n"
+                     "  static constexpr int kConsumerRegs = kByte ? 224 : 232;"),
+                    ("  constexpr int kUnroll = 2;", "  constexpr int kUnroll = kN == 128 ? 4 : 2;")],
+}
 VARIANTS = {
-    "flash_attention_sm90": {
-        "no_widening": [B2_KEYS, B2_VALUES],
-        "no_key_widening": [B2_KEYS],
-        "no_value_widening": [B2_VALUES],
-        "no_exp2": [("        for (int i = 0; i < 32; ++i) s[i] = exp2f(s[i]);",
-                     "        for (int i = 0; i < 32; ++i) s[i] = s[i] * 1e-3f;")],
-    },
+    "flash_attention_sm90": FLASH,
     "fp8_matmul": {
         "no_widening": [("        a[kk][0] = widen2(lo, 0);\n        a[kk][1] = widen2(hi, 0);\n"
                          "        a[kk][2] = widen2(lo, 16);\n        a[kk][3] = widen2(hi, 16);",
@@ -57,16 +95,23 @@ VARIANTS = {
 }
 ENTRY = {"flash_attention_sm90": ("inferix_flash_attention_sm90", tfa._ARGTYPES_SM90),
          "fp8_matmul": ("inferix_fp8_matmul", tk._FP8_ARGTYPES)}
+KINDS = {0: "bf16", 1: "e4m3", 2: "int8"}
+BYTE_ONLY = ("no_widening", "no_key_widening", "no_value_widening", "widen_copy",
+             "regs_56_224")  # the widening's variants
 
 
-def build_variants() -> dict:
-    """{(library, variant): ctypes function}, one nvcc per variant, together."""
+def build_variants(libs) -> dict:
+    """{(library, variant): (.so path, nvcc output)}, the flash source as it
+    is among them ("shipped"), one nvcc per variant, all started together."""
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     jobs = {}
-    for lib, variants in VARIANTS.items():
+    for lib in libs:
         src = (_build.CSRC / f"{lib}.cu").read_text()
+        variants = dict(VARIANTS[lib])
+        if lib == "flash_attention_sm90":
+            variants = {"shipped": [], **variants}
         for name, subs in variants.items():
             text = src
             for old, new in subs:
@@ -78,18 +123,69 @@ def build_variants() -> dict:
             cu.write_text(text)
             so = cu.with_suffix(".so")
             jobs[(lib, name)] = (so, subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for (lib, name), (so, proc) in jobs.items():
+    built = {}
+    for key, (so, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {lib} variant {name}:\n{log}")
-        entry, argtypes = ENTRY[lib]
-        fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[(lib, name)] = fn
-    return fns
+            raise RuntimeError(f"nvcc failed on {key[0]} variant {key[1]}:\n{log}")
+        built[key] = (so, log)
+    return built
+
+
+def register_report(name: str, so: pathlib.Path, log: str) -> None:
+    """One line per flash instantiation: what ptxas and the SASS show."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    so.with_suffix(".sass").write_text(sass)
+    spills = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_sm90_kernelILi(\d)ELb(\d)", line)
+        if m:
+            fn = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1))
+    warned = {}
+    for m in re.finditer(r"\((C75\d\d)\)[^']*'\S*flash_sm90_kernelILi(\d)ELb(\d)", log):
+        warned.setdefault((int(m.group(2)), int(m.group(3))), set()).add(m.group(1))
+    stats, fn, region = {}, None, "entry"
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*flash_sm90_kernelILi(\d)ELb(\d)", line)
+        if m:
+            fn, region = (int(m.group(1)), int(m.group(2))), "entry"
+            stats[fn] = {"reg": 0, "local": {"entry": 0, "consumer": 0, "producer": 0},
+                         "waits": 0, "setmaxnreg": []}
+            continue
+        if fn is None:
+            continue
+        st = stats[fn]
+        if "USETMAXREG" in line:
+            region = "consumer" if "TRY_ALLOC" in line else "producer"
+            st["setmaxnreg"].append(re.search(r"USETMAXREG[^;]*", line).group(0).strip())
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        if regs:
+            st["reg"] = max(st["reg"], max(regs))
+        if re.search(r"\b(STL|LDL)\b", line):
+            st["local"][region] += 1
+        if "WARPGROUP.DEPBAR" in line:
+            st["waits"] += 1
+    for fn in sorted(stats):
+        st = stats[fn]
+        print(f"registers {name} {KINDS[fn[0]]} {'runmax' if fn[1] else 'fixedm'}: "
+              f"warnings {sorted(warned.get(fn, ())) or 'none'}, spill stores "
+              f"{spills.get(fn)} bytes, highest R{st['reg']}, local ld/st {st['local']}, "
+              f"wgmma waits {st['waits']}, {st['setmaxnreg']}", flush=True)
+
+
+def entry(so: pathlib.Path, lib: str):
+    name, argtypes = ENTRY[lib]
+    fn = getattr(ctypes.CDLL(str(so)), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def in_turns(run, install, real, variant) -> tuple:
@@ -104,7 +200,7 @@ def in_turns(run, install, real, variant) -> tuple:
     return times
 
 
-def install_b2(fn) -> None:
+def install_flash(fn) -> None:
     tfa._lib_sm90 = lambda: fn
 
 
@@ -112,7 +208,72 @@ def install_b8(fn) -> None:
     tk._fp8_kernel = lambda: fn
 
 
+def fmt(ts) -> str:
+    return " ".join(f"{t:.4f}" for t in ts)
+
+
+def flash_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(1, cs.SQ, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, cs.SKV, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, cs.SKV, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    (kq, ks), (vq, vs) = quantize_kv_block(k), quantize_kv_block(v)
+    k8, v8 = (x.float().clamp(-448, 448).to(tfa.FP8) for x in (k, v))
+    return q, {
+        "bf16": lambda qq: tfa.flash_attention_prefix(qq, k, v, cs.SKV),
+        "e4m3": lambda qq: tfa.flash_attention_prefix(qq, k8, v8, cs.SKV),
+        "int8": lambda qq: tfa.flash_attention_prefix_quant(qq, kq, vq, ks, vs, cs.SKV),
+    }
+
+
+def flash_phase(dev, built) -> None:
+    real = entry(built[("flash_attention_sm90", "shipped")][0], "flash_attention_sm90")
+    q, runs = flash_inputs(dev)
+    for kind, run in runs.items():
+        for name in FLASH:
+            if name in BYTE_ONLY and kind == "bf16":
+                continue
+            var = entry(built[("flash_attention_sm90", name)][0], "flash_attention_sm90")
+            t_real, t_var = in_turns(lambda: run(q), install_flash, real, var)
+            print(f"flash {kind} full cache: kernel {fmt(t_real)} ms, {name} {fmt(t_var)} ms",
+                  flush=True)
+    # the wave tail: 3 whole rounds against 3.36, with and without the split
+    whole = lambda units, sms: (units, 1)  # noqa: E731
+    split = tfa.tail_split
+    for sq in (33 * tfa.BLOCK_Q, cs.SQ):
+        units = -(-sq // tfa.BLOCK_Q) * cs.H
+        times = {}
+        for label, fn in (("split", split), ("whole", whole), ("whole", whole),
+                          ("split", split)):
+            tfa.tail_split = fn
+            times.setdefault(label, []).append(cs.time_ms(lambda: runs["bf16"](q[:, :sq])))
+        tfa.tail_split = split
+        n_full, splits = split(units, tfa._sm_count(dev))
+        print(f"wave tail bf16 Sq {sq} ({units} units; split: {n_full} whole + "
+              f"{units - n_full} x {splits}): split {fmt(times['split'])} ms, every unit "
+              f"whole {fmt(times['whole'])} ms", flush=True)
+    install_flash(real)
+
+
+def fp8_phase(dev, built) -> None:
+    real_b8 = tk._fp8_kernel()
+    g = torch.Generator(device=dev).manual_seed(6)
+    for nm, m, k, n, calls in cs.LAYER_GEMMS + (("text_kv", cs.TEXT, cs.DIM, cs.DIM, 0),):
+        x, w_q, ws, bias = cs.fp8_operands(dev, g, m, k, n)
+
+        def run():
+            return tk.fp8_matmul(x, w_q, ws, bias=bias)
+        for name in VARIANTS["fp8_matmul"]:
+            var = entry(built[("fp8_matmul", name)][0], "fp8_matmul")
+            t_real, t_var = in_turns(run, install_b8, real_b8, var)
+            print(f"B8 {nm} [{m}x{k}]x[{k}x{n}] ({calls} a layer): kernel {fmt(t_real)} ms, "
+                  f"{name} {fmt(t_var)} ms", flush=True)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--no-fp8", action="store_true", help="skip the B8 variants")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,38 +281,15 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    real_b2, real_b8 = tfa._lib_sm90(), tk._fp8_kernel()
-    fns = build_variants()
-    fmt = lambda ts: " ".join(f"{t:.4f}" for t in ts)  # noqa: E731
-
-    g = torch.Generator(device=dev).manual_seed(3)
-    q = torch.randn(2, cs.SQ, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
-    kb = torch.randn(2, cs.SKV, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
-    kq, ks = quantize_kv_block(kb)
-    vq, vs = quantize_kv_block(kb.flip(1))
-    del kb
-    for b in (1, 2):
-        def run():
-            return tfa.flash_attention_prefix_quant(q[:b], kq[:b], vq[:b], ks[:b], vs[:b],
-                                                    cs.SKV)
-        for (lib, name), fn in fns.items():
-            if lib == "flash_attention_sm90":
-                real, var = in_turns(run, install_b2, real_b2, fn)
-                print(f"B2 B={b} full cache: kernel {fmt(real)} ms, {name} {fmt(var)} ms",
-                      flush=True)
-    del q, kq, vq, ks, vs
-
-    g = torch.Generator(device=dev).manual_seed(6)
-    for nm, m, k, n, calls in cs.LAYER_GEMMS + (("text_kv", cs.TEXT, cs.DIM, cs.DIM, 0),):
-        x, w_q, ws, bias = cs.fp8_operands(dev, g, m, k, n)
-
-        def run():
-            return tk.fp8_matmul(x, w_q, ws, bias=bias)
-        for (lib, name), fn in fns.items():
-            if lib == "fp8_matmul":
-                real, var = in_turns(run, install_b8, real_b8, fn)
-                print(f"B8 {nm} [{m}x{k}]x[{k}x{n}] ({calls} a layer): kernel {fmt(real)} ms, "
-                      f"{name} {fmt(var)} ms", flush=True)
+    libs = ["flash_attention_sm90"] + ([] if args.no_fp8 else ["fp8_matmul"])
+    _build.build(libs)
+    built = build_variants(libs)
+    for (lib, name), (so, log) in built.items():
+        if lib == "flash_attention_sm90":
+            register_report(name, so, log)
+    flash_phase(dev, built)
+    if not args.no_fp8:
+        fp8_phase(dev, built)
 
 
 if __name__ == "__main__":

@@ -37,8 +37,9 @@ from inferix_tpu_torch.models.wan.vae import CONV_IMPLS, CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.flash_attention import flash_attention_prefix
 
 GROUPS = (  # first match wins
-    ("flash_attention_prefix (ours)", re.compile(r"flash_prefix_kernel")),
-    ("flash_attention_prefix_quant (ours)", re.compile(r"flash_sm90_kernel")),
+    # one kernel template: K/V kind 0 (bf16) and 1 (e4m3) are B1, 2 (int8) B2
+    ("flash_attention_prefix (ours)", re.compile(r"flash_sm90_kernel(<|ILi)[01]")),
+    ("flash_attention_prefix_quant (ours)", re.compile(r"flash_sm90_kernel(<|ILi)2")),
     ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
     ("fp8_matmul (ours)", re.compile(r"fp8_matmul_kernel")),
     ("halo_conv3d (ours)", re.compile(r"halo_conv_kernel")),

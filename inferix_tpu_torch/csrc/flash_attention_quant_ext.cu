@@ -43,10 +43,10 @@
 // (9.42e11 at 1979 TOP/s = 0.476 ms), mode 1 QK in bf16 at 989 TFLOP/s and
 // PV in int8 (0.714 ms); K/V bytes (~100 MB) take 0.03 ms.
 //
-// Design (simple and right first): B1's frame (csrc/flash_attention_prefix.cu),
-// one CTA of 4 warps per (64-row q tile, batch*head), each warp 16 q rows
-// with its fragments, accumulators and softmax state in registers, K/V tiles
-// of 64 keys through a two-buffer cp.async ring. The group rule needs the
+// Design (simple and right first): the first B1 kernel's frame (mma.sync,
+// since replaced by csrc/flash_attention_sm90.cu), one CTA of 4 warps per
+// (64-row q tile, batch*head), each warp 16 q rows with its fragments,
+// accumulators and softmax state in registers, K/V tiles of 64 keys through a two-buffer cp.async ring. The group rule needs the
 // whole group's row max before the first code (and mode 0 also the whole
 // group's max of p * vs), so each group is walked in passes over the same
 // tiles, the logits recomputed in each: pass 1 the max; (mode 0) pass 2 l
@@ -121,7 +121,8 @@ __device__ __forceinline__ int swz8(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-// Element offset of (row, col) in a 64 x 128 bf16 tile, swizzled as in B1.
+// Element offset of (row, col) in a 64 x 128 bf16 tile, its 16-byte chunks
+// XOR-swizzled by row.
 __device__ __forceinline__ int swz_bf16(int row, int col) {
   return row * kHeadDim + ((((col >> 3) ^ (row & 7)) << 3) | (col & 7));
 }

@@ -1,7 +1,6 @@
 """Prefix-span flash attention: the wrappers of the hand-written CUDA
-kernels (`csrc/flash_attention_prefix.cu` for bf16 and e4m3 K/V,
-`csrc/flash_attention_sm90.cu` for int8 K/V) and their plain PyTorch
-versions.
+kernel (`csrc/flash_attention_sm90.cu`: wgmma and TMA, one instantiation
+each for bf16, e4m3 and int8 K/V) and their plain PyTorch versions.
 
 Port of `inferix_tpu/ops/flash_attention.py`:
 - `flash_attention_prefix` (`:204`, TPU kernel `_flash_kernel` `:53`) and its
@@ -34,8 +33,9 @@ HEAD_DIM = 128  # the only head dim the CUDA kernel is built for
 _NEG_INF = -1e30
 _SOFTMAX = ("fixedm", "runmax")
 FP8 = torch.float8_e4m3fn
-# K/V storage types of flash_attention_prefix, by the kernel's code for them
-_KV_KIND = {torch.bfloat16: 0, FP8: 1}
+# K/V storage types, by the kernel's code for them: flash_attention_prefix
+# takes the first two, flash_attention_prefix_quant the third
+_KV_KIND = {torch.bfloat16: 0, FP8: 1, torch.int8: 2}
 
 
 def _row_values(x, b: int) -> list:
@@ -136,28 +136,32 @@ def flash_attention_prefix_quant_reference(
 
 
 _STRIDES = [ctypes.c_longlong] * 3           # (batch, seq, head) strides
-_ARGTYPES = (
-    [ctypes.c_void_p] * 6                  # q, k, v, out, lse, bounds
-    + [ctypes.c_int] * 4                   # B, H, Sq, Skv
-    + _STRIDES * 4                         # q, k, v, out
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-)                                          # q_scale, runmax, kv kind, stream
 _ARGTYPES_SM90 = (
-    [ctypes.c_void_p] * 8                  # q, k, v, k_scale, v_scale, out, lse, bounds
-    + [ctypes.c_int] * 4                   # B, H, Sq, Skv
+    [ctypes.c_void_p] * 10                 # q, k, v, k_scale, v_scale, out, lse,
+                                           # bounds, ws, counters
+    + [ctypes.c_int] * 6                   # B, H, Sq, Skv, n_full, tail_splits
     + _STRIDES * 6                         # q, k, v, k_scale, v_scale, out
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )                                          # q_scale, runmax, kv kind, stream
-_KV_KIND_SM90 = {torch.int8: 2}            # the sm90 kernel's K/V kinds
 _TMA_MAX_STRIDE = 1 << 40
+BLOCK_Q = 128        # q rows of one CTA: a unit is (batch*head, q tile)
+_MAX_SPLITS = 4      # pieces of a tail unit at most (the kernel's limit)
+_WS_FLOATS = 256 * 68  # workspace floats of one piece: O, l and m a thread
 
 
-def _lib():
-    lib = _build.load_library("flash_attention_prefix")
-    if lib.inferix_flash_attention_prefix.argtypes is None:
-        lib.inferix_flash_attention_prefix.argtypes = _ARGTYPES
-        lib.inferix_flash_attention_prefix.restype = ctypes.c_int
-    return lib
+def tail_split(units: int, sms: int) -> tuple:
+    """(n_full, splits) for a launch of `units` CTAs, one an SM: the units of
+    the whole rounds run whole, and each unit of the last, partial round
+    runs as `splits` pieces of its span (as many as fit on the SMs that
+    round would leave idle, at most 4). E.g. 444 units on 132 SMs: 396
+    whole and 48 in 2 pieces, 3.5 rounds' time instead of 4."""
+    tail = units % sms
+    splits = min(_MAX_SPLITS, sms // tail) if tail else 1
+    return (units - tail, splits) if splits > 1 else (units, 1)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib_sm90():
@@ -169,12 +173,13 @@ def _lib_sm90():
 
 
 def check_tma_kv(name: str, t: torch.Tensor) -> None:
-    """The rule of the sm90 kernel's K/V tensor maps, on a [B, Skv, H, 128]
-    tensor of 1-byte codes: a contiguous head dim, a 16-byte aligned base,
-    and batch, token and head strides that are positive multiples of 16
-    bytes below 2^40 (TMA's rule for its global strides); at least one
-    token. A cache layer slice (token stride H*128 bytes) qualifies. Raises
-    ValueError otherwise; the wrapper never falls back."""
+    """The rule of the kernel's K/V tensor maps, on a [B, Skv, H, 128]
+    tensor of bf16 values or 1-byte codes: a contiguous head dim, a 16-byte
+    aligned base, and batch, token and head strides that are positive
+    multiples of 16 bytes below 2^40 (TMA's rule for its global strides; 8
+    elements in bf16); at least one token. A cache layer slice (token
+    stride H*128 elements) qualifies; a broadcast (zero) stride does not.
+    Raises ValueError otherwise; the wrapper never falls back."""
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM or t.shape[1] == 0:
         raise ValueError(f"{name} must be [B, Skv > 0, H, {HEAD_DIM}], got {tuple(t.shape)}")
     es = t.element_size()
@@ -227,6 +232,44 @@ def _check_launch(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _launch_sm90(name, q, k, v, k_scale, v_scale, kv_len, kv_start, scale,
+                 softmax, return_lse):
+    """Check the K/V against the tensor maps' rule and launch the kernel's
+    instantiation for k.dtype; returns (out, lse or None)."""
+    check_tma_kv("k", k)
+    check_tma_kv("v", v)
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    bounds = _bounds_tensor(kv_start, kv_len, b, q.device)
+    out, lse = _outputs(q, return_lse)
+    if sq == 0:
+        return out, lse
+    units = -(-sq // BLOCK_Q) * b * h
+    n_full, splits = tail_split(units, _sm_count(q.device))
+    pieces = (units - n_full) * splits
+    ws = counters = None
+    if pieces:
+        ws = torch.empty(pieces * _WS_FLOATS, dtype=torch.float32, device=q.device)
+        counters = torch.zeros(units - n_full, dtype=torch.int32, device=q.device)
+    scales = (k_scale, v_scale) if k_scale is not None else None
+    with torch.cuda.device(q.device):
+        err = _lib_sm90()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *((t.data_ptr() for t in scales) if scales else (None, None)),
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            bounds.data_ptr(), ws.data_ptr() if ws is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            b, h, sq, k.shape[1], n_full, splits,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *(k_scale.stride() if scales else (0, 0, 0)),
+            *(v_scale.stride() if scales else (0, 0, 0)), *out.stride()[:3],
+            scale * LOG2E, int(softmax == "runmax"), _KV_KIND[k.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_launch(err, name)
+    return out, lse
+
+
 def flash_attention_prefix(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, kv_start=0,
     scale: Optional[float] = None, softmax: str = "fixedm",
@@ -237,7 +280,8 @@ def flash_attention_prefix(
     Returns out [B, Sq, H, D] in q.dtype, and lse [B, H, Sq] float32 when
     return_lse. softmax='fixedm' (default) is max-free and exact while
     |natural logit| <~ 60; 'runmax' keeps a running max. On CUDA tensors this
-    launches the hand-written kernel (bf16 q; bf16 or e4m3 K/V, D = 128) and
+    launches the hand-written kernel (`csrc/flash_attention_sm90.cu`: wgmma,
+    TMA; bf16 q; bf16 or e4m3 K/V as `check_tma_kv` states, D = 128) and
     counts the launch in `flash_attention_prefix.launches` (bf16 K/V) or
     `flash_attention_prefix.launches_fp8` (e4m3 K/V); on CPU tensors it takes
     the plain version. The kernel reads q, k and v through their strides: a
@@ -251,24 +295,10 @@ def flash_attention_prefix(
             raise ValueError("q, k and v must lie on one device")
         return flash_attention_prefix_reference(
             q, k, v, kv_len, kv_start, scale, softmax, return_lse)
-    _check_cuda_operands(q, k, v, tuple(_KV_KIND))
-    b, sq, h, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    bounds = _bounds_tensor(kv_start, kv_len, b, q.device)
-    out, lse = _outputs(q, return_lse)
-    if sq > 0:
-        with torch.cuda.device(q.device):
-            err = _lib().inferix_flash_attention_prefix(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None, bounds.data_ptr(),
-                b, h, sq, k.shape[1],
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3],
-                scale * LOG2E, int(softmax == "runmax"), _KV_KIND[k.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _check_launch(err, "flash_attention_prefix")
+    _check_cuda_operands(q, k, v, (torch.bfloat16, FP8))
+    out, lse = _launch_sm90("flash_attention_prefix", q, k, v, None, None, kv_len,
+                            kv_start, scale, softmax, return_lse)
+    if q.shape[1] > 0:
         if k.dtype == FP8:
             flash_attention_prefix.launches_fp8 += 1
         else:
@@ -301,32 +331,15 @@ def flash_attention_prefix_quant(
         return flash_attention_prefix_quant_reference(
             q, k, v, k_scale, v_scale, kv_len, kv_start, scale, softmax,
             return_lse)
-    _check_cuda_operands(q, k, v, tuple(_KV_KIND_SM90))
-    check_tma_kv("k", k)
-    check_tma_kv("v", v)
+    _check_cuda_operands(q, k, v, (torch.int8,))
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t.device != q.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != tuple(k.shape[:3]):
             raise ValueError(f"{name} must be float32 {tuple(k.shape[:3])} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    b, sq, h, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    bounds = _bounds_tensor(kv_start, kv_len, b, q.device)
-    out, lse = _outputs(q, return_lse)
-    if sq > 0:
-        with torch.cuda.device(q.device):
-            err = _lib_sm90()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None, bounds.data_ptr(),
-                b, h, sq, k.shape[1],
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *k_scale.stride(), *v_scale.stride(), *out.stride()[:3],
-                scale * LOG2E, int(softmax == "runmax"), _KV_KIND_SM90[k.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _check_launch(err, "flash_attention_prefix_quant")
+    out, lse = _launch_sm90("flash_attention_prefix_quant", q, k, v, k_scale, v_scale,
+                            kv_len, kv_start, scale, softmax, return_lse)
+    if q.shape[1] > 0:
         flash_attention_prefix_quant.launches += 1
     return (out, lse) if return_lse else out
 

@@ -201,9 +201,8 @@ def test_bounds_tensor_for_the_kernel():
         tfa._bounds_tensor(0, torch.tensor([1, 2, 3]), 2, "cpu")
 
 
-@pytest.mark.parametrize("name", ["flash_attention_prefix", "int8_matmul", "act_quant",
-                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext",
-                                  "flash_attention_sm90"])
+@pytest.mark.parametrize("name", ["flash_attention_sm90", "int8_matmul", "act_quant",
+                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext"])
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
     build of each kernel library stops with an error that says so."""
@@ -241,7 +240,7 @@ echo built > "$out"
 """)
     monkeypatch.setenv("CUDA_HOME", str(home))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    names = ["flash_attention_prefix", "int8_matmul", "act_quant"]
+    names = ["flash_attention_sm90", "int8_matmul", "act_quant"]
     _build.build(names)
     libs = sorted(p.name.split("-")[0] for p in (tmp_path / "build").glob("lib*.so"))
     assert libs == sorted(f"lib{n}" for n in names)
@@ -259,41 +258,67 @@ def test_build_reports_a_failed_source(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-def _int8_cache(layers=2, b=2, s=96, h=3):
-    """An int8 K cache [L, B, S, H, 128] as `init_kv_cache` lays it out."""
-    return torch.zeros(layers, b, s, h, 128, dtype=torch.int8)
+def _cache(layers=2, b=2, s=96, h=3, dtype=torch.int8):
+    """A K cache [L, B, S, H, 128] as `init_kv_cache` lays it out."""
+    return torch.zeros(layers, b, s, h, 128, dtype=dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, tfa.FP8])
 @pytest.mark.parametrize("view", ["layer", "batch_row", "token_window"])
-def test_check_tma_kv_takes_cache_layer_slices(view):
-    """The int8-KV kernel's tensor-map rule admits what the paths pass it: a
-    cache layer slice, one batch row of it, and a window of its tokens (its
-    base moves by whole 384-byte token rows)."""
-    layer = _int8_cache()[1]
+def test_check_tma_kv_takes_cache_layer_slices(view, dtype):
+    """The kernel's tensor-map rule admits what the paths pass it, for each
+    K/V kind: a cache layer slice, one batch row of it, and a window of its
+    tokens (its base moves by whole token rows of 384 or 768 bytes)."""
+    layer = _cache(dtype=dtype)[1]
     t = {"layer": layer, "batch_row": layer[1:], "token_window": layer[:, 10:50]}[view]
     tfa.check_tma_kv("k", t)
 
 
-def _odd_token_stride():
-    return torch.zeros(1, 64, 3 * 128 + 8, dtype=torch.int8)[..., :3 * 128].view(1, 64, 3, 128)
+@pytest.mark.parametrize("units,sms,want", [
+    (444, 132, (396, 2)),   # 4680 q rows x 12 heads: 48 units in 2 pieces
+    (888, 132, (888, 1)),   # B=2: the tail of 96 units cannot split in 2
+    (396, 132, (396, 1)),   # whole rounds only
+    (12, 132, (0, 4)),      # one partial round: every unit in 4 pieces
+    (200, 132, (200, 1)),   # a tail of 68 units
+])
+def test_tail_split(units, sms, want):
+    """The units of a partial last round split along the span into as many
+    pieces as the idle SMs hold, at most 4; whole rounds are left whole."""
+    assert tfa.tail_split(units, sms) == want
 
 
-def _misaligned():
-    flat = torch.zeros(64 * 3 * 128 + 64, dtype=torch.int8)
-    return flat[8:8 + 64 * 3 * 128].view(1, 64, 3, 128)
+def _odd_token_stride(dtype=torch.int8, pad=8):
+    """Token stride 3 * 128 + pad elements (392 bytes in int8, 776 in bf16 with
+    pad 4): off the 16-byte grid."""
+    return torch.zeros(1, 64, 3 * 128 + pad, dtype=dtype)[..., :3 * 128].view(1, 64, 3, 128)
+
+
+def _misaligned(dtype=torch.int8):
+    """A base 8 bytes off the 16-byte grid."""
+    flat = torch.zeros(64 * 3 * 128 + 64, dtype=dtype)
+    off = 8 // flat.element_size()
+    return flat[off:off + 64 * 3 * 128].view(1, 64, 3, 128)
 
 
 @pytest.mark.parametrize("make,match", [
-    (_odd_token_stride, "multiples of 16 bytes"),       # token stride 392 bytes
-    (_misaligned, "16-byte aligned base"),              # base 8 bytes off
-    (lambda: _int8_cache()[0, :, :1].expand(2, 96, 3, 128), "positive"),  # stride 0
+    (_odd_token_stride, "multiples of 16 bytes"),
+    (_misaligned, "16-byte aligned base"),
+    (lambda: _cache()[0, :, :1].expand(2, 96, 3, 128), "positive"),  # stride 0
     (lambda: torch.zeros(1, 64, 128, 3, dtype=torch.int8).transpose(2, 3), "contiguous head"),
-    (lambda: _int8_cache()[0, :, :0], "Skv > 0"),       # an empty cache
+    (lambda: _cache()[0, :, :0], "Skv > 0"),       # an empty cache
     (lambda: torch.zeros(1, 64, 3, 64, dtype=torch.int8), "128"),
+    # the bf16 and e4m3 kinds load through the same 4-D tensor maps
+    (lambda: _odd_token_stride(torch.bfloat16, 4), "multiples of 16 bytes"),
+    (lambda: _misaligned(torch.bfloat16), "16-byte aligned base"),
+    (lambda: _cache(dtype=torch.bfloat16)[0, :, :1].expand(2, 96, 3, 128), "positive"),
+    (lambda: _cache(dtype=torch.bfloat16)[0, :, :0], "Skv > 0"),
+    (lambda: _cache(dtype=tfa.FP8)[0, :, :1].expand(2, 96, 3, 128), "positive"),
+    (lambda: _cache(dtype=tfa.FP8)[0, :, :0], "Skv > 0"),
 ])
 def test_check_tma_kv_refuses(make, match):
-    """What the kernel's 4-D tensor maps cannot describe raises ValueError:
-    a token stride or a base off the 16-byte grid, a broadcast (zero)
+    """What the kernel's 4-D tensor maps cannot describe raises ValueError,
+    for each K/V kind: a token stride or a base off the 16-byte grid (a bf16
+    token stride that is not a multiple of 8 elements), a broadcast (zero)
     stride, a strided head dim, no token at all, another head dim."""
     with pytest.raises(ValueError, match=match):
         tfa.check_tma_kv("k", make())
