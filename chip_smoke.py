@@ -52,13 +52,18 @@ Phases, each timed on a line of its own:
                 with the kernel against the plain path (dequantize, attend).
   9. vae kernels - the bf16 and W8A8 halo conv kernels against their plain
                 versions at every conv class of the decode (W8A8 bit-equal),
-                each timed beside its bound, the plain version and cuDNN.
+                and the W8A8 activation quantization kernel (codes and s_x
+                bit-equal) at every W8A8 class; each timed beside its bound
+                and plain version, the convs beside cuDNN (B7's conv kernel
+                on its codes and the quantization each on its own, and the
+                two through the wrapper); the tile plan's L2 -> SM bytes.
  10. vae decode - the fp8 path's 6 latent frames decoded in two 3-frame
                 chunks by the Wan2.1 causal VAE (default config, random
                 weights from a seed, bf16) with conv_impl "xla" (cuDNN),
-                "halo" and "halo_w8a8": kernel launches per chunk, pixels
-                [1, 21, 480, 832, 3] finite in [-1, 1], halo against xla,
-                every W8A8 conv against the float32 conv of its input.
+                "halo" and "halo_w8a8": kernel launches per chunk (30 B6;
+                33 B7 and 33 quantizations), pixels [1, 21, 480, 832, 3]
+                finite in [-1, 1], halo against xla, every W8A8 conv
+                against the float32 conv of its input.
  11. fp8w kernels - the fp8 (e4m3) weight-only GEMM against its plain version
                 at every main-path shape of the fp8 path (M 4680 x the four
                 (K, N) classes, M 512 text K/V) and edges (M 70 with K 8960,
@@ -119,9 +124,10 @@ from inferix_tpu_torch.ops.flash_attention import (
     flash_attention_prefix_quant, flash_attention_prefix_quant_i8,
     flash_attention_prefix_quant_reference, flash_attention_prefix_quant_v2,
     flash_attention_prefix_reference, quant_ext_kernel)
+from inferix_tpu_torch.ops import halo_conv as halo_mod
 from inferix_tpu_torch.ops.halo_conv import (
-    halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
-    halo_conv3d_w8a8_reference, pack_weight)
+    _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
+    halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import rope_angles
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
 from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
@@ -738,6 +744,7 @@ KERNEL_COUNTERS = {  # name -> (wrapper, attribute holding its launch count)
     "flash_attention_prefix_quant": (flash_attention_prefix_quant, "launches"),
     "halo_conv3d": (halo_conv3d, "launches"),
     "halo_conv3d_w8a8": (halo_conv3d_w8a8, "launches"),
+    "quantize_conv_act": (quantize_conv_act, "launches"),
     "fp8_matmul": (fp8_matmul, "launches"),
     "flash_attention_prefix_quant_i8": (flash_attention_prefix_quant_i8, "launches"),
     "flash_attention_prefix_quant_v2": (flash_attention_prefix_quant_v2, "launches"),
@@ -929,9 +936,14 @@ VAE_CONVS = (
     ("res 96 480x832", 14, 480, 832, 96, 96, 3, 6, 6),
     ("head 96->3 480x832", 14, 480, 832, 96, 3, 3, 1, 1),
 )
-# kernel launches a decode chunk: every conv of the decode runs once a chunk
+# kernel launches a decode chunk: every conv of the decode runs once a chunk,
+# each W8A8 conv behind one activation quantization
 DECODE_LAUNCHES = {"xla": {}, "halo": {"halo_conv3d": sum(c[7] for c in VAE_CONVS)},
-                   "halo_w8a8": {"halo_conv3d_w8a8": sum(c[8] for c in VAE_CONVS)}}
+                   "halo_w8a8": {"halo_conv3d_w8a8": sum(c[8] for c in VAE_CONVS),
+                                 "quantize_conv_act": sum(c[8] for c in VAE_CONVS)}}
+# The W8A8 decode's halo conv kernel (B7) and the activation quantization
+# kernel, as the old row 11 (conv + the wrapper's float32 quantization) was
+# measured: PERF.md keeps the old times beside the new.
 
 
 def check_attention_case(label: str, out, lse, ref, ref_lse) -> tuple:
@@ -1278,13 +1290,21 @@ def kv_path_phase(dev: torch.device, path: str) -> tuple:
     return launches, latents
 
 
-def conv_times(tin, h, w, cin, cout, kt, peak) -> tuple:
-    """(ops_ms, bytes_ms) of one conv: its operations at `peak`, its bf16
-    input, weights and output (and f32 bias) at the memory rate."""
+def conv_times(tin, h, w, cin, cout, kt, peak, x_bytes=2) -> tuple:
+    """(ops_ms, bytes_ms) of one conv: its operations at `peak`, its input
+    (x_bytes an element: bf16 2, int8 codes 1) and weights (the same width),
+    bf16 output and f32 bias at the memory rate."""
     t_out = tin - kt + 1
     ops = 2.0 * t_out * h * w * cout * kt * 9 * cin
-    nbytes = 2.0 * (tin * h * w * cin + kt * 9 * cin * cout + t_out * h * w * cout) + 4 * cout
+    nbytes = (x_bytes * (tin * h * w * cin + kt * 9 * cin * cout) + 2.0 * t_out * h * w * cout
+              + 4 * cout)
     return ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def act_quant_bytes_ms(n: int) -> float:
+    """The activation quantization's bound: x read once (bf16), the codes
+    written once (s8), at the memory rate (the kernel pair reads x twice)."""
+    return 3.0 * n / PEAK_BYTES_PER_S * 1e3
 
 
 def cudnn_operands(x, w, b):
@@ -1296,11 +1316,15 @@ def cudnn_operands(x, w, b):
 
 
 def vae_kernel_phase(dev: torch.device) -> list:
-    """B6 and B7 against their plain versions at every decode conv class,
-    then timed beside the bound and cuDNN (F.conv3d, bf16)."""
+    """B6 and B7 against their plain versions at every decode conv class
+    (B7 and the activation quantization bit-equal), then timed beside the
+    bound and cuDNN (F.conv3d, bf16): B7's conv kernel on its codes and the
+    quantization kernel each on its own, and the W8A8 wrapper (both)."""
     g = torch.Generator(device=dev).manual_seed(4)
+    names = ("halo_conv3d", "halo_conv3d_w8a8", "quantize_conv_act")
     sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                    err=0.0) for k in ("halo_conv3d", "halo_conv3d_w8a8")}
+                    err=0.0) for k in names}
+    wrapper_ms = 0.0
     failed = []
     before = all_counts()
     for name, tin, h, w, cin, cout, kt, n_halo, n_w8a8 in VAE_CONVS:
@@ -1311,20 +1335,23 @@ def vae_kernel_phase(dev: torch.device) -> list:
         b = ((torch.rand(cout, generator=g, device=dev) * 2 - 1) * bound).to(torch.bfloat16)
         xt, wc, _ = cudnn_operands(x, wt, b)
         lib = time_ms(lambda: F.conv3d(xt, wc, b, padding=(0, 1, 1)))
+        shape = f"{name} [{tin},{h},{w},{cin}] kt {kt} -> {cout}"
         for kname, kern, plain, calls, peak in (
                 ("halo_conv3d", halo_conv3d, halo_conv3d_reference, n_halo, PEAK_BF16_FLOPS),
                 ("halo_conv3d_w8a8", halo_conv3d_w8a8, halo_conv3d_w8a8_reference, n_w8a8,
                  PEAK_INT8_OPS)):
             if kname == "halo_conv3d" and kt != 3:
                 continue  # the bf16 gate takes 3x3x3 convs only
+            int8 = kname == "halo_conv3d_w8a8"
+            plan = tile_plan(tin, h, w, cin, cout, kt, int8)
             # as the decode calls it: on the weight operand CausalVAE packs once
-            pk = pack_weight(wt, w8a8=kname == "halo_conv3d_w8a8")
+            pk = pack_weight(wt, w8a8=int8)
             out = kern(x, wt, b, packed=pk)
             torch.cuda.synchronize()
             ref = plain(x, wt, b)
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
-            if kname == "halo_conv3d":
+            if not int8:
                 rms = ref.float().pow(2).mean().sqrt()
                 share = (diff / (CONV_TOL * (ref.float().abs() + rms / 16))).max().item()
                 ok = share <= 1 and torch.isfinite(out).all().item()
@@ -1333,16 +1360,49 @@ def vae_kernel_phase(dev: torch.device) -> list:
             else:
                 ok = err == 0 and torch.isfinite(out).all().item()
                 detail = "(tol 0)"
-            del diff, ref
-            ms = time_ms(lambda: kern(x, wt, b, packed=pk))
+            del diff, ref, out
             plain_ms = time_ms(lambda: plain(x, wt, b), iters=2, warmup=1)
-            ops_ms, bytes_ms = conv_times(tin, h, w, cin, cout, kt, peak)
+            if int8:
+                # the activation quantization kernel on its own: codes and s_x
+                # bit-equal to the plain version's, then timed
+                q, s_x = quantize_conv_act(x)
+                q_ref, s_ref = _quantize_conv_act(x)
+                q_ok = torch.equal(q, q_ref) and torch.equal(s_x, s_ref)
+                print(f"vae case quantize_conv_act {shape}: codes equal "
+                      f"{torch.equal(q, q_ref)}, s_x {s_x.item():.9e} equal "
+                      f"{torch.equal(s_x, s_ref)} (tol 0) {'ok' if q_ok else 'FAIL'}",
+                      flush=True)
+                if not q_ok:
+                    failed.append(f"quantize_conv_act {name}")
+                del q_ref, s_ref
+                q_ms = time_ms(lambda: quantize_conv_act(x))
+                q_plain_ms = time_ms(lambda: _quantize_conv_act(x), iters=2, warmup=1)
+                q_bytes_ms = act_quant_bytes_ms(x.numel())
+                print(f"vae time quantize_conv_act {shape}: {q_ms:.4f} ms, bound "
+                      f"{q_bytes_ms:.4f} ms (bytes), plain {q_plain_ms:.4f} ms; {calls} a "
+                      f"chunk", flush=True)
+                acc = sums["quantize_conv_act"]
+                for key, v in (("ms", q_ms), ("plain_ms", q_plain_ms),
+                               ("bytes_ms", q_bytes_ms)):
+                    acc[key] += calls * v
+                # the conv kernel on the codes, and the wrapper (both kernels)
+                ms = time_ms(lambda: halo_mod._launch(q, pk.wk, b, s_x, pk.s_w, kt, cout, True))
+                w_ms = time_ms(lambda: kern(x, wt, b, packed=pk))
+                wrapper_ms += calls * w_ms
+                del q, s_x
+                extra = f", the wrapper (quantization + conv) {w_ms:.4f} ms"
+            else:
+                ms = time_ms(lambda: kern(x, wt, b, packed=pk))
+                extra = ""
+            ops_ms, bytes_ms = conv_times(tin, h, w, cin, cout, kt, peak, 1 if int8 else 2)
             t_out = tin - kt + 1
-            print(f"vae case {kname} {name} [{tin},{h},{w},{cin}] kt {kt} -> {cout}: "
-                  f"max_abs {err:.3e} {detail} {'ok' if ok else 'FAIL'}; "
-                  f"{ms:.4f} ms ({2 * t_out * h * w * cout * kt * 9 * cin / ms / 1e9:.1f} "
-                  f"TOP/s), bound {max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"cudnn bf16 {lib:.4f} ms; {calls} a chunk", flush=True)
+            print(f"vae case {kname} {shape}: max_abs {err:.3e} {detail} "
+                  f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms "
+                  f"({2 * t_out * h * w * cout * kt * 9 * cin / ms / 1e9:.1f} TOP/s), bound "
+                  f"{max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.4f} ms, cudnn bf16 "
+                  f"{lib:.4f} ms{extra}; tile n {plan.n_tile} x {plan.rows} rows x 16, "
+                  f"{plan.tiles} tiles, L2->SM {plan.halo_bytes / 1e9:.3f} GB halos + "
+                  f"{plan.weight_bytes / 1e9:.3f} GB weights; {calls} a chunk", flush=True)
             if not ok:
                 failed.append(f"{kname} {name}")
             acc = sums[kname]
@@ -1360,25 +1420,32 @@ def vae_kernel_phase(dev: torch.device) -> list:
         x[..., :24].contiguous().to(torch.bfloat16), wt[:, :, :, :24], b))
     expect_raise("halo_conv3d strided x", ValueError, lambda: halo_conv3d(
         x.to(torch.bfloat16)[:, :, ::2], wt, b))
-    for k, (f, a) in KERNEL_COUNTERS.items():
-        setattr(f, a, before[k])
+    expect_raise("quantize_conv_act float32", TypeError, lambda: quantize_conv_act(x))
+    restore_counts(before)
     if failed:
         raise AssertionError(f"VAE conv cases {failed} disagree with the plain versions")
     entries = []
-    for kname, body, impl in (("halo_conv3d", 59, "halo"),
-                              ("halo_conv3d_w8a8", 113, "halo_w8a8")):
+    for kname, replaces, impl in (
+            ("halo_conv3d", "inferix_tpu/ops/halo_conv.py:59", "halo"),
+            ("halo_conv3d_w8a8", "inferix_tpu/ops/halo_conv.py:113", "halo_w8a8"),
+            ("quantize_conv_act", "inferix_tpu/ops/halo_conv.py:183", "halo_w8a8")):
         acc = sums[kname]
         bound_ms, bound_by = bound_of(acc["ops_ms"], acc["bytes_ms"])
+        lib_ms = acc["library_ms"] if kname != "quantize_conv_act" else None
         print(f"vae per chunk {kname}: {acc['ms']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain {acc['plain_ms']:.4f} ms, cudnn {acc['library_ms']:.4f} ms",
-              flush=True)
+              f"({bound_by}), plain {acc['plain_ms']:.4f} ms, cudnn "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms", flush=True)
         entries.append({
             "name": kname, "route": "cuda", "source": "inferix_tpu_torch/csrc/halo_conv.cu",
-            "replaces": f"inferix_tpu/ops/halo_conv.py:{body}", "launches": None,
+            "replaces": replaces, "launches": None,
             "max_abs_err": acc["err"], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": acc["library_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "work": "one decode chunk of 3 latent frames (not the first), "
-                    f"{DECODE_LAUNCHES[impl][kname]} convs"})
+                    f"{DECODE_LAUNCHES[impl][kname]} "
+                    + ("quantizations (XLA ops on the TPU, not a Pallas site)"
+                       if kname == "quantize_conv_act" else "convs")})
+    print(f"vae per chunk W8A8 wrapper (quantization + conv kernel): {wrapper_ms:.4f} ms",
+          flush=True)
     return entries
 
 
@@ -1983,6 +2050,7 @@ def main() -> None:
     decode = vae_decode_phase(dev, latents)
     vae_entries[0]["launches"] = decode["halo"]["halo_conv3d"]
     vae_entries[1]["launches"] = decode["halo_w8a8"]["halo_conv3d_w8a8"]
+    vae_entries[2]["launches"] = decode["halo_w8a8"]["quantize_conv_act"]
     entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries
     print(f"launches on this slice's paths: {paths}; decode {decode}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""In-turn A/B of the flash kernels against a parent checkout's, on one card:
-B1 over bf16 and over e4m3 K/V, and B2 over int8 K/V.
+"""In-turn A/B of the flash kernels (B1 over bf16 and over e4m3 K/V, B2 over
+int8 K/V) or of the halo convs (B6 bf16, B7 W8A8) against a parent
+checkout's, on one card.
 
-    python3 exp/kernel_ab.py --parent DIR [--turns N]
+    python3 exp/kernel_ab.py --parent DIR [--turns N]                 # flash
+    python3 exp/kernel_ab.py --kernel halo --parent DIR [--turns N]   # halo conv
 
 DIR holds a parent commit's files (`git archive <commit> | tar -x -C DIR`,
 into a directory that .gitignore lists). The parent's
@@ -15,8 +17,21 @@ parent, this, this, parent (`--turns` times), with chip_smoke.time_ms (CUDA
 events, each call behind a device sleep), and the outputs of both are
 compared (max |difference|; the summation order differs, so they need not
 be bit-equal). Shapes: 4680 q rows over spans of 4680, 14040 and 32760
-keys, B=1 for B1's two kinds, B=1 and B=2 for B2. Prints the card's name
-and power limit first.
+keys, B=1 for B1's two kinds, B=1 and B=2 for B2. (The flash mode needs a
+parent that still has `flash_attention_prefix.cu`, such as commit 7c5d2e7.)
+
+--kernel halo: the parent's `csrc/halo_conv.cu` (entry `inferix_halo_conv3d`
+with the signature x, w, bias, sv, out, Tout, H, W, Cin, Cout, kt, cin_pad,
+bn, int8, stream: the `mma.sync` kernel, up to commit b99fa12) is built the same
+way and called on its own operand, w [Cout, kt, 9, Cin padded to 32], with
+its wrapper's Cout tile (the widest of 64, 32, 16 dividing Cout) and, for
+W8A8, its wrapper's float32 quantization (the torch chain `_quantize_conv_act`
+and s_x * s_w); this checkout's side is `halo_conv3d` /
+`halo_conv3d_w8a8` on `pack_weight`'s operand (the W8A8 one through the
+quantization kernel). Both sides include their quantization, as a decode
+calls them. Classes: the seven of PERF.md's B6/B7 table (res 96, res 192,
+res 384 at 120x208 and 60x104, the two largest upsample convs (W8A8 only)
+and the head), in bf16 (3x3x3 only) and W8A8.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ import chip_smoke as cs  # noqa: E402
 from inferix_tpu_torch import _build  # noqa: E402
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from inferix_tpu_torch.ops import halo_conv as thc  # noqa: E402
 
 _STRIDES = [ctypes.c_longlong] * 3
 # the parent's entry points: (library, symbol, argtypes)
@@ -44,16 +60,21 @@ PARENT = {
     "b2": ("flash_attention_sm90", "inferix_flash_attention_sm90",
            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _STRIDES * 6
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "halo": ("halo_conv", "inferix_halo_conv3d",
+             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
 }
+HALO_CLASSES = ("res 96 480x832", "res 192 240x416", "res 384 120x208", "res 384 60x104",
+                "up 192->96 480x832", "up 384->192 240x416", "head 96->3 480x832")
 
 
-def build_parent(parent: pathlib.Path) -> dict:
-    """The parent's two flash libraries, built side by side."""
+def build_parent(parent: pathlib.Path, keys=("b1", "b2")) -> dict:
+    """The parent's libraries for `keys`, built side by side."""
     out = parent / "_ab_build"
     out.mkdir(exist_ok=True)
     nvcc = _build.find_nvcc()
     jobs = {}
-    for key, (lib, _, _) in PARENT.items():
+    for key in keys:
+        lib = PARENT[key][0]
         so = out / f"lib{lib}.so"
         src = parent / "inferix_tpu_torch" / "csrc" / f"{lib}.cu"
         jobs[key] = (so, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(src)],
@@ -141,12 +162,59 @@ def ab(dev, parent, turns: int) -> None:
             compare("B2 int8", b, span, old, new, out_old, turns)
 
 
+def halo_ab(dev, parent_fn, turns: int) -> None:
+    """B6 and B7 (each with its quantization) against the parent's at the
+    seven classes."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cname in HALO_CLASSES:
+        _, tin, h, w, cin, cout, kt, _, _ = next(c for c in cs.VAE_CONVS if c[0] == cname)
+        t_out = tin - kt + 1
+        x = torch.randn(tin, h, w, cin, generator=g, device=dev).to(torch.bfloat16)
+        wt = ((torch.rand(kt, 3, 3, cin, cout, generator=g, device=dev) * 2 - 1)
+              * (kt * 9 * cin) ** -0.5).to(torch.bfloat16)
+        b = ((torch.rand(cout, generator=g, device=dev) * 2 - 1)
+             * (kt * 9 * cin) ** -0.5).to(torch.bfloat16)
+        bias = b.float()
+        bn = next((n for n in (64, 32, 16) if cout % n == 0), 16)
+        for int8 in (False, True):
+            if not int8 and kt != 3:
+                continue  # the bf16 gate takes 3x3x3 convs only
+            w_el, s_w = thc.quantize_conv_weight(wt) if int8 else (wt, None)
+            wk_old = torch.nn.functional.pad(
+                w_el.permute(4, 0, 1, 2, 3).reshape(cout, kt, 9, cin), (0, -cin % 32)).contiguous()
+            pk = thc.pack_weight(wt, w8a8=int8)
+            out_old = torch.empty(t_out, h, w, cout, dtype=torch.bfloat16, device=dev)
+
+            def old():
+                xk, sv = x, None
+                if int8:
+                    xk, s_x = thc._quantize_conv_act(x)
+                    sv = (s_x * s_w).contiguous()
+                err = parent_fn(xk.data_ptr(), wk_old.data_ptr(), bias.data_ptr(),
+                                sv.data_ptr() if int8 else None, out_old.data_ptr(), t_out, h,
+                                w, cin, cout, kt, wk_old.shape[-1], bn, int(int8), stream)
+                if err:
+                    raise RuntimeError(f"parent halo launch failed: CUDA error {err}")
+
+            def new():
+                kern = thc.halo_conv3d_w8a8 if int8 else thc.halo_conv3d
+                return kern(x, wt, b, packed=pk)
+            old()
+            diff = (new().float() - out_old.float()).abs().max().item()
+            t_old, t_new = in_turns(old, new, turns)
+            print(f"{'B7 W8A8' if int8 else 'B6 bf16'} {cname}: parent {fmt(t_old)} ms, this "
+                  f"{fmt(t_new)} ms, max |out diff| {diff:.3e}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="directory holding the parent commit's files")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent per shape (default 1)")
+    ap.add_argument("--kernel", choices=("flash", "halo"), default="flash",
+                    help="which kernels to compare (default flash)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA card")
@@ -155,6 +223,10 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if args.kernel == "halo":
+        _build.build(["halo_conv"])
+        halo_ab(dev, build_parent(args.parent, ("halo",))["halo"], args.turns)
+        return
     _build.build(["flash_attention_sm90"])
     ab(dev, build_parent(args.parent), args.turns)
 

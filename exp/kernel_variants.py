@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the flash kernel (`csrc/flash_attention_sm90.cu`: B1 over
-bf16 and e4m3 K/V, B2 over int8) and of the fp8 GEMM (B8) goes: what ptxas
-made of variants of the sources, and the variants timed against the shipped
-kernels, in turns, on one card.
+bf16 and e4m3 K/V, B2 over int8), of the fp8 GEMM (B8) and of the halo conv
+(`csrc/halo_conv.cu`: B6 bf16, B7 int8) goes: what ptxas made of variants of
+the sources, and the variants timed against the shipped kernels, in turns,
+on one card.
 
     python3 exp/kernel_variants.py [--no-fp8]
+    python3 exp/kernel_variants.py --halo
 
 Each variant is the checked-in source with one piece changed (most give
 wrong outputs; they are compared with the real kernel only to show how much
@@ -37,6 +39,22 @@ and called through the real wrapper with its library swapped in.
    the tail split (`tail_split`) and with every unit whole.
 4. B8 (one layer's six GEMMs at M = 4680, and the text K/V): e4m3 bytes
    used as bf16 bits (no widening), no output store, 5 ring stages.
+--halo instead: per instantiation of the halo conv (int8, N, consumer
+warpgroups) ptxas's warnings, spill stores, the highest register, and the
+SASS's wgmma (GMMA), wgmma waits (WARPGROUP.DEPBAR) and warpgroup arrives;
+then, at the decode's res 96, res 192 and head classes in bf16 and int8,
+each variant against the shipped kernel (same inputs; `=` where the output
+is bit-equal to the kernel's):
+     no_tap_fence: no explicit wgmma.fence a tap (ptxas then injects
+       warpgroup arrives, C7519/C7520);
+     direct_store: the epilogue stores its fragments straight from registers
+       instead of staging an 8 x 8-pixel block in shared memory for a TMA
+       store;
+     wring3, wring8: 3 or 8 weight tiles in flight (4 shipped);
+     base_offset: the shifted A descriptors with the base-offset field set
+       to the start's phase in the swizzle pattern (wrong outputs: wgmma
+       swizzles on absolute address bits);
+     wgs2: the 16-row tile (2 consumer warpgroups) where the plan takes 24.
 Prints the card's name and power limit first; times are as real, variant,
 variant, real.
 """
@@ -57,6 +75,7 @@ import chip_smoke as cs  # noqa: E402
 from inferix_tpu_torch import _build  # noqa: E402
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from inferix_tpu_torch.ops import halo_conv as thc  # noqa: E402
 from inferix_tpu_torch.quant import kernels as tk  # noqa: E402
 
 FLASH = {
@@ -82,8 +101,20 @@ FLASH = {
                      "  static constexpr int kConsumerRegs = kByte ? 224 : 232;"),
                     ("  constexpr int kUnroll = 2;", "  constexpr int kUnroll = kN == 128 ? 4 : 2;")],
 }
+HALO = {
+    "no_tap_fence": [("          // an explicit fence a tap: without it ptxas injects a warpgroup\n"
+                      "          // arrive in a divergent path and serialises every wgmma (C7520)\n"
+                      "          wgmma_fence();\n", "")],
+    "direct_store": [("  p.tma_store = n_tile == 96 &&", "  p.tma_store = false && n_tile == 96 &&")],
+    "wring3": [("kN == 8 ? kMaxWStages : 4;", "kN == 8 ? kMaxWStages : 3;")],
+    "wring8": [("kN == 8 ? kMaxWStages : 4;", "kN == 8 ? kMaxWStages : 8;")],
+    "base_offset": [("         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);",
+                     "         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62) |\n"
+                     "         (static_cast<uint64_t>((addr >> 7) & 7) << 49);")],
+}
 VARIANTS = {
     "flash_attention_sm90": FLASH,
+    "halo_conv": HALO,
     "fp8_matmul": {
         "no_widening": [("        a[kk][0] = widen2(lo, 0);\n        a[kk][1] = widen2(hi, 0);\n"
                          "        a[kk][2] = widen2(lo, 16);\n        a[kk][3] = widen2(hi, 16);",
@@ -110,7 +141,7 @@ def build_variants(libs) -> dict:
     for lib in libs:
         src = (_build.CSRC / f"{lib}.cu").read_text()
         variants = dict(VARIANTS[lib])
-        if lib == "flash_attention_sm90":
+        if lib in ("flash_attention_sm90", "halo_conv"):
             variants = {"shipped": [], **variants}
         for name, subs in variants.items():
             text = src
@@ -270,9 +301,101 @@ def fp8_phase(dev, built) -> None:
                   f"{name} {fmt(t_var)} ms", flush=True)
 
 
+def halo_register_report(name: str, so: pathlib.Path, log: str) -> None:
+    """One line per halo conv instantiation: what ptxas and the SASS show."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    pat = r"halo_conv_sm90_kernelILb(\d)ELi(\d+)ELi(\d)"
+    spills, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*" + pat, line)
+        if m:
+            fn = m.groups()
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1))
+    warned = sorted(set(re.findall(r"\((C7\d\d\d)\)", log)))
+    stats, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(pat, line)
+            fn = m.groups() if m else None
+            if fn:
+                stats[fn] = {"reg": 0, "local": 0, "gmma": 0, "waits": 0, "arrives": 0}
+            continue
+        if fn is None:
+            continue
+        st = stats[fn]
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        if regs:
+            st["reg"] = max(st["reg"], max(regs))
+        st["local"] += bool(re.search(r"\b(STL|LDL)\b", line))
+        st["gmma"] += "GMMA" in line
+        st["waits"] += "WARPGROUP.DEPBAR" in line
+        st["arrives"] += "WARPGROUP.ARRIVE" in line
+    print(f"registers halo {name}: ptxas warnings {warned or 'none'}", flush=True)
+    for fn in sorted(stats):
+        st = stats[fn]
+        print(f"  {'int8' if fn[0] == '1' else 'bf16'} N {fn[1]} {fn[2]} consumer warpgroups: "
+              f"spill stores {spills.get(fn)} bytes, highest R{st['reg']}, local ld/st "
+              f"{st['local']}, wgmma {st['gmma']}, waits {st['waits']}, arrives "
+              f"{st['arrives']}", flush=True)
+
+
+def halo_phase(dev, built) -> None:
+    """Each halo variant against the shipped kernel at three decode classes,
+    bf16 and int8, on the same codes and weight operand."""
+    def install(lib):
+        _build._LIBS["halo_conv"] = lib
+    real = ctypes.CDLL(str(built[("halo_conv", "shipped")][0]))
+    g = torch.Generator(device=dev).manual_seed(4)
+    for cname in ("res 96 480x832", "res 192 240x416", "head 96->3 480x832"):
+        _, tin, h, w, cin, cout, kt, _, _ = next(c for c in cs.VAE_CONVS if c[0] == cname)
+        x = torch.randn(tin, h, w, cin, generator=g, device=dev).to(torch.bfloat16)
+        wt = ((torch.rand(kt, 3, 3, cin, cout, generator=g, device=dev) * 2 - 1)
+              * (kt * 9 * cin) ** -0.5).to(torch.bfloat16)
+        b = torch.zeros(cout, device=dev)
+        for int8 in (False, True):
+            install(real)
+            pk = thc.pack_weight(wt, w8a8=int8)
+            xk, s_x = thc.quantize_conv_act(x) if int8 else (x, None)
+            plan = thc.tile_plan(tin, h, w, cin, cout, kt, int8)
+
+            def run(wgs=plan.wgs):
+                out = torch.empty(tin - kt + 1, h, w, cout, dtype=torch.bfloat16, device=dev)
+                err = thc._library().inferix_halo_conv3d(
+                    xk.data_ptr(), pk.wk.data_ptr(), b.data_ptr(),
+                    s_x.data_ptr() if int8 else None, pk.s_w.data_ptr() if int8 else None,
+                    out.data_ptr(), tin, h, w, cin, cout, kt, plan.n_tile, wgs, int(int8),
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"halo variant launch failed: CUDA error {err}")
+                return out
+            ref = run()
+            label = f"halo {cname} {'int8' if int8 else 'bf16'}"
+            for name in HALO:
+                var = ctypes.CDLL(str(built[("halo_conv", name)][0]))
+                install(var)
+                same = "=" if torch.equal(run(), ref) else "!="
+                t_real, t_var = in_turns(run, install, real, var)
+                print(f"{label}: kernel {fmt(t_real)} ms, {name} {fmt(t_var)} ms {same}",
+                      flush=True)
+            if plan.wgs == 3:
+                same = "=" if torch.equal(run(2), ref) else "!="
+                times = ([], [])
+                for two in (False, True, True, False):
+                    times[two].append(cs.time_ms(lambda: run(2 if two else 3)))
+                print(f"{label}: kernel {fmt(times[0])} ms, wgs2 {fmt(times[1])} ms {same}",
+                      flush=True)
+    install(real)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--no-fp8", action="store_true", help="skip the B8 variants")
+    ap.add_argument("--halo", action="store_true",
+                    help="the halo conv's variants instead of the flash and B8 ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
@@ -281,6 +404,12 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if args.halo:
+        built = build_variants(["halo_conv"])
+        for (_, name), (so, log) in built.items():
+            halo_register_report(name, so, log)
+        halo_phase(dev, built)
+        return
     libs = ["flash_attention_sm90"] + ([] if args.no_fp8 else ["fp8_matmul"])
     _build.build(libs)
     built = build_variants(libs)

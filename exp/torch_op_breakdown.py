@@ -42,7 +42,10 @@ GROUPS = (  # first match wins
     ("flash_attention_prefix_quant (ours)", re.compile(r"flash_sm90_kernel(<|ILi)2")),
     ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
     ("fp8_matmul (ours)", re.compile(r"fp8_matmul_kernel")),
-    ("halo_conv3d (ours)", re.compile(r"halo_conv_kernel")),
+    ("halo_conv3d (ours)", re.compile(r"halo_conv_sm90_kernel")),
+    # the W8A8 conv's activation quantization (csrc/halo_conv.cu), before the
+    # cuDNN pattern: its mangled names hold the source's name
+    ("quantize_conv_act (ours)", re.compile(r"absmax_kernel|codes_kernel")),
     ("conv (cuDNN)", re.compile(r"conv|fprop|implicit", re.I)),
     ("quantize_rows_int8 (ours)", re.compile(r"quant_rows_kernel")),
     ("ln_modulate_quant (ours)", re.compile(r"ln_quant_kernel")),

@@ -17,10 +17,14 @@ codes exactly and applies f32(acc) * (s_x * s_w) + b. The divisions by 127
 are by a device scalar: PyTorch's CUDA division by a Python number
 multiplies by the reciprocal, which moves scales by an ulp.
 
-The kernels read the weight K-contiguous per output channel. `pack_weight`
-builds that operand (for W8A8 the weight codes and s_w) once per conv; a
-caller that keeps it passes it as `packed`, else each call builds it. The
-activation scale stays per call, as in the JAX contract.
+The kernels read the weight as [kt, 9, Cout, Cin]: per tap, each output
+channel's Cin values contiguous (the rows of the TMA box that is wgmma's B
+operand). `pack_weight` builds that operand (for W8A8 the weight codes and
+s_w) once per conv; a caller that keeps it passes it as `packed`, else each
+call builds it. `tile_plan` picks the kernel's tile for a conv class. The
+activation scale stays per call, as in the JAX contract: on the card
+`quantize_conv_act` computes it and the codes in one fused pair of passes
+(absmax, then codes), bit-equal to its plain version `_quantize_conv_act`.
 
 On CUDA tensors each wrapper launches its kernel (bfloat16 x) or raises; it
 never falls back. On CPU tensors it takes its plain version.
@@ -35,8 +39,6 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-
-_BK = 32  # the kernel's channel chunk: Cin is zero-padded to a multiple
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -90,9 +92,41 @@ def _codes(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize_conv_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the activation quantization kernel: (codes s8 like x,
+    s_x f32 0-dim) with s_x = max(absmax(x), 1e-8) / 127 and codes
+    clamp(round(x / s_x), -127, 127), both divisions true ones."""
     xf = x.float()
     s_x = torch.clamp_min(xf.abs().amax(), 1e-8) / xf.new_full((), 127.0)
     return _codes(xf, s_x), s_x
+
+
+def quantize_conv_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The W8A8 conv's per-tensor activation quantization: (codes s8 of x's
+    shape, s_x f32 0-dim). On CUDA tensors (bfloat16, contiguous, a multiple
+    of 8 elements) this launches the fused absmax + codes kernel pair and
+    counts it in `quantize_conv_act.launches`; on CPU tensors it takes the
+    plain version."""
+    if not x.is_cuda:
+        return _quantize_conv_act(x)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise TypeError(f"the activation quantization kernel takes contiguous bfloat16 "
+                        f"x, got {x.dtype} with strides {x.stride()}")
+    if x.numel() % 8 or x.numel() == 0 or x.data_ptr() % 16:
+        raise ValueError(f"the activation quantization kernel needs a 16-byte aligned "
+                         f"x of a positive multiple of 8 elements, got {x.numel()}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scal = torch.empty(2, dtype=torch.float32, device=x.device)  # [absmax, s_x]
+    with torch.cuda.device(x.device):
+        err = _library().inferix_conv_act_quant(
+            x.data_ptr(), q.data_ptr(), scal.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv activation quantization launch failed: CUDA error {err}")
+    quantize_conv_act.launches += 1
+    return q, scal[1]
+
+
+quantize_conv_act.launches = 0
 
 
 def quantize_conv_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,37 +163,84 @@ def halo_conv3d_w8a8_reference(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 5            # x, w, bias, sv, out
-             + [ctypes.c_int] * 9             # Tout, H, W, Cin, Cout, kt, cin_pad, bn, int8
-             + [ctypes.c_void_p])             # stream
+_ARGTYPES = {
+    "inferix_halo_conv3d": ([ctypes.c_void_p] * 6      # x, w, bias, s_x, s_w, out
+                            + [ctypes.c_int] * 9       # Tin, H, W, Cin, Cout, kt, n_tile, wgs, int8
+                            + [ctypes.c_void_p]),      # stream
+    "inferix_conv_act_quant": ([ctypes.c_void_p] * 3   # x, q, scal
+                               + [ctypes.c_longlong, ctypes.c_void_p]),
+}
 
 
-def _kernel():
-    fn = _build.load_library("halo_conv").inferix_halo_conv3d
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("halo_conv")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
-def _block_n(cout: int) -> int:
-    """The kernel's Cout tile: the widest of 64, 32, 16 that divides Cout,
-    else 16 (the last tile ragged)."""
-    return next((bn for bn in (64, 32, 16) if cout % bn == 0), 16)
+# The kernel's tile (csrc/halo_conv.cu): 16 output columns by 8 * wgs rows
+# (wgs consumer warpgroups of two 8 x 8-pixel m64 blocks) by n_tile output
+# channels; its halo box has 2 more rows and columns.
+TILE_COLS = 16
 
 
-def _launch(xk: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
-            sv, t_out: int, cout: int, kt: int, int8: bool) -> torch.Tensor:
+class TilePlan(NamedTuple):
+    """The kernel's tiling of one conv class and what it costs in L2 -> SM
+    traffic (the halo boxes and weight tiles every tile loads, counting the
+    bytes that lie inside x and w: the zeros TMA fills at the border and
+    past Cin and Cout cost no traffic, and the border is not subtracted)."""
+
+    n_tile: int      # output channels a tile: 96, or 8 where Cout <= 8
+    wgs: int         # consumer warpgroups
+    tiles: int       # Tout * ceil(H / rows) * ceil(W / 16) * ceil(Cout / n_tile)
+    halo_bytes: int  # L2 -> SM, all tiles
+    weight_bytes: int
+
+    @property
+    def rows(self) -> int:
+        return 8 * self.wgs
+
+    @property
+    def l2_bytes(self) -> int:
+        return self.halo_bytes + self.weight_bytes
+
+
+def tile_plan(tin: int, h: int, w: int, cin: int, cout: int, kt: int,
+              int8: bool) -> TilePlan:
+    """The tile the wrapper launches for x [tin, h, w, cin] and a kt x 3 x 3
+    weight to cout channels: n_tile 96 (Cout 96, 192, 384 in 1, 2, 4 tiles;
+    other Cout ragged) or 8 (Cout <= 8, the RGB head), and the warpgroup
+    count (2 or 3: 16 or 24 rows) that pads H least, 3 on a tie."""
+    esz = 1 if int8 else 2
+    t_out = tin - kt + 1
+    n_tile = 8 if cout <= 8 else 96
+    wgs = min((3, 2), key=lambda g: -(-h // (8 * g)) * 8 * g)
+    rows = 8 * wgs
+    spatial = -(-h // rows) * -(-w // TILE_COLS)
+    n_nt = -(-cout // n_tile)
+    tiles = t_out * spatial * n_nt
+    halo = tiles * kt * (rows + 2) * (TILE_COLS + 2) * cin * esz
+    weights = t_out * spatial * kt * 9 * cin * esz * cout  # each tile its n_tile rows
+    return TilePlan(n_tile, wgs, tiles, halo, weights)
+
+
+def _launch(xk: torch.Tensor, wk: torch.Tensor, b: torch.Tensor, s_x, s_w,
+            kt: int, cout: int, int8: bool) -> torch.Tensor:
     tin, h, wd, cin = xk.shape
-    if xk.data_ptr() % 16:
-        raise ValueError("x needs a 16-byte aligned base")
-    out = torch.empty(t_out, h, wd, cout, dtype=torch.bfloat16, device=xk.device)
+    if xk.data_ptr() % 16 or wk.data_ptr() % 16:
+        raise ValueError("x and the packed weight need 16-byte aligned bases")
+    plan = tile_plan(tin, h, wd, cin, cout, kt, int8)
+    out = torch.empty(tin - kt + 1, h, wd, cout, dtype=torch.bfloat16, device=xk.device)
     bias = b.to(torch.float32).contiguous()
     with torch.cuda.device(xk.device):
-        err = _kernel()(
+        err = _library().inferix_halo_conv3d(
             xk.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-            sv.data_ptr() if sv is not None else None, out.data_ptr(),
-            t_out, h, wd, cin, cout, kt, wk.shape[-1], _block_n(cout), int(int8),
+            s_x.data_ptr() if int8 else None, s_w.data_ptr() if int8 else None,
+            out.data_ptr(), tin, h, wd, cin, cout, kt, plan.n_tile, plan.wgs, int(int8),
             torch.cuda.current_stream(xk.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"halo_conv3d kernel launch failed: CUDA error {err}")
@@ -167,8 +248,8 @@ def _launch(xk: torch.Tensor, wk: torch.Tensor, b: torch.Tensor,
 
 
 class PackedWeight(NamedTuple):
-    """A conv weight as the kernel reads it: wk [Cout, kt, 9, Cin_pad] (Cin
-    zero-padded to a multiple of 32, each output channel's K values
+    """A conv weight as the kernel reads it: wk [kt, 9, Cout, Cin] (tap
+    (dh, dw) as 3 dh + dw; per tap each output channel's Cin values
     contiguous), bf16 or, for W8A8, the weight codes with their scale s_w
     [Cout] f32."""
 
@@ -180,13 +261,13 @@ def pack_weight(w: torch.Tensor, w8a8: bool = False) -> PackedWeight:
     """w [kt, 3, 3, Cin, Cout] -> the operand of the bf16 (or W8A8) kernel."""
     w_el, s_w = quantize_conv_weight(w) if w8a8 else (w.to(torch.bfloat16), None)
     kt, _, _, cin, cout = w_el.shape
-    wk = w_el.permute(4, 0, 1, 2, 3).reshape(cout, kt, 9, cin)
-    return PackedWeight(F.pad(wk, (0, -cin % _BK)).contiguous(), s_w)
+    wk = w_el.permute(0, 1, 2, 4, 3).reshape(kt, 9, cout, cin).contiguous()
+    return PackedWeight(wk, s_w)
 
 
 def _check_packed(packed: PackedWeight, w: torch.Tensor, w8a8: bool) -> None:
     kt, _, _, cin, cout = w.shape
-    want = (cout, kt, 9, cin + (-cin % _BK))
+    want = (kt, 9, cout, cin)
     dtype = torch.int8 if w8a8 else torch.bfloat16
     if (tuple(packed.wk.shape) != want or packed.wk.dtype != dtype
             or packed.wk.device != w.device or (packed.s_w is None) == w8a8):
@@ -216,7 +297,7 @@ def halo_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the bf16 kernel (Cin a multiple of 8) on `packed` (`pack_weight(w)`,
     built here if None) and counts the launch in `halo_conv3d.launches`; on
     CPU tensors it takes the plain version."""
-    kt, _, cout, t_out = _geometry(x, w, b)
+    kt, _, cout, _ = _geometry(x, w, b)
     if packed is not None:
         _check_packed(packed, w, False)
     if not x.is_cuda:
@@ -225,7 +306,7 @@ def halo_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return halo_conv3d_reference(x, w, b)
     _check_cuda(x, w, b, 8)
     packed = packed if packed is not None else pack_weight(w)
-    out = _launch(x, packed.wk, b, None, t_out, cout, kt, False)
+    out = _launch(x, packed.wk, b, None, None, kt, cout, False)
     halo_conv3d.launches += 1
     return out
 
@@ -237,11 +318,12 @@ def halo_conv3d_w8a8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      packed: Optional[PackedWeight] = None) -> torch.Tensor:
     """The same conv in W8A8 (per-tensor activation scale, per-output-channel
     weight scale, exact int32 sums, f32 epilogue): a lossy serving mode. On
-    CUDA tensors this quantizes x and launches the int8 kernel (bf16 x, Cin
-    a multiple of 16) on `packed` (`pack_weight(w, w8a8=True)`, built here
-    if None), counting the launch in `halo_conv3d_w8a8.launches`; on CPU
-    tensors it takes the plain version."""
-    kt, _, cout, t_out = _geometry(x, w, b)
+    CUDA tensors this quantizes x (`quantize_conv_act`, its own kernel and
+    count) and launches the int8 kernel (bf16 x, Cin a multiple of 16) on
+    `packed` (`pack_weight(w, w8a8=True)`, built here if None), counting the
+    launch in `halo_conv3d_w8a8.launches`; on CPU tensors it takes the plain
+    version."""
+    kt, _, cout, _ = _geometry(x, w, b)
     if packed is not None:
         _check_packed(packed, w, True)
     if not x.is_cuda:
@@ -250,9 +332,8 @@ def halo_conv3d_w8a8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return halo_conv3d_w8a8_reference(x, w, b)
     _check_cuda(x, w, b, 16)
     packed = packed if packed is not None else pack_weight(w, w8a8=True)
-    x_q, s_x = _quantize_conv_act(x)
-    out = _launch(x_q, packed.wk, b, (s_x * packed.s_w).contiguous(), t_out, cout,
-                  kt, True)
+    x_q, s_x = quantize_conv_act(x)
+    out = _launch(x_q, packed.wk, b, s_x, packed.s_w, kt, cout, True)
     halo_conv3d_w8a8.launches += 1
     return out
 

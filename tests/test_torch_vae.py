@@ -83,11 +83,15 @@ def test_halo_conv_w8a8_reference_matches_pallas(tin, h, w, cin, cout, kt):
 
 def test_conv_wrappers_count_no_launch_on_the_cpu():
     x, wt, b = map(torch.from_numpy, _conv_inputs(4, 8, 8, 16, 16, 3))
-    before = (thc.halo_conv3d.launches, thc.halo_conv3d_w8a8.launches)
+    counters = (thc.halo_conv3d, thc.halo_conv3d_w8a8, thc.quantize_conv_act)
+    before = [f.launches for f in counters]
     assert torch.equal(thc.halo_conv3d(x, wt, b), thc.halo_conv3d_reference(x, wt, b))
     assert torch.equal(thc.halo_conv3d_w8a8(x, wt, b),
                        thc.halo_conv3d_w8a8_reference(x, wt, b))
-    assert (thc.halo_conv3d.launches, thc.halo_conv3d_w8a8.launches) == before
+    q, s_x = thc.quantize_conv_act(x)
+    q_ref, s_ref = thc._quantize_conv_act(x)
+    assert torch.equal(q, q_ref) and torch.equal(s_x, s_ref)
+    assert [f.launches for f in counters] == before
     with pytest.raises(ValueError, match="3x3"):
         thc.halo_conv3d(x, wt[:, :1], b)
     with pytest.raises(ValueError, match="too few"):
@@ -96,11 +100,12 @@ def test_conv_wrappers_count_no_launch_on_the_cpu():
 
 @pytest.mark.parametrize("w8a8", [False, True])
 def test_pack_weight_lays_out_each_output_channel_contiguously(w8a8):
-    """pack_weight: wk[n, dt, 3 dh + dw, c] = w[dt, dh, dw, c, n] (bf16, or
+    """pack_weight: wk[dt, 3 dh + dw, n, c] = w[dt, dh, dw, c, n] (bf16, or
     the W8A8 weight codes with their s_w, exactly as quantize_conv_w8a8
-    draws them), Cin zero-padded to 32; a wrapper given it returns what it
-    returns without, and refuses an operand built for another weight or
-    precision."""
+    draws them), contiguous: per tap, each output channel's Cin values
+    are one row of the kernel's TMA box (no padding: TMA zero-fills past
+    Cin); a wrapper given it returns what it returns without, and refuses an
+    operand built for another weight or precision."""
     x, wt, b = map(torch.from_numpy, _conv_inputs(4, 8, 8, 48, 24, 3))
     packed = thc.pack_weight(wt, w8a8=w8a8)
     if w8a8:
@@ -110,16 +115,96 @@ def test_pack_weight_lays_out_each_output_channel_contiguously(w8a8):
     else:
         w_el = wt.to(torch.bfloat16)
         assert packed.s_w is None
-    assert packed.wk.shape == (24, 3, 9, 64) and packed.wk.dtype == w_el.dtype
-    assert packed.wk.is_contiguous() and not packed.wk[..., 48:].any()
+    assert packed.wk.shape == (3, 9, 24, 48) and packed.wk.dtype == w_el.dtype
+    assert packed.wk.is_contiguous()
     for dt, dh, dw in ((0, 0, 0), (1, 2, 1), (2, 1, 2)):
-        assert torch.equal(packed.wk[:, dt, 3 * dh + dw, :48], w_el[dt, dh, dw].T)
+        assert torch.equal(packed.wk[dt, 3 * dh + dw], w_el[dt, dh, dw].T)
     kern = thc.halo_conv3d_w8a8 if w8a8 else thc.halo_conv3d
     assert torch.equal(kern(x, wt, b, packed=packed), kern(x, wt, b))
     with pytest.raises(ValueError, match="does not belong"):
         kern(x[..., :16], wt[:, :, :, :16], b, packed=packed)
     with pytest.raises(ValueError, match="does not belong"):
         kern(x, wt, b, packed=thc.pack_weight(wt, w8a8=not w8a8))
+
+
+def _jax_act_quant(x):
+    """The JAX W8A8 wrapper's activation quantization
+    (`inferix_tpu/ops/halo_conv.py:183-185`), as it stands there."""
+    xf = jnp.asarray(x).astype(jnp.float32)
+    s_x = jnp.maximum(jnp.max(jnp.abs(xf)), 1e-8) / 127.0
+    return np.asarray(jnp.clip(jnp.round(xf / s_x), -127, 127).astype(jnp.int8)), np.asarray(s_x)
+
+
+def _tie_input(scale):
+    """Values on every half-code tie k + 0.5 (k = -127..126) and on the codes
+    themselves, times `scale` (a power of two: bf16 holds them all), with
+    the absmax 127 * scale: v / s_x lands exactly on the ties, which round
+    half to even."""
+    k = np.arange(-127, 127, dtype=np.float32)
+    v = np.concatenate([k + 0.5, k, [127.0, -127.0]]).astype(np.float32) * scale
+    return np.random.default_rng(3).permutation(v).reshape(2, 3, 85, 1).repeat(16, axis=3)
+
+
+@pytest.mark.parametrize("case", ["ties_scale_1", "ties_scale_2^-5", "ties_scale_2^6",
+                                  "all_zero", "random"])
+def test_act_quant_plain_matches_jax_bit_for_bit(case):
+    """The activation quantization kernel's plain version (`_quantize_conv_act`,
+    which `chip_smoke.py` holds the CUDA kernel to bit for bit) against the
+    JAX wrapper's XLA chain: equal codes and an equal s_x, on values exactly
+    at half-code ties (s_x = 1, 2^-5 and 2^6, where v / s_x is exact), on an
+    all-zero tensor (the 1e-8 floor: s_x = 1e-8 / 127, codes 0) and on
+    random bf16 values."""
+    if case.startswith("ties"):
+        scale = {"ties_scale_1": 1.0, "ties_scale_2^-5": 2.0 ** -5, "ties_scale_2^6": 64.0}[case]
+        x = _tie_input(scale)
+    elif case == "all_zero":
+        x = np.zeros((2, 4, 8, 16), np.float32)
+    else:
+        x = np.random.default_rng(5).standard_normal((3, 6, 10, 32)).astype(np.float32)
+    # bf16 values, as the kernel sees them
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    q, s_x = thc._quantize_conv_act(torch.from_numpy(x))
+    q_jax, s_jax = _jax_act_quant(x)
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert s_x.numpy().view(np.uint32) == s_jax.view(np.uint32)
+    np.testing.assert_array_equal(q.numpy(), q_jax)
+    if case.startswith("ties"):
+        # half to even: +-0.5 -> 0, 1.5 -> 2, 2.5 -> 2, 126.5 -> 126
+        k = np.round(x / np.float32(scale)).astype(np.int64)
+        assert (np.abs(x / scale % 1) == 0.5).sum() == 254 * 16
+        np.testing.assert_array_equal(q.numpy(), k)
+        assert s_x.item() == np.float32(127 * scale) / np.float32(127)
+    if case == "all_zero":
+        assert s_x.item() == np.float32(1e-8) / np.float32(127) and not q.any()
+
+
+def test_tile_plan_covers_every_decode_conv_class():
+    """tile_plan over every conv class of chip_smoke.VAE_CONVS (ragged H 60
+    and W 104, Cout 3, Cin 16, kt 1), both kinds: the tiles cover the
+    output, padded, never short; the tile is one the kernel has (n_tile 96,
+    or 8 for the head's Cout 3; 16 or 24 rows, the one that pads H least,
+    within TMA's 256-row box); the L2 -> SM bytes are the halo boxes plus
+    every tile's weights."""
+    import chip_smoke as cs
+    for name, tin, h, w, cin, cout, kt, _, _ in cs.VAE_CONVS:
+        for int8 in (False, True):
+            plan = thc.tile_plan(tin, h, w, cin, cout, kt, int8)
+            t_out, esz = tin - kt + 1, 1 if int8 else 2
+            assert plan.n_tile == (8 if cout == 3 else 96), name
+            assert plan.wgs in (2, 3) and plan.rows == 8 * plan.wgs <= 254, name
+            tiles_h, tiles_w = -(-h // plan.rows), -(-w // 16)
+            assert tiles_h * plan.rows >= h > (tiles_h - 1) * plan.rows, name
+            assert plan.rows == (16 if h == 60 else 24), name
+            n_nt = -(-cout // plan.n_tile)
+            assert plan.tiles == t_out * tiles_h * tiles_w * n_nt, name
+            assert plan.tiles * plan.rows * 16 * plan.n_tile >= t_out * h * w * cout
+            assert plan.halo_bytes == plan.tiles * kt * (plan.rows + 2) * 18 * cin * esz
+            assert plan.weight_bytes == t_out * tiles_h * tiles_w * kt * 9 * cin * esz * cout
+            assert plan.l2_bytes == plan.halo_bytes + plan.weight_bytes
+    # the hottest class: ~9.6 GB of L2 -> SM in bf16 (the old 8 x 16-pixel
+    # tile by 32 channels: 112320 CTAs x 9 stages x 29952 bytes = 30.3 GB)
+    hot = thc.tile_plan(14, 480, 832, 96, 96, 3, False)
+    assert hot.wgs == 3 and hot.tiles == 12480 and 9e9 < hot.l2_bytes < 1e10
 
 
 def _jax_tree(cfg):
