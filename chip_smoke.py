@@ -22,8 +22,10 @@ Phases, each timed on a line of its own:
                 forward with the kernel against the same with plain attention.
   5. w8a8 kernels - the int8 GEMM, the act-quant and the LN+modulate+quant
                 kernels, each against its plain version at every main-path
-                shape of the W8A8 path and a few edge cases, then timed as
-                in phase 3.
+                shape of the W8A8 path and a few edge cases (the GEMM also
+                at the persistent scheduler's edges: fewer tiles than SMs,
+                133 tiles, M 9360; its tile plan against the Python
+                helper's), then timed as in phase 3.
   6. w8a8 main - the same generation with W8A8 linears (int8 per-channel
                 weights from the same seed, per-token int8 activations, the
                 fused act-quant prologues): launch counts of all four kernels
@@ -67,7 +69,8 @@ Phases, each timed on a line of its own:
  11. fp8w kernels - the fp8 (e4m3) weight-only GEMM against its plain version
                 at every main-path shape of the fp8 path (M 4680 x the four
                 (K, N) classes, M 512 text K/V) and edges (M 70 with K 8960,
-                M 1, one scale for all, f32 out), within one bf16 ulp; the
+                M 1, one scale for all, f32 out, 133 tiles, M 9360), within
+                one bf16 ulp, and every e4m3 code widened exactly; the
                 weight codes quantized on the card bit-equal to the CPU
                 quantizer's; the wrapper refusing bad operands; per-layer
                 time beside the bound, the plain version and cuBLAS bf16
@@ -95,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -132,16 +136,17 @@ from inferix_tpu_torch.ops.rope import rope_angles
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
 from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
 from inferix_tpu_torch.quant.kernels import (
-    fp8_matmul, fp8_matmul_reference, int8_matmul, int8_matmul_reference,
-    quantize_act_int8_per_token, quantize_weight_fp8, quantize_weight_int8)
+    GEMM_LIBRARY, fp8_matmul, fp8_matmul_reference, gemm_plan, int8_matmul,
+    int8_matmul_reference, quantize_act_int8_per_token, quantize_weight_fp8,
+    quantize_weight_int8)
 from inferix_tpu_torch.utils.params import init_params, init_vae_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_sm90", "int8_matmul", "act_quant", "halo_conv",
-             "fp8_matmul", "flash_attention_quant_ext")
+LIBRARIES = ("flash_attention_sm90", "gemm_sm90", "act_quant", "halo_conv",
+             "flash_attention_quant_ext")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -194,6 +199,20 @@ DIM, FFN, TEXT = 1536, 8960, 512
 # block's tokens; the text K/V projections run once a prompt at M = 512
 LAYER_GEMMS = (("qkv", SQ, DIM, 3 * DIM, 1), ("o/cross_q/cross_o", SQ, DIM, DIM, 3),
                ("fc1", SQ, DIM, FFN, 1), ("fc2", SQ, FFN, DIM, 1))
+# The persistent GEMMs' scheduler edges, both kernels: fewer tiles than SMs
+# (M 1 and 70 at N 1536), the W8A8 + int8 KV path's M at B=2, and 133 tiles
+# of 128 x 128 (one more than the SMs: a second round of one tile; see
+# sched_gemms).
+SCHED_GEMMS = (("m70", 70, DIM, DIM), ("m9360_o", 2 * SQ, DIM, DIM),
+               ("m9360_fc1", 2 * SQ, DIM, FFN))
+
+
+def sched_gemms(kernel: str) -> list:
+    """SCHED_GEMMS and the 133-tile case of `kernel`: 133 row tiles by one
+    column tile, tokens or channels by its plan's orientation."""
+    m, n = next((m, n) for m, n in ((133 * 128, 128), (128, 133 * 128))
+                if gemm_plan(m, n, kernel)[:2] == (128, 133))
+    return [*SCHED_GEMMS, ("tiles133", m, DIM, n)]
 
 
 def phase(name: str, t0: float) -> None:
@@ -550,6 +569,26 @@ def expect_raise(label, exc, fn):
     raise AssertionError(f"{label}: the wrapper took an operand it cannot take")
 
 
+def check_gemm_plan(m: int, n: int, kernel: str) -> None:
+    """The launcher's tile plan (csrc/gemm_sm90.cu) equals the Python
+    helper's on this card's SM count."""
+    fn = _build.load_library(GEMM_LIBRARY).inferix_gemm_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    got = (ctypes.c_int * 3)()
+    want = gemm_plan(m, n, kernel, sms)
+    if fn(m, n, int(kernel == "fp8"), sms, got) != 0 or tuple(got) != want:
+        raise AssertionError(f"{kernel} GEMM tile plan of [{m} x {n}]: kernel "
+                             f"{tuple(got)}, helper {want}")
+
+
+def gemm_rate(kind: str, m: int, k: int, n: int, ms: float, bound: float) -> str:
+    """The time as a rate and as a share of the bound's rate."""
+    unit = "TOP/s" if kind == "int8" else "TFLOP/s"
+    return f"{2 * m * n * k / ms / 1e9:.1f} {unit}, {100 * bound / ms:.1f}% of the bound's rate"
+
+
 def w8a8_kernel_phase(dev: torch.device) -> list:
     """The three W8A8 kernels against their plain versions, then timed."""
     g = torch.Generator(device=dev).manual_seed(2)
@@ -563,9 +602,11 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         ("m1", 1, DIM, DIM, {}),
         ("per_tensor", SQ, DIM, DIM, dict(per_token=False, per_channel=False)),
         ("f32_out", SQ, DIM, DIM, dict(out_dtype=torch.float32)),
-        ("no_bias_k16", 100, 16, 8, dict(bias=False))]
+        ("no_bias_k16", 100, 16, 8, dict(bias=False))] + [
+        (nm, m, k, n, {}) for nm, m, k, n in sched_gemms("int8")]
     gemm_err = 0.0
     for nm, m, k, n, kw in gemm_cases:
+        check_gemm_plan(m, n, "int8")
         x, w, xs, ws, b = gemm_operands(dev, g, m, k, n, **kw)
         od = kw.get("out_dtype", torch.bfloat16)
         out = int8_matmul(x, w, xs, ws, out_dtype=od, bias=b)
@@ -659,7 +700,7 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         ops_ms, bytes_ms = gemm_times(m, k, n)
         bound, by = bound_of(ops_ms, bytes_ms)
         print(f"w8a8 time int8_matmul {nm} [{m}x{k}]x[{k}x{n}]: {ms:.4f} ms "
-              f"({2 * m * n * k / ms / 1e9:.1f} TOP/s), bound {bound:.4f} ms ({by}), "
+              f"({gemm_rate('int8', m, k, n, ms, bound)}), bound {bound:.4f} ms ({by}), "
               f"plain {plain:.4f} ms, torch._int_mm {lib} ms, "
               f"bf16 F.linear {lin:.4f} ms", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
@@ -714,7 +755,7 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
     per_layer = "one W8A8 layer at M=4680 (sum over its calls)"
     return [
         {"name": "int8_matmul", "route": "cuda",
-         "source": "inferix_tpu_torch/csrc/int8_matmul.cu",
+         "source": "inferix_tpu_torch/csrc/gemm_sm90.cu",
          "replaces": "inferix_tpu/quant/kernels.py:81", "launches": None,
          "max_abs_err": gemm_err, "ms": gemm["ms"], "plain_ms": gemm["plain_ms"],
          "bound_ms": gemm["bound_ms"], "bound_by": gemm["bound_by"],
@@ -1600,6 +1641,27 @@ def fp8_gemm_times(m, k, n, out_bytes=2):
     return 2e3 * m * n * k / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
 
 
+def fp8_all_codes_exact(dev: torch.device) -> bool:
+    """Every e4m3 code but the two NaNs widened exactly: the 254 codes (and
+    two zeros) along K 256, w[n, k] = code k, x one-hot, scale 1, so
+    out[m, n] = code m as bf16 (every e4m3 value is one), equal to the plain
+    version's, tolerance 0. Catches a widening that flushes the subnormal
+    codes or rounds any code."""
+    codes = [c for c in range(256) if c not in (0x7F, 0xFF)] + [0, 0]
+    row = torch.tensor(codes, dtype=torch.uint8).view(FP8)
+    w = row.reshape(1, 256).expand(8, 256).contiguous().to(dev).t()
+    x = torch.eye(256, dtype=torch.bfloat16, device=dev)
+    ws = torch.ones(8, device=dev)
+    out = fp8_matmul(x, w, ws)
+    torch.cuda.synchronize()
+    ref = fp8_matmul_reference(x, w, ws)
+    ok = torch.equal(out, ref) and torch.equal(ref[:, 0].float().cpu(), row.float())
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"fp8w case fp8_matmul all_codes [256x256]x[256x8]: 254 finite codes, max_abs "
+          f"{err:.3e} (tol 0) {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def fp8w_kernel_phase(dev: torch.device) -> dict:
     """B8 against its plain version at every main-path shape and a few
     edges, the wrapper refusing bad operands, then timed per layer beside
@@ -1610,9 +1672,13 @@ def fp8w_kernel_phase(dev: torch.device) -> dict:
         ("text_kv", TEXT, DIM, DIM, {}), ("m70_k8960", 70, FFN, DIM, {}),
         ("m1", 1, DIM, DIM, {}), ("per_tensor", SQ, DIM, DIM, dict(per_channel=False)),
         ("f32_out", SQ, DIM, DIM, dict(out_dtype=torch.float32)),
-        ("no_bias_k16", 100, 16, 8, dict(bias=False))]
+        ("no_bias_k16", 100, 16, 8, dict(bias=False))] + [
+        (nm, m, k, n, {}) for nm, m, k, n in sched_gemms("fp8")]
     worst, failed = 0.0, []
+    if not fp8_all_codes_exact(dev):
+        failed.append("all_codes")
     for nm, m, k, n, kw in cases:
+        check_gemm_plan(m, n, "fp8")
         x, w_q, ws, b = fp8_operands(dev, g, m, k, n, kw.get("per_channel", True))
         if not kw.get("bias", True):
             b = None
@@ -1667,7 +1733,7 @@ def fp8w_kernel_phase(dev: torch.device) -> dict:
         ops_ms, bytes_ms = fp8_gemm_times(m, k, n)
         bound, by = bound_of(ops_ms, bytes_ms)
         print(f"fp8w time fp8_matmul {nm} [{m}x{k}]x[{k}x{n}]: {ms:.4f} ms "
-              f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({by}), "
+              f"({gemm_rate('fp8', m, k, n, ms, bound)}), bound {bound:.4f} ms ({by}), "
               f"plain {plain:.4f} ms, cuBLAS bf16 matmul {lib:.4f} ms; {calls} a layer",
               flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
@@ -1680,7 +1746,7 @@ def fp8w_kernel_phase(dev: torch.device) -> dict:
           f"({bound_by}; bytes {sums['bytes_ms']:.4f}), plain {sums['plain_ms']:.4f} ms, "
           f"cuBLAS bf16 {sums['library_ms']:.4f} ms", flush=True)
     return {"name": "fp8_matmul", "route": "cuda",
-            "source": "inferix_tpu_torch/csrc/fp8_matmul.cu",
+            "source": "inferix_tpu_torch/csrc/gemm_sm90.cu",
             "replaces": "inferix_tpu/quant/kernels.py:171", "launches": None,
             "max_abs_err": worst, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sums["library_ms"],

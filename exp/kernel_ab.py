@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """In-turn A/B of the flash kernels (B1 over bf16 and over e4m3 K/V, B2 over
-int8 K/V) or of the halo convs (B6 bf16, B7 W8A8) against a parent
-checkout's, on one card.
+int8 K/V), of the halo convs (B6 bf16, B7 W8A8) or of the quantized GEMMs
+(B3 int8, B8 fp8) against a parent checkout's, on one card.
 
     python3 exp/kernel_ab.py --parent DIR [--turns N]                 # flash
     python3 exp/kernel_ab.py --kernel halo --parent DIR [--turns N]   # halo conv
+    python3 exp/kernel_ab.py --kernel gemm --parent DIR [--turns N]   # GEMMs
 
 DIR holds a parent commit's files (`git archive <commit> | tar -x -C DIR`,
 into a directory that .gitignore lists). The parent's
@@ -32,12 +33,25 @@ quantization kernel). Both sides include their quantization, as a decode
 calls them. Classes: the seven of PERF.md's B6/B7 table (res 96, res 192,
 res 384 at 120x208 and 60x104, the two largest upsample convs (W8A8 only)
 and the head), in bf16 (3x3x3 only) and W8A8.
+
+--kernel gemm: the parent's `csrc/int8_matmul.cu` (entry
+`inferix_int8_matmul`, the `mma.sync` kernel) and `csrc/fp8_matmul.cu`
+(entry `inferix_fp8_matmul`, the non-persistent wgmma kernel), up to commit
+4605ebf, are built the same way and called with the signatures this
+checkout's `csrc/gemm_sm90.cu` keeps; this checkout's side is
+`int8_matmul` / `fp8_matmul`. Shapes: one layer's four (qkv, o, fc1, fc2)
+at M = 4680 and at M = 9360 (W8A8 + int8 KV at B=2), and the text K/V at
+M = 512, on the main path's operand statistics. The int8 outputs must be
+bit-equal (both sum exactly); for fp8 the max |difference| is printed. Per
+shape: both sides' times, the bound and the rates; then each side's
+per-layer sum at M = 4680 (o x 3) beside the bound.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -50,6 +64,7 @@ from inferix_tpu_torch import _build  # noqa: E402
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from inferix_tpu_torch.ops import halo_conv as thc  # noqa: E402
+from inferix_tpu_torch.quant import kernels as tk  # noqa: E402
 
 _STRIDES = [ctypes.c_longlong] * 3
 # the parent's entry points: (library, symbol, argtypes)
@@ -62,6 +77,8 @@ PARENT = {
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "halo": ("halo_conv", "inferix_halo_conv3d",
              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "int8": ("int8_matmul", "inferix_int8_matmul", tk._ARGTYPES),
+    "fp8": ("fp8_matmul", "inferix_fp8_matmul", tk._FP8_ARGTYPES),
 }
 HALO_CLASSES = ("res 96 480x832", "res 192 240x416", "res 384 120x208", "res 384 60x104",
                 "up 192->96 480x832", "up 384->192 240x416", "head 96->3 480x832")
@@ -207,13 +224,65 @@ def halo_ab(dev, parent_fn, turns: int) -> None:
                   f"{fmt(t_new)} ms, max |out diff| {diff:.3e}", flush=True)
 
 
+GEMM_SHAPES = ([(nm, m, k, n, calls) for nm, m, k, n, calls in cs.LAYER_GEMMS]
+               + [("text_kv", cs.TEXT, cs.DIM, cs.DIM, 0)]
+               + [(nm + " B=2", 2 * m, k, n, 0) for nm, m, k, n, _ in cs.LAYER_GEMMS])
+
+
+def gemm_ab(dev, parent, turns: int) -> None:
+    """B3 and B8 against the parent's kernels at GEMM_SHAPES."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    layer = {(kind, side): 0.0 for kind in ("int8", "fp8") for side in ("parent", "this")}
+    for nm, m, k, n, calls in GEMM_SHAPES:
+        xq, wq, xs, ws8, b8 = cs.path_gemm_operands(dev, g, m, k, n)
+        x, w8, ws, b = cs.fp8_operands(dev, g, m, k, n)
+        out_old = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+
+        def old_int8():
+            err = parent["int8"](xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), 1, ws8.data_ptr(),
+                                 1, b8.data_ptr(), out_old.data_ptr(), m, n, k, 0, stream())
+            if err:
+                raise RuntimeError(f"parent int8 GEMM launch failed: CUDA error {err}")
+
+        def old_fp8():
+            err = parent["fp8"](x.data_ptr(), w8.data_ptr(), ws.data_ptr(), 1, b.data_ptr(),
+                                out_old.data_ptr(), m, n, k, 0, stream())
+            if err:
+                raise RuntimeError(f"parent fp8 GEMM launch failed: CUDA error {err}")
+
+        sides = {"int8": (old_int8, lambda: tk.int8_matmul(xq, wq, xs, ws8, bias=b8),
+                          cs.gemm_times(m, k, n)),
+                 "fp8": (old_fp8, lambda: tk.fp8_matmul(x, w8, ws, bias=b),
+                         cs.fp8_gemm_times(m, k, n))}
+        for kind, (old, new, (ops_ms, bytes_ms)) in sides.items():
+            old()
+            out_new = new()
+            diff = (out_new.float() - out_old.float()).abs().max().item()
+            if kind == "int8" and diff != 0:
+                raise AssertionError(f"int8 {nm}: the two kernels differ by {diff}")
+            t_old, t_new = in_turns(old, new, turns)
+            bound, by = cs.bound_of(ops_ms, bytes_ms)
+            mo, mn = statistics.median(t_old), statistics.median(t_new)
+            layer[(kind, "parent")] += calls * mo
+            layer[(kind, "this")] += calls * mn
+            print(f"gemm {kind} {nm} [{m}x{k}]x[{k}x{n}] ({calls} a layer): parent "
+                  f"{fmt(t_old)} ms ({cs.gemm_rate(kind, m, k, n, mo, bound)}), this "
+                  f"{fmt(t_new)} ms ({cs.gemm_rate(kind, m, k, n, mn, bound)}), bound "
+                  f"{bound:.4f} ({by}), max |out diff| {diff:.3e}", flush=True)
+    for kind in ("int8", "fp8"):
+        print(f"gemm {kind} per layer (M {cs.SQ}, medians): parent "
+              f"{layer[(kind, 'parent')]:.4f} ms, this {layer[(kind, 'this')]:.4f} ms",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="directory holding the parent commit's files")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent per shape (default 1)")
-    ap.add_argument("--kernel", choices=("flash", "halo"), default="flash",
+    ap.add_argument("--kernel", choices=("flash", "halo", "gemm"), default="flash",
                     help="which kernels to compare (default flash)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -223,6 +292,10 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if args.kernel == "gemm":
+        _build.build([tk.GEMM_LIBRARY])
+        gemm_ab(dev, build_parent(args.parent, ("int8", "fp8")), args.turns)
+        return
     if args.kernel == "halo":
         _build.build(["halo_conv"])
         halo_ab(dev, build_parent(args.parent, ("halo",))["halo"], args.turns)

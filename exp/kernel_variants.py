@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the flash kernel (`csrc/flash_attention_sm90.cu`: B1 over
-bf16 and e4m3 K/V, B2 over int8), of the fp8 GEMM (B8) and of the halo conv
+bf16 and e4m3 K/V, B2 over int8), of the quantized GEMMs
+(`csrc/gemm_sm90.cu`: B3 int8, B8 fp8) and of the halo conv
 (`csrc/halo_conv.cu`: B6 bf16, B7 int8) goes: what ptxas made of variants of
 the sources, and the variants timed against the shipped kernels, in turns,
 on one card.
 
-    python3 exp/kernel_variants.py [--no-fp8]
+    python3 exp/kernel_variants.py
+    python3 exp/kernel_variants.py --gemm
     python3 exp/kernel_variants.py --halo
 
 Each variant is the checked-in source with one piece changed (most give
@@ -37,8 +39,30 @@ and called through the real wrapper with its library swapped in.
 3. The wave tail: bf16 over 32760 keys at Sq 4224 (33 q tiles x 12 heads =
    396 units, 3 whole rounds on 132 SMs) and 4680 (444 units), each with
    the tail split (`tail_split`) and with every unit whole.
-4. B8 (one layer's six GEMMs at M = 4680, and the text K/V): e4m3 bytes
-   used as bf16 bits (no widening), no output store, 5 ring stages.
+--gemm instead: per instantiation of the GEMM kernel (int8 or fp8; output
+f32; tile width) ptxas's performance warnings (C75xx: C7510-C7520 name a
+serialised wgmma), spill stores, the highest register, the SASS's wgmma,
+wgmma waits (WARPGROUP.DEPBAR) and warpgroup arrives, and the setmaxnreg
+pair; then each variant against the
+shipped kernel at one layer's four shapes (M 4680), the text K/V (M 512)
+and the o shape at M 9360, int8 and fp8, `=` where the output is
+bit-equal to the kernel's:
+     wait0: every k-stage waits for its own wgmmas (wait_group 0), no group
+       in flight across stages;
+     tile256: the tile width fixed at 256 (no 224 / 128 plan);
+     group1: tiles walked row tile by row tile (no grouped order);
+     no_store: the epilogue without its TMA stores (wrong outputs);
+     no_epilogue: no epilogue at all (wrong outputs): what it costs;
+     ws_const: the per-column scale loads replaced by 1 (wrong outputs);
+     one_round: 32 KB of output staging a warpgroup, a tile's boxes in one
+       round (no wait for the round before's stores; fewer ring stages);
+     stages4: at most 4 ring stages (5 shipped where they fit);
+     no_widen: the fp8 A fragments are the gathered e4m3 bytes, unwidened
+       (wrong outputs): what the widening costs;
+     no_gather: the fp8 A fragments widened from register values instead of
+       the raw tile's bytes (wrong outputs): what the gathers cost;
+     i2f_magic: int32 -> f32 as two exact halves added once (the same
+       rounding as __int2float_rn) instead of the conversion instruction.
 --halo instead: per instantiation of the halo conv (int8, N, consumer
 warpgroups) ptxas's warnings, spill stores, the highest register, and the
 SASS's wgmma (GMMA), wgmma waits (WARPGROUP.DEPBAR) and warpgroup arrives;
@@ -112,20 +136,42 @@ HALO = {
                      "         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62) |\n"
                      "         (static_cast<uint64_t>((addr >> 7) & 7) << 49);")],
 }
+GEMM = {
+    "wait0": [("      wgmma_wait<1>();  // the stage before is read: release it",
+               "      wgmma_wait<0>();  // the stage before is read: release it")],
+    "tile256": [("  for (int bn : {256, 224, 128}) {", "  for (int bn : {256}) {")],
+    "group1": [("constexpr int kGroupM = 8; ", "constexpr int kGroupM = 1; ")],
+    "no_store": [("              if (b0 + sb < kBoxes && col < p.N && rw < p.M)",
+                  "              if (false)"),
+                 ("                if (tb0 + t < kTbs && tok < p.M && ch < p.N)",
+                  "                if (false)")],
+    "no_epilogue": [("      const int rw = r0 + 64 * wg;               // this warpgroup's first row",
+                     "      if (tile >= 0) continue;\n      const int rw = r0 + 64 * wg;")],
+    "ws_const": [("? __ldg(p.ws + static_cast<long long>(n) * p.ws_stride) : 0.f;",
+                  "? 1.f : 0.f;")],
+    "one_round": [("constexpr int kOutBytes = 32768; ", "constexpr int kOutBytes = 65536; ")],
+    "stages4": [("constexpr int kMaxStages = 5;", "constexpr int kMaxStages = 4;")],
+    "no_widen": [("    const uint2 lo = widen4(gather4(tile, row, kk, t4));\n"
+                  "    const uint2 hi = widen4(gather4(tile, row + 8, kk, t4));",
+                  "    const uint2 lo = make_uint2(gather4(tile, row, kk, t4), 0u);\n"
+                  "    const uint2 hi = make_uint2(gather4(tile, row + 8, kk, t4), 0u);")],
+    "no_gather": [("  const uint32_t a = *reinterpret_cast<const uint32_t*>(chunk + 4 * (t4 >> 1));\n"
+                   "  const uint32_t b = *reinterpret_cast<const uint32_t*>(chunk + 8 + 4 * (t4 >> 1));",
+                   "  const uint32_t a = static_cast<uint32_t>(row * 0x01010101);\n"
+                   "  const uint32_t b = static_cast<uint32_t>(kk * 0x01010101) ^ a;")],
+    "i2f_magic": [("  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);",
+                   "  const float hi = __int_as_float(0x53400000 + (acc >> 16)) - 824633720832.0f;\n"
+                   "  const float lo = __int_as_float(0x4B400000 + (acc & 0xffff)) - 12582912.0f;\n"
+                   "  return __fmul_rn(__fmul_rn(__fadd_rn(hi, lo), xs), ws);")],
+}
+FP8_ONLY = ("no_widen", "no_gather")
+INT8_ONLY = ("i2f_magic",)
 VARIANTS = {
     "flash_attention_sm90": FLASH,
     "halo_conv": HALO,
-    "fp8_matmul": {
-        "no_widening": [("        a[kk][0] = widen2(lo, 0);\n        a[kk][1] = widen2(hi, 0);\n"
-                         "        a[kk][2] = widen2(lo, 16);\n        a[kk][3] = widen2(hi, 16);",
-                         "        a[kk][0] = lo;\n        a[kk][1] = hi;\n"
-                         "        a[kk][2] = lo >> 8;\n        a[kk][3] = hi >> 8;")],
-        "no_store": [("      if (gm < p.M && gn < p.N) {", "      if (gm < 0) {")],
-        "stages_5": [("constexpr int kStages = 4;", "constexpr int kStages = 5;")],
-    },
+    "gemm_sm90": GEMM,
 }
-ENTRY = {"flash_attention_sm90": ("inferix_flash_attention_sm90", tfa._ARGTYPES_SM90),
-         "fp8_matmul": ("inferix_fp8_matmul", tk._FP8_ARGTYPES)}
+ENTRY = {"flash_attention_sm90": ("inferix_flash_attention_sm90", tfa._ARGTYPES_SM90)}
 KINDS = {0: "bf16", 1: "e4m3", 2: "int8"}
 BYTE_ONLY = ("no_widening", "no_key_widening", "no_value_widening", "widen_copy",
              "regs_56_224")  # the widening's variants
@@ -141,7 +187,7 @@ def build_variants(libs) -> dict:
     for lib in libs:
         src = (_build.CSRC / f"{lib}.cu").read_text()
         variants = dict(VARIANTS[lib])
-        if lib in ("flash_attention_sm90", "halo_conv"):
+        if lib in ("flash_attention_sm90", "halo_conv", "gemm_sm90"):
             variants = {"shipped": [], **variants}
         for name, subs in variants.items():
             text = src
@@ -235,10 +281,6 @@ def install_flash(fn) -> None:
     tfa._lib_sm90 = lambda: fn
 
 
-def install_b8(fn) -> None:
-    tk._fp8_kernel = lambda: fn
-
-
 def fmt(ts) -> str:
     return " ".join(f"{t:.4f}" for t in ts)
 
@@ -286,19 +328,88 @@ def flash_phase(dev, built) -> None:
     install_flash(real)
 
 
-def fp8_phase(dev, built) -> None:
-    real_b8 = tk._fp8_kernel()
-    g = torch.Generator(device=dev).manual_seed(6)
-    for nm, m, k, n, calls in cs.LAYER_GEMMS + (("text_kv", cs.TEXT, cs.DIM, cs.DIM, 0),):
-        x, w_q, ws, bias = cs.fp8_operands(dev, g, m, k, n)
+def gemm_register_report(name: str, so: pathlib.Path, log: str) -> None:
+    """One line per GEMM instantiation: what ptxas and the SASS show."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    pat = r"gemm_sm90_kernelILb(\d)ELb(\d)ELi(\d+)E"
+    spills, warned, fn = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*" + pat, line)
+        if m:
+            fn = m.groups()
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1))
+    for m in re.finditer(r"\((C75\d\d)\)[^']*'\S*" + pat, log):
+        warned.setdefault(m.groups()[1:], set()).add(m.group(1))
+    stats, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(pat, line)
+            fn = m.groups() if m else None
+            if fn:
+                stats[fn] = {"reg": 0, "local": 0, "gmma": 0, "waits": 0, "arrives": 0,
+                             "setmaxnreg": []}
+            continue
+        if fn is None:
+            continue
+        st = stats[fn]
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        if regs:
+            st["reg"] = max(st["reg"], max(regs))
+        st["local"] += bool(re.search(r"\b(STL|LDL)\b", line))
+        st["gmma"] += "GMMA" in line
+        st["waits"] += "WARPGROUP.DEPBAR" in line
+        st["arrives"] += "WARPGROUP.ARRIVE" in line
+        if "USETMAXREG" in line:
+            st["setmaxnreg"].append(re.search(r"USETMAXREG[^;]*", line).group(0).strip())
+    kinds = {"0": "int8", "1": "fp8"}
+    print(f"registers gemm {name}: ptxas warnings "
+          f"{sorted(set(re.findall(r'[(](C75[0-9][0-9])[)]', log))) or 'none'}", flush=True)
+    for fn in sorted(stats):
+        st = stats[fn]
+        print(f"  {kinds[fn[0]]} {'f32' if fn[1] == '1' else 'bf16'} out, tile width {fn[2]}: "
+              f"warnings {sorted(warned.get(fn, ())) or 'none'}, spill stores "
+              f"{spills.get(fn)} bytes, highest R{st['reg']}, local ld/st {st['local']}, "
+              f"wgmma {st['gmma']}, waits {st['waits']}, arrives {st['arrives']}, "
+              f"{st['setmaxnreg']}", flush=True)
 
-        def run():
-            return tk.fp8_matmul(x, w_q, ws, bias=bias)
-        for name in VARIANTS["fp8_matmul"]:
-            var = entry(built[("fp8_matmul", name)][0], "fp8_matmul")
-            t_real, t_var = in_turns(run, install_b8, real_b8, var)
-            print(f"B8 {nm} [{m}x{k}]x[{k}x{n}] ({calls} a layer): kernel {fmt(t_real)} ms, "
-                  f"{name} {fmt(t_var)} ms", flush=True)
+
+GEMM_SHAPES = cs.LAYER_GEMMS + (("text_kv", cs.TEXT, cs.DIM, cs.DIM, 0),
+                                ("o_m9360", 2 * cs.SQ, cs.DIM, cs.DIM, 0))
+
+
+def gemm_phase(dev, built) -> None:
+    """Each GEMM variant against the shipped kernel, in turns."""
+    def install(lib):
+        _build._LIBS[tk.GEMM_LIBRARY] = lib
+    real = ctypes.CDLL(str(built[("gemm_sm90", "shipped")][0]))
+    g = torch.Generator(device=dev).manual_seed(7)
+    for nm, m, k, n, calls in GEMM_SHAPES:
+        xq, wq, xs, ws8, b8 = cs.path_gemm_operands(dev, g, m, k, n)
+        x, w8, ws, b = cs.fp8_operands(dev, g, m, k, n)
+        runs = {"int8": lambda: tk.int8_matmul(xq, wq, xs, ws8, bias=b8),
+                "fp8": lambda: tk.fp8_matmul(x, w8, ws, bias=b)}
+        for kind, run in runs.items():
+            install(real)
+            ref = run()
+            for name in GEMM:
+                if (kind == "int8" and name in FP8_ONLY) or (kind == "fp8" and name in INT8_ONLY):
+                    continue
+                var = ctypes.CDLL(str(built[("gemm_sm90", name)][0]))
+                install(var)
+                # poison the block the output will likely reuse: a variant
+                # that writes nothing must not look equal
+                torch.full_like(ref, float("nan"))
+                out = run()
+                same = "=" if torch.equal(out, ref) else \
+                    f"max |diff| {(out.float() - ref.float()).abs().max().item():.3e}"
+                t_real, t_var = in_turns(run, install, real, var)
+                print(f"gemm {kind} {nm} [{m}x{k}]x[{k}x{n}] ({calls} a layer): kernel "
+                      f"{fmt(t_real)} ms, {name} {fmt(t_var)} ms {same}", flush=True)
+    install(real)
 
 
 def halo_register_report(name: str, so: pathlib.Path, log: str) -> None:
@@ -393,9 +504,10 @@ def halo_phase(dev, built) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--no-fp8", action="store_true", help="skip the B8 variants")
+    ap.add_argument("--gemm", action="store_true",
+                    help="the quantized GEMMs' variants instead of the flash ones")
     ap.add_argument("--halo", action="store_true",
-                    help="the halo conv's variants instead of the flash and B8 ones")
+                    help="the halo conv's variants instead of the flash ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
@@ -410,15 +522,17 @@ def main() -> None:
             halo_register_report(name, so, log)
         halo_phase(dev, built)
         return
-    libs = ["flash_attention_sm90"] + ([] if args.no_fp8 else ["fp8_matmul"])
-    _build.build(libs)
-    built = build_variants(libs)
+    if args.gemm:
+        built = build_variants(["gemm_sm90"])
+        for (_, name), (so, log) in built.items():
+            gemm_register_report(name, so, log)
+        gemm_phase(dev, built)
+        return
+    _build.build(["flash_attention_sm90"])
+    built = build_variants(["flash_attention_sm90"])
     for (lib, name), (so, log) in built.items():
-        if lib == "flash_attention_sm90":
-            register_report(name, so, log)
+        register_report(name, so, log)
     flash_phase(dev, built)
-    if not args.no_fp8:
-        fp8_phase(dev, built)
 
 
 if __name__ == "__main__":

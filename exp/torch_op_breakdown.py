@@ -40,8 +40,9 @@ GROUPS = (  # first match wins
     # one kernel template: K/V kind 0 (bf16) and 1 (e4m3) are B1, 2 (int8) B2
     ("flash_attention_prefix (ours)", re.compile(r"flash_sm90_kernel(<|ILi)[01]")),
     ("flash_attention_prefix_quant (ours)", re.compile(r"flash_sm90_kernel(<|ILi)2")),
-    ("int8_matmul (ours)", re.compile(r"int8_matmul_kernel")),
-    ("fp8_matmul (ours)", re.compile(r"fp8_matmul_kernel")),
+    # one GEMM template (csrc/gemm_sm90.cu): kFp8 false is B3, true B8
+    ("int8_matmul (ours)", re.compile(r"gemm_sm90_kernel(<|ILb)(false|0)")),
+    ("fp8_matmul (ours)", re.compile(r"gemm_sm90_kernel(<|ILb)(true|1)")),
     ("halo_conv3d (ours)", re.compile(r"halo_conv_sm90_kernel")),
     # the W8A8 conv's activation quantization (csrc/halo_conv.cu), before the
     # cuDNN pattern: its mangled names hold the source's name

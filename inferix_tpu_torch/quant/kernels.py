@@ -1,7 +1,7 @@
 """Weight quantization helpers and the quantized GEMMs: the W8A8 int8 GEMM
-(`csrc/int8_matmul.cu`) and the fp8 weight-only GEMM
-(`csrc/fp8_matmul.cu`), each a wrapper of its hand-written CUDA kernel
-beside its plain PyTorch version.
+and the fp8 weight-only GEMM, two entry points of one hand-written CUDA
+kernel frame (`csrc/gemm_sm90.cu`), each wrapper beside its plain PyTorch
+version.
 
 Port of `inferix_tpu/quant/kernels.py`: `quantize_weight_int8` (`:40`),
 `quantize_weight_fp8` (`:54`), `quantize_act_int8_per_token` (`:68`),
@@ -17,9 +17,10 @@ Weight layout. `w_q` is the JAX package's [K, N] (in, out) weight. Both
 kernels take it as a K-contiguous [K, N] view: an [N, K] tensor in memory,
 seen through `.t()` (strides (1, K)). The int8 kernel needs that layout
 because its tensor-core operand wants each output channel's K bytes
-contiguous and ldmatrix transposes 16-bit elements only; the fp8 kernel
-loads [N, K] tiles by TMA and widens each channel's e4m3 bytes in registers
-into wgmma's A operand (it computes out^T = W x^T).
+contiguous (wgmma takes s8 operands K-major only). The fp8 kernel computes
+the transposed product out^T = W . x^T: TMA loads the raw [N, K] e4m3 tiles,
+each thread widens its share in registers into wgmma's A operand, and x is
+the B operand through a shared-memory descriptor.
 `quant.api.to_kernel_layout` makes that layout once, when the generator is
 built; the weight is then held in that one copy only. The plain versions
 take either layout.
@@ -131,8 +132,11 @@ _ARGTYPES = (
 )
 
 
+GEMM_LIBRARY = "gemm_sm90"  # csrc/gemm_sm90.cu: both GEMMs
+
+
 def _kernel():
-    lib = _build.load_library("int8_matmul")
+    lib = _build.load_library(GEMM_LIBRARY)
     fn = lib.inferix_int8_matmul
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
@@ -154,8 +158,8 @@ def _check_cuda_operands(x_q, w_q, x_scale, w_scale, bias, out_dtype):
     m, k = x_q.shape
     n = w_q.shape[1]
     if k % 16 or n % 8:
-        raise ValueError(f"the kernel needs K % 16 == 0 (16-byte cp.async) and "
-                         f"N % 8 == 0, got K={k}, N={n}")
+        raise ValueError(f"the kernel needs K % 16 == 0 and N % 8 == 0 (16-byte rows of "
+                         f"its tensor maps), got K={k}, N={n}")
     if not x_q.is_contiguous() or x_q.data_ptr() % 16:
         raise ValueError("x_q must be contiguous with a 16-byte aligned base")
     if w_q.stride() != (1, k) or w_q.data_ptr() % 16:
@@ -171,8 +175,6 @@ def _check_cuda_operands(x_q, w_q, x_scale, w_scale, bias, out_dtype):
         raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias must hold N={n} values, got {tuple(bias.shape)}")
-    if (m + 127) // 128 > 65535:
-        raise ValueError(f"M = {m} exceeds the kernel's grid limit")
 
 
 def int8_matmul(
@@ -250,7 +252,7 @@ _FP8_ARGTYPES = (
 
 
 def _fp8_kernel():
-    lib = _build.load_library("fp8_matmul")
+    lib = _build.load_library(GEMM_LIBRARY)
     fn = lib.inferix_fp8_matmul
     if fn.argtypes is None:
         fn.argtypes = _FP8_ARGTYPES
@@ -289,16 +291,35 @@ def _check_fp8_cuda_operands(x, w_q, w_scale, bias, out_dtype):
         raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias must hold N={n} values, got {tuple(bias.shape)}")
-    if fp8_grid(m, n)[1] > 65535:
-        raise ValueError(f"M = {m} exceeds the kernel's grid limit")
 
 
-FP8_TILE_M, FP8_TILE_N = 256, 128   # tokens x channels a CTA of the fp8 kernel
+GEMM_TILE_M = 128                # rows of a tile (of the rows operand)
+GEMM_TILE_N = (256, 224, 128)    # the tile widths, widest first
+GEMM_TILE_COST = 48              # a tile's fixed work, in columns (kTileCost)
+H100_SMS = 132
 
 
-def fp8_grid(m: int, n: int) -> Tuple[int, int]:
-    """The fp8 kernel's grid: (channel tiles, token tiles)."""
-    return -(-n // FP8_TILE_N), -(-m // FP8_TILE_M)
+def gemm_plan(m: int, n: int, kernel: str = "int8", sms: int = H100_SMS
+              ) -> Tuple[int, int, int]:
+    """The tile plan of the int8 or the fp8 GEMM launcher for [m, k] x [k,
+    n] (`plan_of` in csrc/gemm_sm90.cu, the same rule): (tile width, tiles,
+    CTAs). A tile is 128 rows of the rows operand (tokens, or channels for
+    the fp8 kernel's transposed product) by the width; the width is the one
+    whose rounds of tiles over the `sms` SMs cost the least, a tile costing
+    its width plus GEMM_TILE_COST columns, the wider on a tie; the
+    persistent grid is one CTA an SM, or one a tile when there are fewer
+    tiles."""
+    if kernel not in ("int8", "fp8"):
+        raise ValueError(f"kernel must be 'int8' or 'fp8', got {kernel!r}")
+    rows, cols = (n, m) if kernel == "fp8" else (m, n)
+    best = None
+    for bn in GEMM_TILE_N:
+        tiles = -(-rows // GEMM_TILE_M) * -(-cols // bn)
+        cost = -(-tiles // sms) * (bn + GEMM_TILE_COST)
+        if best is None or cost < best[0]:
+            best = (cost, bn, tiles)
+    _, bn, tiles = best
+    return bn, tiles, min(tiles, sms)
 
 
 def fp8_matmul(

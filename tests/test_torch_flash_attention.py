@@ -17,7 +17,10 @@ from inferix_tpu.kvcache.cache import quantize_kv_block as jax_quantize_kv_block
 from inferix_tpu.ops.flash_attention import flash_attention_prefix as jax_flash
 from inferix_tpu.ops.flash_attention import flash_attention_prefix_quant as jax_flash_quant
 from inferix_tpu_torch import _build
+from inferix_tpu_torch.ops import act_quant as taq
 from inferix_tpu_torch.ops import flash_attention as tfa
+from inferix_tpu_torch.ops import halo_conv as thc
+from inferix_tpu_torch.quant import kernels as tk
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B2_START, B2_END = [0, 37], [500, 611]
@@ -201,11 +204,25 @@ def test_bounds_tensor_for_the_kernel():
         tfa._bounds_tensor(0, torch.tensor([1, 2, 3]), 2, "cpu")
 
 
-@pytest.mark.parametrize("name", ["flash_attention_sm90", "int8_matmul", "act_quant",
-                                  "halo_conv", "fp8_matmul", "flash_attention_quant_ext"])
-def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
+# Each kernel entry point's loader: (library, loader), the two GEMMs sharing
+# one source.
+_LOADERS = {
+    "flash_attention_sm90": ("flash_attention_sm90", lambda: tfa._lib_sm90()),
+    "gemm_sm90-int8": ("gemm_sm90", lambda: tk._kernel()),
+    "act_quant": ("act_quant", lambda: taq._lib()),
+    "halo_conv": ("halo_conv", lambda: thc._library()),
+    "gemm_sm90-fp8": ("gemm_sm90", lambda: tk._fp8_kernel()),
+    "flash_attention_quant_ext": ("flash_attention_quant_ext", lambda: tfa._lib_quant_ext()),
+}
+
+
+@pytest.mark.parametrize("entry", list(_LOADERS))
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, entry):
     """With no nvcc in $CUDA_HOME/bin, the toolkit directory or PATH, the
-    build of each kernel library stops with an error that says so."""
+    build of each kernel library stops with an error that says so, whether
+    asked for by name or by the loader of a kernel entry point in it."""
+    name, loader = _LOADERS[entry]
+    assert (_build.CSRC / f"{name}.cu").is_file()
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "CUDA_BIN_DIRS", (str(tmp_path / "cuda" / "bin"),))
@@ -213,7 +230,20 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path, name):
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library(name)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        loader()
     assert not (tmp_path / "build").exists()
+
+
+def test_csrc_holds_one_source_per_library():
+    """Every source under csrc/ is a library the smoke script builds, and
+    the retired GEMM sources are gone: each library's build key hashes its
+    one file, so no source may include another."""
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sources == sorted({name for name, _ in _LOADERS.values()})
+    assert not list(_build.CSRC.glob("*.cuh")) and not list(_build.CSRC.glob("*.h"))
+    for p in _build.CSRC.glob("*.cu"):
+        assert '#include "' not in p.read_text(), p.name
 
 
 def _fake_nvcc(tmp_path, body):
@@ -240,7 +270,7 @@ echo built > "$out"
 """)
     monkeypatch.setenv("CUDA_HOME", str(home))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    names = ["flash_attention_sm90", "int8_matmul", "act_quant"]
+    names = ["flash_attention_sm90", "gemm_sm90", "act_quant"]
     _build.build(names)
     libs = sorted(p.name.split("-")[0] for p in (tmp_path / "build").glob("lib*.so"))
     assert libs == sorted(f"lib{n}" for n in names)
@@ -253,8 +283,8 @@ def test_build_reports_a_failed_source(monkeypatch, tmp_path):
     home = _fake_nvcc(tmp_path, "echo 'error: bad ptx' ; exit 2\n")
     monkeypatch.setenv("CUDA_HOME", str(home))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    with pytest.raises(RuntimeError, match="failed to build int8_matmul.cu:\n.*bad ptx"):
-        _build.build(["int8_matmul"])
+    with pytest.raises(RuntimeError, match="failed to build gemm_sm90.cu:\n.*bad ptx"):
+        _build.build(["gemm_sm90"])
     assert not list((tmp_path / "build").glob("*.so"))
 
 

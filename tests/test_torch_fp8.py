@@ -371,10 +371,50 @@ def test_kernel_layout_and_memory_of_e4m3_leaves():
     assert tapi.memory_bytes(tree) == 2 * 64 * 48 + 2 * 2 * 48 * 4
 
 
-@pytest.mark.parametrize("m,n,grid", [
-    (4680, 4608, (36, 19)), (4680, 1536, (12, 19)), (4680, 8960, (70, 19)),
-    (512, 1536, (12, 2)), (70, 1536, (12, 1)), (1, 1536, (12, 1)), (100, 8, (1, 1))])
-def test_fp8_grid(m, n, grid):
-    """The fp8 kernel's grid at the path's and the gates' shapes: one CTA per
-    128 channels x 256 tokens, ragged edges rounded up."""
-    assert tk.fp8_grid(m, n) == grid
+@pytest.mark.parametrize("kernel,m,n,plan", [
+    ("int8", 4680, 4608, (224, 777, 132)), ("int8", 4680, 1536, (224, 259, 132)),
+    ("int8", 4680, 8960, (256, 1295, 132)), ("int8", 512, 1536, (128, 48, 48)),
+    ("int8", 70, 1536, (128, 12, 12)), ("int8", 1, 1536, (128, 12, 12)),
+    ("int8", 100, 8, (128, 1, 1)), ("int8", 9360, 1536, (224, 518, 132)),
+    ("int8", 9360, 8960, (256, 2590, 132)), ("int8", 133 * 128, 128, (128, 133, 132)),
+    ("fp8", 4680, 4608, (224, 756, 132)), ("fp8", 4680, 1536, (224, 252, 132)),
+    ("fp8", 4680, 8960, (224, 1470, 132)), ("fp8", 512, 1536, (128, 48, 48)),
+    ("fp8", 70, 1536, (128, 12, 12)), ("fp8", 1, 1536, (128, 12, 12)),
+    ("fp8", 100, 8, (128, 1, 1)), ("fp8", 9360, 1536, (224, 504, 132)),
+    ("fp8", 9360, 8960, (256, 2590, 132)), ("fp8", 128, 133 * 128, (128, 133, 132))])
+def test_gemm_plan(kernel, m, n, plan):
+    """The tile plan of both quantized GEMMs (one persistent kernel frame)
+    at the paths' and the gates' shapes: (tile width, tiles, CTAs). Tiles
+    are 128 tokens (int8) or 128 channels (fp8, the transposed product) by
+    the width; the width costs the least over rounds of 132 SMs, a tile
+    costing its width plus 48 columns (224 where 256 leaves a second round
+    of 90 tiles), the wider on a tie; one CTA an SM, or one a tile when
+    there are fewer tiles."""
+    assert tk.gemm_plan(m, n, kernel) == plan
+    bn, tiles, grid = plan
+    rows, cols = (n, m) if kernel == "fp8" else (m, n)
+    assert tiles == -(-rows // tk.GEMM_TILE_M) * -(-cols // bn)
+    assert grid == min(tiles, tk.H100_SMS)
+
+
+def test_gemm_plan_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="'int8' or 'fp8'"):
+        tk.gemm_plan(16, 16, "int4")
+
+
+@pytest.mark.parametrize("loader,entry", [("_kernel", "inferix_int8_matmul"),
+                                          ("_fp8_kernel", "inferix_fp8_matmul")])
+def test_both_gemms_load_one_library(monkeypatch, loader, entry):
+    """The int8 and the fp8 wrappers take their entry points from the one
+    library built from csrc/gemm_sm90.cu."""
+    asked = []
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {"argtypes": None, "restype": None})()
+            fn.name = name
+            return fn
+    monkeypatch.setattr(tk._build, "load_library", lambda name: asked.append(name) or Lib())
+    fn = getattr(tk, loader)()
+    assert asked == [tk.GEMM_LIBRARY] and tk.GEMM_LIBRARY == "gemm_sm90"
+    assert fn.name == entry and fn.argtypes is not None
