@@ -25,7 +25,13 @@ Phases, each timed on a line of its own:
                 shape of the W8A8 path and a few edge cases (the GEMM also
                 at the persistent scheduler's edges: fewer tiles than SMs,
                 133 tiles, M 9360; its tile plan against the Python
-                helper's), then timed as in phase 3.
+                helper's; the quantizers at each edge of their row classes
+                and past them, M 1, ragged M, M 9360, the K/V writes at B=2
+                and in the window, frames of 13 rows, and every bf16 absmax
+                with every bf16 value that can take a nonzero code under
+                it), each launcher refusing a class it was not built for,
+                then timed as in phase 3 (the quantizers at M 4680 and
+                9360, each time with its share of the bound's rate).
   6. w8a8 main - the same generation with W8A8 linears (int8 per-channel
                 weights from the same seed, per-token int8 activations, the
                 fused act-quant prologues): launch counts of all four kernels
@@ -122,7 +128,7 @@ from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
     ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
-    quantize_rows_int8_reference)
+    quantize_rows_int8_reference, row_plan)
 from inferix_tpu_torch.ops.flash_attention import (
     FP8, LOG2E, quant_ext_reference, flash_attention_prefix,
     flash_attention_prefix_quant, flash_attention_prefix_quant_i8,
@@ -173,11 +179,14 @@ SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of each timed call
 
 # W8A8 kernels against their plain versions, bf16 activations on the card.
 # The int8 GEMM sums integers exactly and both versions apply the same _rn
-# epilogue: bit-equal. The act-quant kernel with act None repeats the plain
-# arithmetic exactly: equal codes and scales. With an activation, or a
-# LayerNorm whose f32 sums the two versions take in other orders, a value at
-# a rounding boundary of the bf16 rounding or of the code may round the other
-# way: codes within 1, scales within one bf16 ulp (2^-7 relative) of the
+# epilogue: bit-equal. The act-quant kernel repeats the plain arithmetic
+# exactly with every act: its gelu, erf and sigmoid are the f32 expressions
+# of the plain version, op for op, with the CUDA math library's tanhf and
+# expf, which torch's CUDA tanh, exp and sigmoid call too: equal codes and
+# scales (0 differing codes with every act on an H100). The LayerNorm
+# kernel takes its f32 sums in other orders than the plain version, so a
+# value at a rounding boundary of the bf16 rounding or of the code may round
+# the other way: codes within 1, scales within one bf16 ulp (2^-7 relative) of the
 # row's absmax, and rounding events in at most FLIP_SHARE of the codes. An
 # event is a code that differs in a row whose scale agrees, or a row whose
 # scale moved: its absmax element rounded to the neighbouring bf16 value,
@@ -548,6 +557,20 @@ def code_diff(got, want):
             deq)
 
 
+def every_bf16_absmax(dev: torch.device) -> torch.Tensor:
+    """A row for each positive finite bf16 value M, holding M, the 1023 bf16
+    values below it (8 binades) and the negatives of all 1024: every pair of
+    a value and a row scale under which a code can be nonzero (a value below
+    M / 256 has |v / scale| < 0.5), the 1e-8 scale floor included."""
+    top = torch.arange(1, 0x7F80, device=dev, dtype=torch.int32)
+    bits = (top[:, None] - torch.arange(1024, device=dev, dtype=torch.int32)).clamp(min=0)
+    return torch.cat([bits, bits + 0x8000], dim=1).to(torch.int16).view(torch.bfloat16)
+
+
+def quant_rate(ms: float, bound: float) -> str:
+    return f"{100 * bound / ms:.1f}% of the bound's rate"
+
+
 def check_quant_case(name, got, want, exact):
     dmax, share, events, srel, deq = code_diff(got, want)
     ok = ((dmax == 0 and srel == 0) if exact else
@@ -635,7 +658,7 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         got = quantize_rows_int8(x, act=act)
         torch.cuda.synchronize()
         ok, deq = check_quant_case(f"quantize_rows_int8 {nm} [{m}x{k}] act {act}",
-                                   got, quantize_rows_int8_reference(x, act), act is None)
+                                   got, quantize_rows_int8_reference(x, act), True)
         act_err = max(act_err, deq)
         if not ok:
             failed.append(f"quantize_rows_int8 {nm}")
@@ -667,6 +690,81 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         if not ok:
             failed.append(f"ln {nm}")
 
+    # --- the row classes' edges (ops/act_quant.row_plan), on a generator of
+    # their own so that the cases above keep their inputs: every act in the
+    # G 16 (width <= 128), G 32 (<= 1536) and G 128 (<= 9216, <= 12288)
+    # classes and past them (the row read twice), M 1, M ragged against the
+    # G 16 class's
+    # two rows a group, the B=2 activations (M 9360) and the window's K/V
+    # write; the LayerNorm kernel at each class with strided [B, F, 6, C]
+    # modulation views, and frames of 13 rows, so that a group's run of rows
+    # crosses frame boundaries (its modulation registers are reloaded).
+    ge = torch.Generator(device=dev).manual_seed(12)
+    for nm, m, k, act in (
+            ("k8", 4999, 8, None), ("k120_gelu_exact", 4999, 120, "gelu_exact"),
+            ("k128_silu_mul", 4999, 256, "silu_mul"), ("k128_gelu_m1", 1, 128, "gelu"),
+            ("kv_write_window", SQ * H, D, None), ("kv_ragged", 2 * SQ * H + 1, D, None),
+            ("k136_gelu", 4999, 136, "gelu"), ("k1544", 4999, 1544, None),
+            ("k9216_gelu", 999, 9216, "gelu"), ("k9224", 999, 9224, None),
+            ("k1544_silu_mul", 4999, 2 * 1544, "silu_mul"),
+            ("o_in_b2", 2 * SQ, DIM, None), ("k2056_gelu_exact", 4999, 2056, "gelu_exact"),
+            ("fc2_in_gelu_b2", 2 * SQ, FFN, "gelu"), ("fc2_in_gelu_m1", 1, FFN, "gelu"),
+            ("k12288", 4999, 12288, None), ("k12288_silu_mul", 999, 2 * 12288, "silu_mul"),
+            ("k12296_two_pass", 4999, 12296, None),
+            ("k12296_two_pass_gelu", 999, 12296, "gelu"),
+            ("k16384_two_pass_silu_mul", 999, 2 * 16384, "silu_mul")):
+        x = (torch.randn(m, k, generator=ge, device=dev) * 2).to(torch.bfloat16)
+        x[0] = 0
+        got = quantize_rows_int8(x, act=act)
+        torch.cuda.synchronize()
+        g_nc = row_plan(k // 2 if act == "silu_mul" else k)
+        ok, deq = check_quant_case(f"quantize_rows_int8 {nm} [{m}x{k}] act {act} G, chunks "
+                                   f"{g_nc}", got, quantize_rows_int8_reference(x, act), True)
+        act_err = max(act_err, deq)
+        if not ok:
+            failed.append(f"quantize_rows_int8 {nm}")
+    # the quotient from the row's reciprocal against IEEE division: every
+    # code that can be nonzero, under every bf16 absmax
+    x = every_bf16_absmax(dev)
+    got = quantize_rows_int8(x)
+    torch.cuda.synchronize()
+    ok, deq = check_quant_case(f"quantize_rows_int8 every_bf16_absmax [{x.shape[0]}x"
+                               f"{x.shape[1]}] act None", got, quantize_rows_int8_reference(x),
+                               True)
+    if not ok:
+        failed.append("quantize_rows_int8 every_bf16_absmax")
+    for nm, b, f, s, c in (("adaln_fs13", 1, 360, SQ, DIM),
+                           ("adaln_c3072_b2_fs13", 2, 180, SQ // 2, 3072),
+                           ("adaln_c6144", 1, 3, SQ, 6144), ("adaln_c12288", 1, 2, 2080, 12288),
+                           ("adaln_c128_fs13", 2, 180, SQ // 2, 128),
+                           ("adaln_b2_m9360", 2, 3, SQ, DIM)):
+        x = (torch.randn(b, s, c, generator=ge, device=dev) * 3 + 0.5).to(torch.bfloat16)
+        mod = torch.randn(b, f, 6, c, generator=ge, device=dev) * 0.5
+        got = adaln_quantize_rows_int8(x, mod[:, :, 0], mod[:, :, 1])
+        torch.cuda.synchronize()
+        want = adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1])
+        ok, deq = check_quant_case(f"adaln_quantize_rows_int8 {nm} [{b}x{s}x{c}] {f} frames "
+                                   f"G, chunks {row_plan(c)}", got, want, False)
+        ln_err = max(ln_err, deq)
+        if not ok:
+            failed.append(f"adaln {nm}")
+    for nm, m, c, affine in (("c3072_affine", SQ, 3072, True), ("c6144_plain", SQ, 6144, False),
+                             ("c12288_affine", 2080, 12288, True), ("c128_affine", 4999, 128, True),
+                             ("c1544_plain", 4999, 1544, False),
+                             ("cross_q_affine_m9360", 2 * SQ, DIM, True)):
+        x = (torch.randn(m, c, generator=ge, device=dev) * 3 - 1).to(torch.bfloat16)
+        wb = ((1 + 0.1 * torch.randn(c, generator=ge, device=dev)).to(torch.bfloat16),
+              (0.1 * torch.randn(c, generator=ge, device=dev)).to(torch.bfloat16)) \
+            if affine else (None, None)
+        got = ln_quantize_rows_int8(x, *wb)
+        torch.cuda.synchronize()
+        ok, deq = check_quant_case(f"ln_quantize_rows_int8 {nm} [{m}x{c}] G, chunks "
+                                   f"{row_plan(c)}", got, ln_quantize_rows_int8_reference(x, *wb),
+                                   False)
+        ln_err = max(ln_err, deq)
+        if not ok:
+            failed.append(f"ln {nm}")
+
     # --- each wrapper raises on a CUDA operand its kernel cannot take
     x, w, xs, ws, b = gemm_operands(dev, g, 64, DIM, DIM)
     expect_raise("int8_matmul N-contiguous weight", ValueError,
@@ -679,6 +777,36 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         xf[None], xs[None, :1].expand(1, 1, DIM), xs[None, :1].expand(1, 1, DIM)))
     expect_raise("ln float32 affine weight", ValueError, lambda: ln_quantize_rows_int8(
         xf.to(torch.bfloat16), w3.float(), b3))
+    xb = torch.zeros(64, 12304, dtype=torch.bfloat16, device=dev)
+    expect_raise("quantize_rows_int8 K % 8", ValueError, lambda: quantize_rows_int8(xb[:, :12]))
+    expect_raise("quantize_rows_int8 silu_mul K % 16", ValueError,
+                 lambda: quantize_rows_int8(xb[:, :24].contiguous(), act="silu_mul"))
+    expect_raise("ln C past the register classes", ValueError,
+                 lambda: ln_quantize_rows_int8(xb[:, :12296].contiguous()))
+    # the launchers take no class they were not built for (G 64, G 32 with 9
+    # chunks a thread) nor a plan that does not cover the row exactly
+    q8 = torch.empty(64, 12304, dtype=torch.int8, device=dev)
+    s8 = torch.empty(64, 1, device=dev)
+    lib = _build.load_library("act_quant")
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, g_cls, nc in ((2048, 64, 4), (2304, 32, 9), (1536, 32, 5), (1536, 32, 7),
+                         (128, 16, 2)):
+        err = lib.inferix_quantize_rows_int8(xb.data_ptr(), q8.data_ptr(), s8.data_ptr(),
+                                             64, k, 0, g_cls, nc, stream)
+        err_ln = lib.inferix_ln_quantize_rows_int8(
+            xb.data_ptr(), q8.data_ptr(), s8.data_ptr(), None, None, 0, 0, 64, k, 64, 64,
+            1e-6, 0, g_cls, nc, stream)
+        if err == 0 or err_ln == 0:
+            raise AssertionError(f"an act-quant launcher took the class G {g_cls}, {nc} "
+                                 f"chunks a thread for width {k}")
+        print(f"guard act-quant launchers refuse G {g_cls}, {nc} chunks at width {k}: ok",
+              flush=True)
+    err = lib.inferix_ln_quantize_rows_int8(
+        xb.data_ptr(), q8.data_ptr(), s8.data_ptr(), None, None, 0, 0, 64, 12296, 64, 64,
+        1e-6, 0, *row_plan(12296), stream)
+    if err == 0:
+        raise AssertionError("the LayerNorm launcher took a row past its register classes")
+    print("guard ln launcher refuses width 12296 (two-pass class): ok", flush=True)
     if failed:
         raise AssertionError(f"W8A8 kernel cases {failed} disagree with the plain versions")
 
@@ -714,10 +842,16 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
         ms = time_ms(lambda: quantize_rows_int8(x, act=a))
         plain = time_ms(lambda: quantize_rows_int8_reference(x, a))
         bound = quant_bound(SQ, k, k)
-        print(f"w8a8 time quantize_rows_int8 {nm} [{SQ}x{k}] act {a}: {ms:.4f} ms, "
-              f"bound {bound:.4f} ms (bytes), plain {plain:.4f} ms", flush=True)
+        print(f"w8a8 time quantize_rows_int8 {nm} [{SQ}x{k}] act {a}: {ms:.4f} ms "
+              f"({quant_rate(ms, bound)}), bound {bound:.4f} ms (bytes), plain "
+              f"{plain:.4f} ms", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
             act[key] += calls * v
+    for nm, k, a in (("o/cross_o B=2", DIM, None), ("fc2_in B=2", FFN, "gelu")):
+        x = (torch.randn(2 * SQ, k, generator=ge, device=dev) * 2).to(torch.bfloat16)
+        ms, bound = time_ms(lambda: quantize_rows_int8(x, act=a)), quant_bound(2 * SQ, k, k)
+        print(f"w8a8 time quantize_rows_int8 {nm} [{2 * SQ}x{k}] act {a}: {ms:.4f} ms "
+              f"({quant_rate(ms, bound)}), bound {bound:.4f} ms (bytes)", flush=True)
 
     # the int8 K/V write of one block at B=2 (K or V; 2 a layer-forward)
     x = torch.randn(2, SQ, H, D, generator=g, device=dev).to(torch.bfloat16)
@@ -728,8 +862,13 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
                     work=f"one int8 K (or V) block write at B=2: quantize_kv_block "
                          f"[2,{SQ},{H},{D}], {2 * SQ * H} rows of {D}")
     print(f"w8a8 time quantize_rows_int8 kv_write_b2 [{2 * SQ * H}x{D}] act None: "
-          f"{kv_write['ms']:.4f} ms, bound {kv_write['bound_ms']:.4f} ms (bytes), "
-          f"plain {kv_write['plain_ms']:.4f} ms", flush=True)
+          f"{kv_write['ms']:.4f} ms ({quant_rate(kv_write['ms'], kv_write['bound_ms'])}), "
+          f"bound {kv_write['bound_ms']:.4f} ms (bytes), plain {kv_write['plain_ms']:.4f} ms",
+          flush=True)
+    xw = x[:1]  # the rolling window's write: B=1, 56160 rows of 128
+    ms, bound = time_ms(lambda: quantize_kv_block(xw)), quant_bound(SQ * H, D, D)
+    print(f"w8a8 time quantize_rows_int8 kv_write_window [{SQ * H}x{D}] act None: {ms:.4f} ms "
+          f"({quant_rate(ms, bound)}), bound {bound:.4f} ms (bytes)", flush=True)
 
     ln = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     x = (torch.randn(1, SQ, DIM, generator=g, device=dev) * 3).to(torch.bfloat16)
@@ -742,10 +881,21 @@ def w8a8_kernel_phase(dev: torch.device) -> list:
              lambda: ln_quantize_rows_int8_reference(x[0], w3, b3), 2 * DIM * 2, 1)):
         ms, plain = time_ms(fn), time_ms(plain_fn)
         bound = quant_bound(SQ, DIM, DIM, extra)
-        print(f"w8a8 time {nm} [{SQ}x{DIM}]: {ms:.4f} ms, bound {bound:.4f} ms "
-              f"(bytes), plain {plain:.4f} ms", flush=True)
+        print(f"w8a8 time {nm} [{SQ}x{DIM}]: {ms:.4f} ms ({quant_rate(ms, bound)}), bound "
+              f"{bound:.4f} ms (bytes), plain {plain:.4f} ms", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
             ln[key] += calls * v
+    x2 = (torch.randn(2, SQ, DIM, generator=ge, device=dev) * 3).to(torch.bfloat16)
+    mod2 = torch.randn(2, 3, 6, DIM, generator=ge, device=dev) * 0.5
+    for nm, fn, extra in (
+            ("adaln qkv/fc1 B=2", lambda: adaln_quantize_rows_int8(x2, mod2[:, :, 0],
+                                                                   mod2[:, :, 1]),
+             2 * 2 * 3 * DIM * 4),
+            ("ln affine cross_q B=2", lambda: ln_quantize_rows_int8(x2.reshape(-1, DIM), w3, b3),
+             2 * DIM * 2)):
+        ms, bound = time_ms(fn), quant_bound(2 * SQ, DIM, DIM, extra)
+        print(f"w8a8 time {nm} [{2 * SQ}x{DIM}]: {ms:.4f} ms ({quant_rate(ms, bound)}), "
+              f"bound {bound:.4f} ms (bytes)", flush=True)
     for c, before in zip(counters, launches_before):
         c.launches = before  # timing launches are not the main path's
     print(f"w8a8 per layer: int8_matmul {gemm['ms']:.4f} ms (bound {gemm['bound_ms']:.4f}, "

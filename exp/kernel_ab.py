@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """In-turn A/B of the flash kernels (B1 over bf16 and over e4m3 K/V, B2 over
-int8 K/V), of the halo convs (B6 bf16, B7 W8A8) or of the quantized GEMMs
-(B3 int8, B8 fp8) against a parent checkout's, on one card.
+int8 K/V), of the halo convs (B6 bf16, B7 W8A8), of the quantized GEMMs
+(B3 int8, B8 fp8) or of the W8A8 quantization prologues (B4, B5) against a
+parent checkout's, on one card.
 
     python3 exp/kernel_ab.py --parent DIR [--turns N]                 # flash
     python3 exp/kernel_ab.py --kernel halo --parent DIR [--turns N]   # halo conv
     python3 exp/kernel_ab.py --kernel gemm --parent DIR [--turns N]   # GEMMs
+    python3 exp/kernel_ab.py --kernel act_quant --parent DIR [--turns N]
 
 DIR holds a parent commit's files (`git archive <commit> | tar -x -C DIR`,
 into a directory that .gitignore lists). The parent's
@@ -45,6 +47,22 @@ M = 512, on the main path's operand statistics. The int8 outputs must be
 bit-equal (both sum exactly); for fp8 the max |difference| is printed. Per
 shape: both sides' times, the bound and the rates; then each side's
 per-layer sum at M = 4680 (o x 3) beside the bound.
+
+--kernel act_quant: the parent's `csrc/act_quant.cu` (entries
+`inferix_quantize_rows_int8` (x, q, s, M, K, act, stream) and
+`inferix_ln_quantize_rows_int8` (x, q, s, p0, p1, batch and frame strides,
+M, C, rows per batch, frame_seq, eps, mode, stream): one CTA a row, up to
+commit 746cf59) is built the same way; this checkout's side is
+`quantize_rows_int8` / `adaln_quantize_rows_int8` / `ln_quantize_rows_int8`.
+Shapes: every call of the W8A8 path at M = 4680 and 9360 (o / cross-o
+inputs [M x 1536], the fc2 input with gelu [M x 8960], LN + modulate over 3
+frames, LN + affine [M x 1536]), the other acts at M 4680 (gelu_exact,
+silu_mul over [gate | up] of 2 x 8960), and the int8 K/V writes (B=2:
+112320 x 128, the window: 56160 x 128). B4's codes and scales must be
+bit-equal to the parent's; for B5 the share of codes that differ is
+printed. Per shape: both sides' times, the bound (bytes) and the share of
+its rate; then each side's per-layer sums at M 4680 (B4: o, cross-o, fc2;
+B5: two LN + modulate, one LN + affine).
 """
 from __future__ import annotations
 
@@ -62,6 +80,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from inferix_tpu_torch import _build  # noqa: E402
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
+from inferix_tpu_torch.ops import act_quant as taq  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from inferix_tpu_torch.ops import halo_conv as thc  # noqa: E402
 from inferix_tpu_torch.quant import kernels as tk  # noqa: E402
@@ -79,7 +98,12 @@ PARENT = {
              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "int8": ("int8_matmul", "inferix_int8_matmul", tk._ARGTYPES),
     "fp8": ("fp8_matmul", "inferix_fp8_matmul", tk._FP8_ARGTYPES),
+    "act_quant": ("act_quant", "inferix_quantize_rows_int8",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
+PARENT_LN = ("inferix_ln_quantize_rows_int8",
+             [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HALO_CLASSES = ("res 96 480x832", "res 192 240x416", "res 384 120x208", "res 384 60x104",
                 "up 192->96 480x832", "up 384->192 240x416", "head 96->3 480x832")
 
@@ -276,13 +300,108 @@ def gemm_ab(dev, parent, turns: int) -> None:
               flush=True)
 
 
+def act_quant_ab(dev, parent: pathlib.Path, quant_fn, turns: int) -> None:
+    """B4 and B5 against the parent's kernels at the W8A8 path's shapes."""
+    ln_fn = getattr(ctypes.CDLL(str(parent / "_ab_build" / "libact_quant.so")), PARENT_LN[0])
+    ln_fn.argtypes, ln_fn.restype = PARENT_LN[1], ctypes.c_int
+    g = torch.Generator(device=dev).manual_seed(6)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    layer = {(kind, side): 0.0 for kind in ("B4", "B5") for side in ("parent", "this")}
+
+    def report(kind, label, calls, old, new, bound, exact):
+        q_old, s_old = old()
+        q_new, s_new = new()
+        torch.cuda.synchronize()
+        dmax, share, events, srel, _ = cs.code_diff((q_new, s_new), (q_old, s_old))
+        if exact and (dmax or srel):
+            raise AssertionError(f"{kind} {label}: codes or scales differ from the parent's "
+                                 f"(max |code diff| {dmax}, scale rel diff {srel:.3e})")
+        t_old, t_new = in_turns(old, new, turns)
+        mo, mn = statistics.median(t_old), statistics.median(t_new)
+        layer[(kind, "parent")] += calls * mo
+        layer[(kind, "this")] += calls * mn
+        same = "codes and scales =" if not (dmax or srel) else (
+            f"codes that differ {share:.3e} (max |diff| {dmax}), rounding events "
+            f"{events:.3e}, max scale rel diff {srel:.3e}")
+        print(f"{kind} {label} ({calls} a layer): parent {fmt(t_old)} ms "
+              f"({cs.quant_rate(mo, bound)}), this {fmt(t_new)} ms ({cs.quant_rate(mn, bound)}), "
+              f"bound {bound:.4f} (bytes), {same}", flush=True)
+
+    for m in (cs.SQ, 2 * cs.SQ):
+        for nm, k, act, calls in (("o/cross_o", cs.DIM, None, 2), ("fc2_in", cs.FFN, "gelu", 1),
+                                  ("gelu_exact", cs.FFN, "gelu_exact", 0),
+                                  ("silu_mul", 2 * cs.FFN, "silu_mul", 0)):
+            if m > cs.SQ and calls == 0:
+                continue
+            x = (torch.randn(m, k, generator=g, device=dev) * 2).to(torch.bfloat16)
+            k_out = k // 2 if act == "silu_mul" else k
+
+            def old(x=x, k=k, k_out=k_out, act=act):
+                q = torch.empty(x.shape[0], k_out, dtype=torch.int8, device=dev)
+                s = torch.empty(x.shape[0], 1, device=dev)
+                err = quant_fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), x.shape[0], k,
+                               taq._ACT_CODE[act], stream())
+                if err:
+                    raise RuntimeError(f"parent act-quant launch failed: CUDA error {err}")
+                return q, s
+            report("B4", f"{nm} [{m}x{k}] act {act}", calls if m == cs.SQ else 0, old,
+                   lambda x=x, act=act: taq.quantize_rows_int8(x, act=act),
+                   cs.quant_bound(m, k, k_out), True)
+        b = m // cs.SQ
+        x = (torch.randn(b, cs.SQ, cs.DIM, generator=g, device=dev) * 3).to(torch.bfloat16)
+        mod = torch.randn(b, 3, 6, cs.DIM, generator=g, device=dev) * 0.5
+        w = (1 + 0.1 * torch.randn(cs.DIM, generator=g, device=dev)).to(torch.bfloat16)
+        bias = (0.1 * torch.randn(cs.DIM, generator=g, device=dev)).to(torch.bfloat16)
+        for nm, calls, p0, p1, mode, extra in (
+                ("adaln qkv/fc1", 2, mod[:, :, 0], mod[:, :, 1], 2, 2 * b * 3 * cs.DIM * 4),
+                ("ln affine cross_q", 1, w, bias, 1, 2 * cs.DIM * 2)):
+            sb, sf = p0.stride()[:2] if mode == 2 else (0, 0)
+            rows_per_batch, frame_seq = (cs.SQ, cs.SQ // 3) if mode == 2 else (m, m)
+
+            def old(x=x, p0=p0, p1=p1, mode=mode, sb=sb, sf=sf, rpb=rows_per_batch,
+                    fs=frame_seq):
+                q = torch.empty(m, cs.DIM, dtype=torch.int8, device=dev)
+                s = torch.empty(m, 1, device=dev)
+                err = ln_fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), p0.data_ptr(),
+                            p1.data_ptr(), sb, sf, m, cs.DIM, rpb, fs, 1e-6, mode, stream())
+                if err:
+                    raise RuntimeError(f"parent LN launch failed: CUDA error {err}")
+                return q, s
+
+            def new(x=x, p0=p0, p1=p1, mode=mode):
+                if mode == 2:
+                    q, s = taq.adaln_quantize_rows_int8(x, p0, p1)
+                else:
+                    q, s = taq.ln_quantize_rows_int8(x.reshape(-1, cs.DIM), p0, p1)
+                return q.reshape(m, cs.DIM), s.reshape(m, 1)
+            report("B5", f"{nm} [{m}x{cs.DIM}]", calls if m == cs.SQ else 0, old, new,
+                   cs.quant_bound(m, cs.DIM, cs.DIM, extra), False)
+    x = torch.randn(2 * cs.SQ * cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    for nm, rows in (("kv_write_b2", 2 * cs.SQ * cs.H), ("kv_write_window", cs.SQ * cs.H)):
+        xr = x[:rows]
+
+        def old(xr=xr):
+            q = torch.empty(xr.shape, dtype=torch.int8, device=dev)
+            s = torch.empty(xr.shape[0], 1, device=dev)
+            err = quant_fn(xr.data_ptr(), q.data_ptr(), s.data_ptr(), xr.shape[0], cs.D, 0,
+                           stream())
+            if err:
+                raise RuntimeError(f"parent act-quant launch failed: CUDA error {err}")
+            return q, s
+        report("B4", f"{nm} [{rows}x{cs.D}] act None", 0, old,
+               lambda xr=xr: taq.quantize_rows_int8(xr), cs.quant_bound(rows, cs.D, cs.D), True)
+    for kind in ("B4", "B5"):
+        print(f"{kind} per layer (M {cs.SQ}, medians): parent {layer[(kind, 'parent')]:.4f} ms, "
+              f"this {layer[(kind, 'this')]:.4f} ms", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="directory holding the parent commit's files")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent per shape (default 1)")
-    ap.add_argument("--kernel", choices=("flash", "halo", "gemm"), default="flash",
+    ap.add_argument("--kernel", choices=("flash", "halo", "gemm", "act_quant"), default="flash",
                     help="which kernels to compare (default flash)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -295,6 +414,11 @@ def main() -> None:
     if args.kernel == "gemm":
         _build.build([tk.GEMM_LIBRARY])
         gemm_ab(dev, build_parent(args.parent, ("int8", "fp8")), args.turns)
+        return
+    if args.kernel == "act_quant":
+        _build.build(["act_quant"])
+        act_quant_ab(dev, args.parent, build_parent(args.parent, ("act_quant",))["act_quant"],
+                     args.turns)
         return
     if args.kernel == "halo":
         _build.build(["halo_conv"])

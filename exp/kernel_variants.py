@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the flash kernel (`csrc/flash_attention_sm90.cu`: B1 over
 bf16 and e4m3 K/V, B2 over int8), of the quantized GEMMs
-(`csrc/gemm_sm90.cu`: B3 int8, B8 fp8) and of the halo conv
-(`csrc/halo_conv.cu`: B6 bf16, B7 int8) goes: what ptxas made of variants of
-the sources, and the variants timed against the shipped kernels, in turns,
-on one card.
+(`csrc/gemm_sm90.cu`: B3 int8, B8 fp8), of the halo conv
+(`csrc/halo_conv.cu`: B6 bf16, B7 int8) and of the quantization prologues
+(`csrc/act_quant.cu`: B4, B5) goes: what ptxas made of variants of the
+sources, and the variants timed against the shipped kernels, in turns, on
+one card.
 
     python3 exp/kernel_variants.py
     python3 exp/kernel_variants.py --gemm
     python3 exp/kernel_variants.py --halo
+    python3 exp/kernel_variants.py --act-quant
 
 Each variant is the checked-in source with one piece changed (most give
 wrong outputs; they are compared with the real kernel only to show how much
@@ -79,6 +81,31 @@ is bit-equal to the kernel's):
        to the start's phase in the swizzle pattern (wrong outputs: wgmma
        swizzles on absolute address bits);
      wgs2: the 16-row tile (2 consumer warpgroups) where the plan takes 24.
+--act-quant instead: per instantiation of the two row kernels (act or mode,
+G, register-resident or two-pass) the registers, stack frame and spill bytes
+ptxas reports and the local loads and stores in the SASS (0 expected), and
+the SASS's instructions an element by pipe: FP32 (FFMA, FADD, FMUL: 128
+lanes a clock an SM on an H100), MUFU and conversions (F2I, I2F, F2F,
+F2FP, FRND: 16 a clock an SM, the CUDA programming guide's table for
+compute capability 9.0), and all instructions (4 warp instructions issued a
+clock an SM: 128 lanes). Counted statically over the function, divided by
+the 8 x chunks x rows values a thread holds (so the prologue, the
+reductions and the division's slow path add a little). Then, for each call
+of the W8A8 path, the instruction bounds at the card's largest SM clock
+(`nvidia-smi --query-gpu=clocks.max.sm`) beside the bytes bound: the gelu
+fold's accurate tanh may put it above its bytes. Then each variant against
+the shipped kernels at the five W8A8 path calls (o / cross-o, the gelu
+fold, the int8 K/V write at B=2, LN + modulate, LN + affine; `=` where
+the output is bit-equal to the shipped kernel's):
+     fdiv: v / scale by __fdiv_rn instead of the reciprocal and two
+       corrections (the same quotient);
+     f32_modulate: the modulate in f32 operations each rounded to bf16,
+       as the first version of the kernel took it (the same values);
+     ln_rows4, ln_rows8: 4 or 8 rows a LayerNorm group (2 shipped);
+     g16_rows1: one row at a time a G 16 group (2 shipped);
+     cta256: 256-thread CTAs for the G 32 class (128 shipped);
+     regs64: both kernels held to 64 registers a thread (8 CTAs of 128
+       threads an SM).
 Prints the card's name and power limit first; times are as real, variant,
 variant, real.
 """
@@ -98,6 +125,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from inferix_tpu_torch import _build  # noqa: E402
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block  # noqa: E402
+from inferix_tpu_torch.ops import act_quant as taq  # noqa: E402
 from inferix_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from inferix_tpu_torch.ops import halo_conv as thc  # noqa: E402
 from inferix_tpu_torch.quant import kernels as tk  # noqa: E402
@@ -170,6 +198,34 @@ VARIANTS = {
     "flash_attention_sm90": FLASH,
     "halo_conv": HALO,
     "gemm_sm90": GEMM,
+    "act_quant": {
+        "fdiv": [("  float q = __fmul_rn(a, d.y);\n"
+                  "  q = __fmaf_rn(__fmaf_rn(-d.b, q, a), d.y, q);\n"
+                  "  return __fmaf_rn(__fmaf_rn(-d.b, q, a), d.y, q);",
+                  "  return __fdiv_rn(a, d.b);")],
+        "f32_modulate": [("  return bf16x2_fma(bf16x2_fma(h, sc, 0x80008000u), 0x3f803f80u, sh);",
+                          "  const float h0 = __uint_as_float(h << 16), h1 = __uint_as_float(h & 0xffff0000u);\n"
+                          "  const float c0 = __uint_as_float(sc << 16), c1 = __uint_as_float(sc & 0xffff0000u);\n"
+                          "  const float b0 = __uint_as_float(sh << 16), b1 = __uint_as_float(sh & 0xffff0000u);\n"
+                          "  const __nv_bfloat162 r = __floats2bfloat162_rn(\n"
+                          "      __fadd_rn(bf16_round(__fmul_rn(h0, c0)), b0),\n"
+                          "      __fadd_rn(bf16_round(__fmul_rn(h1, c1)), b1));\n"
+                          "  return *reinterpret_cast<const uint32_t*>(&r);")],
+        "ln_rows4": [("constexpr int kLnRows = 2;", "constexpr int kLnRows = 4;")],
+        "ln_rows8": [("constexpr int kLnRows = 2;", "constexpr int kLnRows = 8;")],
+        "g16_rows1": [("static constexpr int kRows = G == 16 ? 2 : 1;",
+                       "static constexpr int kRows = 1;")],
+        "cta256": [("static constexpr int kThreads = G == 16 ? 256 : 128;",
+                    "static constexpr int kThreads = G == 128 ? 128 : 256;")],
+        "regs64": [("__global__ void __launch_bounds__(RowClass<G, kChunks>::kThreads)\n"
+                    "quant_rows_kernel(",
+                    "__global__ void __launch_bounds__(RowClass<G, kChunks>::kThreads,\n"
+                    "                                  8192 / RowClass<G, kChunks>::kThreads / 8)\n"
+                    "quant_rows_kernel("),
+                   ("__launch_bounds__(RowClass<G, kChunks>::kThreads) ln_quant_kernel(",
+                    "__launch_bounds__(RowClass<G, kChunks>::kThreads,\n"
+                    "                  8192 / RowClass<G, kChunks>::kThreads / 8) ln_quant_kernel(")],
+    },
 }
 ENTRY = {"flash_attention_sm90": ("inferix_flash_attention_sm90", tfa._ARGTYPES_SM90)}
 KINDS = {0: "bf16", 1: "e4m3", 2: "int8"}
@@ -187,7 +243,7 @@ def build_variants(libs) -> dict:
     for lib in libs:
         src = (_build.CSRC / f"{lib}.cu").read_text()
         variants = dict(VARIANTS[lib])
-        if lib in ("flash_attention_sm90", "halo_conv", "gemm_sm90"):
+        if lib in ("flash_attention_sm90", "halo_conv", "gemm_sm90", "act_quant"):
             variants = {"shipped": [], **variants}
         for name, subs in variants.items():
             text = src
@@ -502,12 +558,154 @@ def halo_phase(dev, built) -> None:
     install(real)
 
 
+# SASS opcodes (before the first '.') by the pipe that executes them
+FP32_OPS = ("FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I")
+XU_OPS = ("MUFU", "F2I", "I2F", "F2F", "F2FP", "FRND")
+ACT_NAMES = {0: "None", 1: "gelu", 2: "gelu_exact", 3: "silu_mul"}
+MODE_NAMES = {0: "plain", 1: "affine", 2: "modulate"}
+
+
+def act_quant_report(so: pathlib.Path, log: str) -> dict:
+    """One line per row-kernel instantiation; returns {(kind, code, G,
+    chunks, resident): (fp32, xu, all) instructions an element}."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    so.with_suffix(".sass").write_text(sass)
+    pats = (("quant", r"quant_rows_kernelILi(\d)ELi(\d+)ELi(\d+)ELb(\d)E"),
+            ("ln", r"ln_quant_kernelILi(\d)ELi(\d+)ELi(\d+)EE"))
+
+    def key_of(name):
+        for kind, pat in pats:
+            m = re.search(pat, name)
+            if m:
+                g = m.groups()
+                return (kind, int(g[0]), int(g[1]), int(g[2]), kind == "ln" or g[3] == "1")
+        return None
+    props, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?:$| )",
+                      line)
+        if m and key_of(m.group(1)):
+            fn = key_of(m.group(1))
+            props.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn:
+            props[fn]["frame"], props[fn]["spill_st"], props[fn]["spill_ld"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            props[fn]["regs"] = int(m.group(1))
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = key_of(line)
+            if fn:
+                counts[fn] = {"fp32": 0, "xu": 0, "all": 0, "local": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if not (fn and m) or m.group(1) in ("NOP",):
+            continue
+        op, st = m.group(1), counts[fn]
+        st["all"] += 1
+        st["fp32"] += op in FP32_OPS
+        st["xu"] += op in XU_OPS
+        st["local"] += op in ("LDL", "STL")
+    per_elem = {}
+    for fn in sorted(counts):
+        kind, code, g, chunks, resident = fn
+        elems = 8 * chunks * (2 if kind == "quant" and g == 16 else 1)
+        st, pr = counts[fn], props.get(fn, {})
+        per_elem[fn] = tuple(st[c] / elems for c in ("fp32", "xu", "all"))
+        name = (f"act {ACT_NAMES[code]}" if kind == "quant" else f"ln {MODE_NAMES[code]}")
+        print(f"registers act_quant {name} G {g} "
+              f"{f'{chunks} chunks' if resident else 'two-pass'}: "
+              f"{pr.get('regs')} registers, stack frame {pr.get('frame')} bytes, spill stores "
+              f"{pr.get('spill_st')} / loads {pr.get('spill_ld')} bytes, local ld/st "
+              f"{st['local']}; instructions an element (static, /{elems}): FP32 "
+              f"{per_elem[fn][0]:.2f}, MUFU + conversions {per_elem[fn][1]:.2f}, all "
+              f"{per_elem[fn][2]:.2f}", flush=True)
+    return per_elem
+
+
+def built_class(kind: str, code: int, width: int) -> tuple:
+    """The instantiation the launcher takes for rows of `width`."""
+    g, nc = taq.row_plan(width)
+    chunks = next((most for gg, most in taq.ROW_CLASSES if gg == g and nc <= most), None)
+    return (kind, code, g, chunks or 1, chunks is not None)
+
+
+def act_quant_phase(dev, built) -> None:
+    """Each act_quant variant against the shipped kernels at the path's
+    calls, in turns."""
+    def install(lib):
+        _build._LIBS["act_quant"] = lib
+    real = ctypes.CDLL(str(built[("act_quant", "shipped")][0]))
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(cs.SQ, cs.FFN, generator=g, device=dev) * 2).to(torch.bfloat16)
+    xo = x[:, :cs.DIM].contiguous()
+    kv = torch.randn(2 * cs.SQ * cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    mod = torch.randn(1, 3, 6, cs.DIM, generator=g, device=dev) * 0.5
+    w3 = (1 + 0.1 * torch.randn(cs.DIM, generator=g, device=dev)).to(torch.bfloat16)
+    b3 = (0.1 * torch.randn(cs.DIM, generator=g, device=dev)).to(torch.bfloat16)
+    calls = {
+        "o/cross_o [4680x1536]": lambda: taq.quantize_rows_int8(xo),
+        "fc2_in gelu [4680x8960]": lambda: taq.quantize_rows_int8(x, act="gelu"),
+        "kv_write_b2 [112320x128]": lambda: taq.quantize_rows_int8(kv),
+        "adaln [4680x1536]": lambda: taq.adaln_quantize_rows_int8(xo[None], mod[:, :, 0],
+                                                                  mod[:, :, 1]),
+        "ln affine [4680x1536]": lambda: taq.ln_quantize_rows_int8(xo, w3, b3),
+    }
+    # variants that change one call's kernel only: the calls they are timed at
+    only = {"f32_modulate": ("adaln",), "ln_rows8": ("adaln", "ln"),
+            "ln_rows4": ("adaln", "ln"), "g16_rows1": ("kv_write",)}
+    for label, run in calls.items():
+        install(real)
+        ref = run()
+        for name in VARIANTS["act_quant"]:
+            if name in only and not label.startswith(only[name]):
+                continue
+            var = ctypes.CDLL(str(built[("act_quant", name)][0]))
+            install(var)
+            out = run()
+            same = "=" if all(torch.equal(a, b) for a, b in zip(out, ref)) else "!="
+            t_real, t_var = in_turns(run, install, real, var)
+            print(f"act_quant {label}: kernel {fmt(t_real)} ms, {name} {fmt(t_var)} ms {same}",
+                  flush=True)
+    install(real)
+
+
+def act_quant_bounds(per_elem: dict) -> None:
+    """Each W8A8 path call's instruction bounds beside its bytes bound."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lanes_a_ms = sms * mhz * 1e3  # SM clocks a ms, all SMs
+    print(f"act_quant bounds at {mhz:.0f} MHz x {sms} SMs", flush=True)
+    for label, kind, code, m, k, k_out, extra in (
+            ("o/cross_o", "quant", 0, cs.SQ, cs.DIM, cs.DIM, 0),
+            ("fc2_in gelu", "quant", 1, cs.SQ, cs.FFN, cs.FFN, 0),
+            ("kv_write_b2", "quant", 0, 2 * cs.SQ * cs.H, cs.D, cs.D, 0),
+            ("adaln qkv/fc1", "ln", 2, cs.SQ, cs.DIM, cs.DIM, 2 * 3 * cs.DIM * 4),
+            ("ln affine cross_q", "ln", 1, cs.SQ, cs.DIM, cs.DIM, 2 * cs.DIM * 2)):
+        fp32, xu, total = per_elem[built_class(kind, code, k_out)]
+        n = m * k_out
+        t = {"FP32": n * fp32 / 128 / lanes_a_ms, "MUFU + conversions": n * xu / 16 / lanes_a_ms,
+             "issue": n * total / 128 / lanes_a_ms}
+        print(f"act_quant bound {label} [{m}x{k}]: bytes {cs.quant_bound(m, k, k_out, extra):.4f} "
+              f"ms; instructions " + ", ".join(f"{p} {v:.4f} ms" for p, v in t.items()),
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gemm", action="store_true",
                     help="the quantized GEMMs' variants instead of the flash ones")
     ap.add_argument("--halo", action="store_true",
                     help="the halo conv's variants instead of the flash ones")
+    ap.add_argument("--act-quant", action="store_true",
+                    help="the row quantizers' registers and instruction counts instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
@@ -516,6 +714,15 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if args.act_quant:
+        built = build_variants(["act_quant"])
+        act_quant_bounds(act_quant_report(*built[("act_quant", "shipped")]))
+        for (_, name), (so, log) in built.items():
+            if name != "shipped":
+                print(f"registers act_quant variant {name}:", flush=True)
+                act_quant_report(so, log)
+        act_quant_phase(dev, built)
+        return
     if args.halo:
         built = build_variants(["halo_conv"])
         for (_, name), (so, log) in built.items():

@@ -18,7 +18,9 @@ and in the kernel), where the TPU kernel takes rsqrt: the two differ by at
 most an ulp of f32.
 
 On CUDA tensors each wrapper launches its kernel (bfloat16 input) or raises;
-it never falls back. On CPU tensors it takes the plain version.
+it never falls back. On CPU tensors it takes the plain version. The kernels
+hold a row in registers, G threads a row; `row_plan` picks G and the chunks
+a thread from the row's width, and the launcher takes no other class.
 """
 from __future__ import annotations
 
@@ -32,8 +34,12 @@ from ..quant.kernels import quantize_act_int8_per_token
 
 ACTS = (None, "gelu", "gelu_exact", "silu_mul")
 _ACT_CODE = {a: i for i, a in enumerate(ACTS)}
-# the LayerNorm kernel keeps one row in shared memory as f32 (48 KB)
-MAX_LN_WIDTH = 12288
+# The kernels' row classes (csrc/act_quant.cu `quant_class`): G threads own
+# a row and each holds at most this many 16-byte chunks (8 values) of it in
+# registers. A wider act-quant row takes the widest G reading the row twice;
+# the LayerNorm kernel holds its row or refuses it.
+ROW_CLASSES = ((16, 1), (32, 6), (128, 9), (128, 12))
+MAX_LN_WIDTH = 8 * ROW_CLASSES[-1][0] * ROW_CLASSES[-1][1]  # 12288
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _INV_SQRT2 = 0.7071067811865476
@@ -78,6 +84,23 @@ def _out_width(k: int, act: Optional[str]) -> int:
     if act == "silu_mul" and k % 2:
         raise ValueError(f"silu_mul needs an even width, got {k}")
     return k // 2 if act == "silu_mul" else k
+
+
+def row_plan(width: int) -> Tuple[int, int]:
+    """(G, chunks a thread) of the kernels for rows of `width` quantized
+    values: the first class whose G threads cover the row's width / 8
+    chunks with at most its chunks a thread, else the widest G (the
+    act-quant kernel then reads the row twice). Refuses a width that is not
+    a positive multiple of 8 (the kernels' 16-byte loads)."""
+    if width <= 0 or width % 8:
+        raise ValueError(f"the act-quant kernels need a width that is a positive "
+                         f"multiple of 8 (16-byte loads), got {width}")
+    chunks = width // 8
+    for g, most in ROW_CLASSES:
+        if -(-chunks // g) <= most:
+            return g, -(-chunks // g)
+    g = ROW_CLASSES[-1][0]
+    return g, -(-chunks // g)
 
 
 def quantize_rows_int8_reference(x: torch.Tensor, act: Optional[str] = None
@@ -128,14 +151,15 @@ def ln_quantize_rows_int8_reference(
     return quantize_act_int8_per_token(ln.to(x.dtype))
 
 
-_ARGTYPES_QUANT = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])        # x, q, s, M, K, act, stream
+_ARGTYPES_QUANT = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])        # x, q, s, M, K, act, G, chunks, stream
 _ARGTYPES_LN = (
     [ctypes.c_void_p] * 4                      # x, q, s, p0 (shift or weight)
     + [ctypes.c_void_p]                        # p1 (scale or bias)
     + [ctypes.c_longlong] * 2                  # modulation batch, frame strides
     + [ctypes.c_int] * 4                       # M, C, rows per batch, frame_seq
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # eps, mode, stream
+    + [ctypes.c_float] + [ctypes.c_int] * 3    # eps, mode, G, chunks
+    + [ctypes.c_void_p]                        # stream
 )
 _MODE = {"plain": 0, "affine": 1, "modulate": 2}
 
@@ -178,6 +202,7 @@ def quantize_rows_int8(x: torch.Tensor, act: Optional[str] = None
     if not x.is_cuda:
         return quantize_rows_int8_reference(x, act)
     _check_x(x, 2, 16 if act == "silu_mul" else 8)
+    g, nc = row_plan(k_out)
     m, k = x.shape
     q = torch.empty(m, k_out, dtype=torch.int8, device=x.device)
     s = torch.empty(m, 1, dtype=torch.float32, device=x.device)
@@ -187,7 +212,7 @@ def quantize_rows_int8(x: torch.Tensor, act: Optional[str] = None
         raise ValueError(f"M = {m} exceeds the kernel's grid limit")
     with torch.cuda.device(x.device):
         err = _lib().inferix_quantize_rows_int8(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k, _ACT_CODE[act],
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k, _ACT_CODE[act], g, nc,
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(err, "quantize_rows_int8")
     quantize_rows_int8.launches += 1
@@ -205,6 +230,7 @@ def _ln_launch(x2, p0, p1, sb, sf, rows_per_batch, frame_seq, eps, mode):
         return q, s
     if c > MAX_LN_WIDTH:
         raise ValueError(f"the LayerNorm kernel takes widths up to {MAX_LN_WIDTH}, got {c}")
+    g, nc = row_plan(c)
     if m > 2**31 - 1:
         raise ValueError(f"M = {m} exceeds the kernel's grid limit")
     with torch.cuda.device(x2.device):
@@ -212,7 +238,7 @@ def _ln_launch(x2, p0, p1, sb, sf, rows_per_batch, frame_seq, eps, mode):
             x2.data_ptr(), q.data_ptr(), s.data_ptr(),
             None if p0 is None else p0.data_ptr(),
             None if p1 is None else p1.data_ptr(),
-            sb, sf, m, c, rows_per_batch, frame_seq, float(eps), _MODE[mode],
+            sb, sf, m, c, rows_per_batch, frame_seq, float(eps), _MODE[mode], g, nc,
             torch.cuda.current_stream(x2.device).cuda_stream)
     _check_launch(err, f"ln_quantize_rows_int8 ({mode})")
     return q, s

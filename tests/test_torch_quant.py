@@ -413,3 +413,63 @@ def test_fp8_and_bad_arguments_raise():
                        torch.ones(8))
     with pytest.raises(ValueError, match="weight and bias"):
         taq.ln_quantize_rows_int8(torch.ones(2, 128), torch.ones(128))
+
+
+# The kernels' row classes at the widths the paths and the JAX package's
+# configs quantize: Wan2.1 1.3B (the K/V head 128, dim 1536, ffn 8960 and
+# silu_mul over 2 x 8960), MAGI (hidden 3072, ffn 12288 and silu_mul over
+# 2 x 12288, `inferix_tpu/models/magi/dit.py:61-62`), 6144, and each class
+# edge. A row of width w has w / 8 chunks; (G, chunks a thread).
+@pytest.mark.parametrize("width,plan", [
+    (128, (16, 1)), (1536, (32, 6)), (8960, (128, 9)), (3072, (128, 3)),
+    (6144, (128, 6)), (12288, (128, 12)),
+    (8, (16, 1)), (120, (16, 1)), (136, (32, 1)), (1544, (128, 2)),
+    (2048, (128, 2)), (9216, (128, 9)), (9224, (128, 10)),
+    (12296, (128, 13)),  # past the register classes: the row is read twice
+])
+def test_row_plan_classes(width, plan):
+    assert taq.row_plan(width) == plan
+    g, nc = plan
+    chunks = width // 8
+    assert (nc - 1) * g < chunks <= nc * g  # no idle chunk column
+    resident = nc <= max(most for gg, most in taq.ROW_CLASSES if gg == g)
+    assert resident == (width <= taq.MAX_LN_WIDTH) and taq.MAX_LN_WIDTH == 12288
+
+
+@pytest.mark.parametrize("k,act,plan", [
+    (2 * 8960, "silu_mul", (128, 9)), (2 * 12288, "silu_mul", (128, 12)),
+    (8960, "gelu", (128, 9)), (8960, "gelu_exact", (128, 9)), (128, None, (16, 1))])
+def test_row_plan_of_an_activation_takes_its_output_width(k, act, plan):
+    """silu_mul reads [gate | up] and quantizes half the input width."""
+    assert taq.row_plan(taq._out_width(k, act)) == plan
+
+
+@pytest.mark.parametrize("width,act", [(0, None), (12, None), (1540, "gelu"),
+                                      (24, "silu_mul"), (8968, "silu_mul"),
+                                      (7, "silu_mul")])
+def test_row_plan_refuses_widths_the_kernels_cannot_load(width, act):
+    """A width that is not a multiple of 8 (16 for silu_mul's [gate | up]
+    input) has no class: the 16-byte loads would straddle rows."""
+    with pytest.raises(ValueError):
+        taq.row_plan(taq._out_width(width, act))
+
+
+@pytest.mark.parametrize("width", [12, 12296])
+def test_cpu_tensors_take_the_plain_versions_at_any_width(width):
+    """Widths no kernel class takes (12) or the LayerNorm kernel refuses
+    (past 12288) still go through the plain versions on CPU tensors, with
+    no launch counted."""
+    counters = (taq.quantize_rows_int8, taq.adaln_quantize_rows_int8,
+                taq.ln_quantize_rows_int8)
+    before = [c.launches for c in counters]
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 6, width)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    mod = torch.from_numpy(rng.standard_normal((2, 3, 2, width)).astype(np.float32))
+    for got, ref in (
+            (taq.quantize_rows_int8(x[0]), taq.quantize_rows_int8_reference(x[0])),
+            (taq.ln_quantize_rows_int8(x[0]), taq.ln_quantize_rows_int8_reference(x[0])),
+            (taq.adaln_quantize_rows_int8(x, mod[:, :, 0], mod[:, :, 1]),
+             taq.adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1]))):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [c.launches for c in counters] == before
