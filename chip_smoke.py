@@ -88,13 +88,16 @@ Phases, each timed on a line of its own:
                 with the kernel against the plain GEMM; the flow against
                 bf16's, for information.
  13. quant-attention kernels - the int8-QK and int8-PV attention entry
-                points (TPU kernels 3, 4) against their plain versions code
-                by code at the full cache (B=1 and B=2 with [B] lengths,
-                kv_len 30000, 1 and 0, with and without lse, kv_block 128):
-                a code may differ by 1 only at a rounding tie, the output
-                is bounded through the differing codes; timed beside the
-                bound and SDPA over a dequantized bf16 copy. No path calls
-                them (0 launches).
+                points (TPU kernels 3, 4; the wgmma kernel of
+                `csrc/flash_attention_sm90.cu`) against their plain versions
+                code by code at the full cache (B=1 and B=2 with [B]
+                lengths, kv_len 30000, 1 and 0, with and without lse,
+                kv_block 128 and 192, kv_block 64 over 4680 keys): a code
+                may differ by 1 only at a rounding tie, the output is
+                bounded through the differing codes; each wrapper refusing
+                K/V the tensor maps cannot take; timed beside the bound and
+                SDPA over a dequantized bf16 copy, also at spans 4680, 14040
+                and 32760. No path calls them (0 launches).
 (Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -133,7 +136,7 @@ from inferix_tpu_torch.ops.flash_attention import (
     FP8, LOG2E, quant_ext_reference, flash_attention_prefix,
     flash_attention_prefix_quant, flash_attention_prefix_quant_i8,
     flash_attention_prefix_quant_reference, flash_attention_prefix_quant_v2,
-    flash_attention_prefix_reference, quant_ext_kernel)
+    flash_attention_prefix_reference, pv_operand, quant_ext_kernel, quant_operands)
 from inferix_tpu_torch.ops import halo_conv as halo_mod
 from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
@@ -151,8 +154,7 @@ from inferix_tpu_torch.utils.params import init_params, init_vae_params
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_sm90", "gemm_sm90", "act_quant", "halo_conv",
-             "flash_attention_quant_ext")
+LIBRARIES = ("flash_attention_sm90", "gemm_sm90", "act_quant", "halo_conv")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -2022,14 +2024,17 @@ def fp8w_main_phase(dev: torch.device, blocks: int) -> dict:
 # The int8-PV attention kernels against their plain versions, code by code:
 # the kernel writes every p code it forms (an output the path never asks
 # for) and each group's codes are compared with the plain version's
-# round(u). The i8 kernel repeats the plain arithmetic exactly (integer QK,
-# the same _rn products and quotients, the same exp2f); the v2 kernel sums
-# its bf16 QK products in f32 in another order than the plain version's
-# exact sum, so its logits differ in their last bits (at worst ~1e-4 of the
-# |q||k| sum over 128 products, typically ~1e-6), which moves u = p * ratio
-# by up to ~1e-2 of a code step at u ~ 127. A code may therefore differ only
-# by 1 and only where the plain u lies within CODE_TIE of a rounding tie;
-# at most CODE_FLIP_SHARE of the live codes may do so. The output is then
+# round(u). Both kernels form s - m with one rounding where the plain
+# version rounds s first (an FMA), take p from ex2.approx (exp2f's value for
+# a normal p), and the i8 kernel takes the codes' scale from an estimate of
+# the group's max(p * v_scale), exp2(max(s + lg2 v_scale) - m), within ~1e-6
+# of the exact max (its dequantization step stays the exact one); the v2
+# kernel also sums its bf16 QK products in f32 in another order than the
+# plain version's exact sum, so its logits differ in their last bits (at
+# worst ~1e-4 of the |q||k| sum over 128 products, typically ~1e-6). Each
+# moves u by at most ~1e-2 of a code step at u ~ 127. A code may therefore
+# differ only by 1 and only where the plain u lies within CODE_TIE of a
+# rounding tie; at most CODE_FLIP_SHARE of the live codes may do so. The output is then
 # bounded through the flips: per element
 #     |out_kernel - out_plain| <= sum over flips of |v_q| deq 2^(m_g - m) / l
 #                                 + 2^-7 max(|out_kernel|, |out_plain|)
@@ -2054,6 +2059,21 @@ def quant_attention_bound(mode: str, b: int, span: int):
     q_bytes = b * SQ * H * (D + 4 if mode == "i8" else 2 * D)
     nbytes = q_bytes + b * span * H * (2 * D + 8) + 2.0 * b * SQ * H * D
     return bound_of(ops_s * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def quant_span_times(mode, kern, q, kq, vq, ks, vs):
+    """An int8-PV kernel at the spans of a clip's blocks 0, 2 and 6 (the
+    full cache's tensors, kv_len = span) beside its bound and SDPA over a
+    dequantized bf16 copy of the same span."""
+    for span in SPANS:
+        t = time_ms(lambda: kern(q, kq, vq, ks, vs, span))
+        kd, vd = dequantize(kq[:, :span], ks[:, :span]), dequantize(vq[:, :span], vs[:, :span])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kd, vd))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        del kd, vd, qt, kt, vt
+        bnd, by = quant_attention_bound(mode, q.shape[0], span)
+        print(f"qattn time {kern.__name__} span {span}: {t:.4f} ms, sdpa {lib:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by})", flush=True)
 
 
 def check_quant_ext_case(mode, label, q, kq, vq, ks, vs, kv_len, kv_block, lse_on):
@@ -2135,7 +2155,9 @@ def quant_attention_kernel_phase(dev: torch.device) -> list:
         ("full_b1", 1, SKV, None, True), ("full_b1_no_lse", 1, SKV, None, False),
         ("b2_rows", 2, rows, None, True), ("len30000", 1, 30000, None, True),
         ("len1", 1, 1, None, True), ("len0", 1, 0, None, True),
-        ("kv_block128", 1, SKV, 128, True)]
+        ("kv_block128", 1, SKV, 128, True),
+        # groups that end inside a 128-key tile: 192 = 1.5 tiles, 64 = half of one
+        ("kv_block192", 1, SKV, 192, True), ("len4680_kv_block64", 1, SQ, 64, True)]
     entries, failed = [], []
     for mode, kern, body in (("i8", flash_attention_prefix_quant_i8, 660),
                              ("v2", flash_attention_prefix_quant_v2, 962)):
@@ -2159,18 +2181,29 @@ def quant_attention_kernel_phase(dev: torch.device) -> list:
         print(f"qattn {kern.__name__} full cache vs SDPA over the dequantized bf16 cache "
               f"(information): rel err {rel_err(kern(*args), sdpa):.3e}", flush=True)
         del kd, vd, qt, kt, vt, sdpa
+        quant_span_times(mode, kern, *args[:5])
         bound_ms, bound_by = quant_attention_bound(mode, 1, SKV)
         print(f"qattn time {kern.__name__} full cache: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa over a dequantized bf16 copy {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         entries.append({
             "name": kern.__name__, "route": "cuda",
-            "source": "inferix_tpu_torch/csrc/flash_attention_quant_ext.cu",
+            "source": "inferix_tpu_torch/csrc/flash_attention_sm90.cu",
             "replaces": f"inferix_tpu/ops/flash_attention.py:{body}", "launches": 0,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "work": "B=1, 4680 q over 32760 int8 keys, kv group 2048; entry point only "
                     "(no engine path calls it)"})
+    # the operand pre-pass against its plain versions, exact (a ragged cache
+    # view too: 100 of the cache's tokens, n32 = 128)
+    for label, kk, vv in (("[2, 32760]", kq, vq), ("[2, 100] view", kq[:, :100], vq[:, :100])):
+        vt, kb = quant_operands(kk, vv, True)
+        ok = torch.equal(vt, pv_operand(vv)) and torch.equal(kb, kk.to(torch.bfloat16))
+        print(f"qattn operand pre-pass {label}: V^T and bf16 K equal to the plain versions "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"operand pre-pass {label}")
+        del vt, kb
     # the wrappers refuse what their kernels cannot take
     kb16 = kq[:1].to(torch.bfloat16)
     expect_raise("flash_attention_prefix_quant_i8 bf16 K/V", TypeError,
@@ -2184,6 +2217,22 @@ def quant_attention_kernel_phase(dev: torch.device) -> list:
     expect_raise("flash_attention_prefix_quant_i8 bf16 scales", ValueError,
                  lambda: flash_attention_prefix_quant_i8(q2[:1], kq[:1], vq[:1],
                                                          ks[:1].bfloat16(), vs[:1], SKV))
+    # the tensor maps' rule (`check_tma_kv`): K/V strides that are positive
+    # multiples of 16 bytes, at least one token
+    for kern in (flash_attention_prefix_quant_i8, flash_attention_prefix_quant_v2):
+        name = kern.__name__
+        kpad = torch.zeros(1, 64, H * D + 8, dtype=torch.int8, device=dev)
+        k_odd = kpad[..., :H * D].view(1, 64, H, D)       # token stride 1544 bytes
+        expect_raise(f"{name} token stride 1544 bytes", ValueError,
+                     lambda: kern(q2[:1], k_odd, k_odd, ks[:1, :64], vs[:1, :64], 64))
+        k_bcast = kq[:1, :1].expand(1, 64, H, D)          # token stride 0
+        expect_raise(f"{name} token stride 0", ValueError,
+                     lambda: kern(q2[:1], k_bcast, vq[:1, :64], ks[:1, :64], vs[:1, :64], 64))
+        expect_raise(f"{name} V token stride 0", ValueError,
+                     lambda: kern(q2[:1], kq[:1, :64], k_bcast, ks[:1, :64], vs[:1, :64], 64))
+        expect_raise(f"{name} empty cache", ValueError,
+                     lambda: kern(q2[:1], kq[:1, :0], vq[:1, :0], ks[:1, :0], vs[:1, :0], 0))
+        del kpad, k_odd, k_bcast
     for key, (f, a) in KERNEL_COUNTERS.items():  # these launches are not a path's
         setattr(f, a, before[key])
     if failed:

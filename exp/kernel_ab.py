@@ -8,6 +8,7 @@ parent checkout's, on one card.
     python3 exp/kernel_ab.py --kernel halo --parent DIR [--turns N]   # halo conv
     python3 exp/kernel_ab.py --kernel gemm --parent DIR [--turns N]   # GEMMs
     python3 exp/kernel_ab.py --kernel act_quant --parent DIR [--turns N]
+    python3 exp/kernel_ab.py --kernel qattn --parent DIR [--turns N]
 
 DIR holds a parent commit's files (`git archive <commit> | tar -x -C DIR`,
 into a directory that .gitignore lists). The parent's
@@ -63,6 +64,15 @@ bit-equal to the parent's; for B5 the share of codes that differ is
 printed. Per shape: both sides' times, the bound (bytes) and the share of
 its rate; then each side's per-layer sums at M 4680 (B4: o, cross-o, fc2;
 B5: two LN + modulate, one LN + affine).
+
+--kernel qattn: the parent's `csrc/flash_attention_quant_ext.cu` (entry
+`inferix_flash_attention_quant_ext`: the `mma.sync` int8-PV kernels, up to
+commit 109923c) is built the same way and called as its wrapper called it
+(i8: q quantized per (token, head) by `quantize_q_int8` first, timed with
+it); this checkout's side is `flash_attention_prefix_quant_i8` /
+`_v2`, its operand pre-pass included. Shapes: B=1 at spans 4680, 14040 and
+32760 and B=2 at 32760 (kv group 2048), both modes. The outputs differ
+where a code sits at a rounding tie; the max |difference| is printed.
 """
 from __future__ import annotations
 
@@ -100,6 +110,9 @@ PARENT = {
     "fp8": ("fp8_matmul", "inferix_fp8_matmul", tk._FP8_ARGTYPES),
     "act_quant": ("act_quant", "inferix_quantize_rows_int8",
                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "qattn": ("flash_attention_quant_ext", "inferix_flash_attention_quant_ext",
+              [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + _STRIDES * 5
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 PARENT_LN = ("inferix_ln_quantize_rows_int8",
              [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
@@ -395,13 +408,59 @@ def act_quant_ab(dev, parent: pathlib.Path, quant_fn, turns: int) -> None:
               f"this {layer[(kind, 'this')]:.4f} ms", flush=True)
 
 
+def qattn_ab(dev, parent_fn, turns: int) -> None:
+    """B9 and B10 against the parent's mma.sync kernel: both whole wrapper
+    calls (the parent's quantizes q for i8 in torch; this one runs its
+    operand pre-pass), B=1 at the three spans and B=2 at the full cache."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(2, cs.SQ, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv_block(torch.randn(2, cs.SKV, cs.H, cs.D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    vq, vs = quantize_kv_block(torch.randn(2, cs.SKV, cs.H, cs.D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = cs.D ** -0.5
+    for mode, kern in (("i8", tfa.flash_attention_prefix_quant_i8),
+                       ("v2", tfa.flash_attention_prefix_quant_v2)):
+        for b, span in [(1, s) for s in cs.SPANS] + [(2, cs.SKV)]:
+            lens = torch.full((b,), span, dtype=torch.int32, device=dev)
+            out_old = torch.empty_like(q[:b])
+            args = (q[:b], kq[:b], vq[:b], ks[:b], vs[:b])
+
+            def old():
+                if mode == "i8":
+                    qk, qs = tfa.quantize_q_int8(q[:b], scale)
+                else:
+                    qk, qs = q[:b], None
+                err = parent_fn(qk.data_ptr(), qs.data_ptr() if qs is not None else None,
+                                kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                                out_old.data_ptr(), None, lens.data_ptr(), None, b, cs.H,
+                                cs.SQ, cs.SKV, 2048, *qk.stride()[:3], *kq.stride()[:3],
+                                *vq.stride()[:3], *ks.stride(), *vs.stride(),
+                                scale * tfa.LOG2E, int(mode == "v2"), stream)
+                if err:
+                    raise RuntimeError(f"parent {mode} launch failed: CUDA error {err}")
+
+            def new():
+                return kern(*args, span)
+
+            old()
+            diff = (new().float() - out_old.float()).abs().max().item()
+            t_old, t_new = in_turns(old, new, turns)
+            bnd, by = cs.quant_attention_bound(mode, b, span)
+            print(f"qattn {mode} B={b} span={span}: parent {fmt(t_old)} ms, this "
+                  f"{fmt(t_new)} ms, bound {bnd:.4f} ({by}), max |out diff| {diff:.3e}",
+                  flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="directory holding the parent commit's files")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent per shape (default 1)")
-    ap.add_argument("--kernel", choices=("flash", "halo", "gemm", "act_quant"), default="flash",
+    ap.add_argument("--kernel", choices=("flash", "halo", "gemm", "act_quant", "qattn"),
+                    default="flash",
                     help="which kernels to compare (default flash)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -419,6 +478,10 @@ def main() -> None:
         _build.build(["act_quant"])
         act_quant_ab(dev, args.parent, build_parent(args.parent, ("act_quant",))["act_quant"],
                      args.turns)
+        return
+    if args.kernel == "qattn":
+        _build.build(["flash_attention_sm90"])
+        qattn_ab(dev, build_parent(args.parent, ("qattn",))["qattn"], args.turns)
         return
     if args.kernel == "halo":
         _build.build(["halo_conv"])

@@ -11,6 +11,7 @@ one card.
     python3 exp/kernel_variants.py --gemm
     python3 exp/kernel_variants.py --halo
     python3 exp/kernel_variants.py --act-quant
+    python3 exp/kernel_variants.py --qattn
 
 Each variant is the checked-in source with one piece changed (most give
 wrong outputs; they are compared with the real kernel only to show how much
@@ -106,6 +107,30 @@ the output is bit-equal to the shipped kernel's):
      cta256: 256-thread CTAs for the G 32 class (128 shipped);
      regs64: both kernels held to 64 registers a thread (8 CTAs of 128
        threads an SM).
+--qattn instead: the int8-PV attention kernels (B9 i8, B10 v2: the
+`flash_quant_sm90_kernel` instantiations of `csrc/flash_attention_sm90.cu`)
+and the operand pre-pass: per instantiation ptxas's performance warnings
+(C75xx), spill stores, the highest register, the SASS's IGMMA / HGMMA
+instructions, wgmma waits and arrives, and the setmaxnreg pair; the
+wrapper's pre-pass pieces timed (`quant_operands`, `quant_ext_rows`); then
+each variant against the shipped kernel at the full cache (B=1, 4680 q rows
+over 32760 keys, kv group 2048), both modes (`=` where the output is
+bit-equal to the shipped kernel's, else the max |difference| from the plain
+version):
+     exp2f: p = exp2f (the plain version's; a p below 2^-126 as a subnormal)
+       instead of ex2.approx.ftz;
+     no_exp: p = s * 2^-10 (wrong outputs): what the exp2 costs;
+     no_pass1_math: pass 1's halves untouched (wrong outputs): what its
+       logits and maxima cost;
+     no_codes_math: pass 2 without p, l and the codes (wrong outputs);
+     gemm_only: both passes' products alone, without logits, maxima, p or
+       codes (wrong outputs): the frame's own time;
+     no_pv: pass 2 without its PV product (wrong outputs);
+     no_pingpong: the consumer warpgroups issue their products whenever
+       their stages have landed, not in turns;
+     serial: a warpgroup's QK waits for its PV (wait_group 0 where the kernel
+       waits for S alone): no intra-warpgroup overlap;
+     ks2: 2 K stages (4 for i8, 3 for v2 shipped); vs3: 3 V stages (2).
 Prints the card's name and power limit first; times are as real, variant,
 variant, real.
 """
@@ -227,22 +252,56 @@ VARIANTS = {
                     "                  8192 / RowClass<G, kChunks>::kThreads / 8) ln_quant_kernel(")],
     },
 }
+PASS1_LOOP = """        take(ha, j, 0);
+        wgmma_wait<0>();
+        take(hb, j, 1);
+"""
+CODES_LOOP = """        logits(sa, kc + j, 0, g1 - (g0 + j * kBlockN), Flag<true>{},
+               __int_as_float(0xff800000));
+        const float* vrow = rows + ((kc + j) % KS) * R * kBlockN + kBlockN;
+#pragma unroll
+        for (int n8 = 0; n8 < 16; ++n8) {
+"""
+EXP2 = "const float pe = ex2(as_f(sa[4 * n8 + e]));"
+NO_TAKE = [(PASS1_LOOP, "        wgmma_wait<0>();\n")]
+QATTN = {
+    "exp2f": [(EXP2, EXP2.replace("ex2(", "exp2f("))],
+    "no_exp": [(EXP2, "const float pe = __fmul_rn(as_f(sa[4 * n8 + e]), 0.0009765625f);")],
+    "no_pass1_math": NO_TAKE,
+    "no_codes_math": [(CODES_LOOP, CODES_LOOP.replace("n8 < 16", "n8 < 0"))],
+    "gemm_only": NO_TAKE + [(CODES_LOOP, CODES_LOOP.replace(
+        "        logits(sa, kc + j, 0, g1 - (g0 + j * kBlockN), Flag<true>{},\n"
+        "               __int_as_float(0xff800000));\n", "").replace(
+        "n8 < 16", "n8 < 0"))],
+    "no_pv": [("      for (int kk = 0; kk < 4; ++kk) wgmma_s8_rs(oi, pa[kk], sw128_desc(va + kk * 32), 1);",
+               "")],
+    "no_pingpong": [("    auto turn = [&] { bar_sync(4 + wg, 256); };\n"
+                     "    auto pass_turn = [&] { bar_arrive(5 - wg, 256); };\n"
+                     "    if (wg == 1) bar_arrive(4, 256);",
+                     "    auto turn = [&] {};\n    auto pass_turn = [&] {};")],
+    "serial": [("        wgmma_wait<1>();  // this tile's S has landed; the PV of the tile before runs on",
+                "        wgmma_wait<0>();")],
+    "ks2": [("  static constexpr int kKStages = kI8 ? 4 : 3;", "  static constexpr int kKStages = 2;")],
+    "vs3": [("  static constexpr int kVStages = 2;\n  static constexpr int kOBytes",
+             "  static constexpr int kVStages = 3;\n  static constexpr int kOBytes")],
+}
 ENTRY = {"flash_attention_sm90": ("inferix_flash_attention_sm90", tfa._ARGTYPES_SM90)}
 KINDS = {0: "bf16", 1: "e4m3", 2: "int8"}
 BYTE_ONLY = ("no_widening", "no_key_widening", "no_value_widening", "widen_copy",
              "regs_56_224")  # the widening's variants
 
 
-def build_variants(libs) -> dict:
+def build_variants(libs, table=None) -> dict:
     """{(library, variant): (.so path, nvcc output)}, the flash source as it
-    is among them ("shipped"), one nvcc per variant, all started together."""
+    is among them ("shipped"), one nvcc per variant, all started together;
+    table: the variants of the one library in libs, in place of VARIANTS'."""
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     jobs = {}
     for lib in libs:
         src = (_build.CSRC / f"{lib}.cu").read_text()
-        variants = dict(VARIANTS[lib])
+        variants = dict(VARIANTS[lib] if table is None else table)
         if lib in ("flash_attention_sm90", "halo_conv", "gemm_sm90", "act_quant"):
             variants = {"shipped": [], **variants}
         for name, subs in variants.items():
@@ -698,6 +757,102 @@ def act_quant_bounds(per_elem: dict) -> None:
               flush=True)
 
 
+def qattn_register_report(name: str, so: pathlib.Path, log: str) -> None:
+    """One line per int8-PV kernel instantiation and the pre-pass kernel."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    so.with_suffix(".sass").write_text(sass)
+
+    def key_of(text):
+        m = re.search(r"flash_quant_sm90_kernelILi(\d)E", text)
+        if m:
+            return ("i8", "v2")[int(m.group(1))]
+        return "pre-pass" if "quant_operands_kernel" in text else None
+    props, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = key_of(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            props.setdefault(fn, {})["spill"] = int(m.group(1))
+    warned = {}
+    for m in re.finditer(r"\((C75\d\d)\)[^']*'(\S+)'", log):
+        k = key_of(m.group(2))
+        if k:
+            warned.setdefault(k, set()).add(m.group(1))
+    stats, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = key_of(line)
+            if fn:
+                stats[fn] = {"reg": 0, "IGMMA": 0, "HGMMA": 0, "waits": 0, "arrives": 0,
+                             "local": 0, "setmaxnreg": []}
+            continue
+        if fn is None:
+            continue
+        st = stats[fn]
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        if regs:
+            st["reg"] = max(st["reg"], max(regs))
+        st["IGMMA"] += "IGMMA" in line
+        st["HGMMA"] += "HGMMA" in line
+        st["waits"] += "WARPGROUP.DEPBAR" in line
+        st["arrives"] += "WARPGROUP.ARRIVE" in line
+        st["local"] += bool(re.search(r"\b(STL|LDL)\b", line))
+        if "USETMAXREG" in line:
+            st["setmaxnreg"].append(re.search(r"USETMAXREG[^;]*", line).group(0).strip())
+    for fn in sorted(stats):
+        st = stats[fn]
+        print(f"registers qattn {name} {fn}: warnings {sorted(warned.get(fn, ())) or 'none'}, "
+              f"spill stores {props.get(fn, {}).get('spill')} bytes, highest R{st['reg']}, "
+              f"local ld/st {st['local']}, IGMMA {st['IGMMA']}, HGMMA {st['HGMMA']}, wgmma "
+              f"waits {st['waits']}, arrives {st['arrives']}, {st['setmaxnreg']}", flush=True)
+
+
+def qattn_phase(dev, built) -> None:
+    """The pre-pass pieces timed, then each int8-PV variant against the
+    shipped kernel at the full cache, in turns."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(1, cs.SQ, cs.H, cs.D, generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv_block(torch.randn(1, cs.SKV, cs.H, cs.D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    vq, vs = quantize_kv_block(torch.randn(1, cs.SKV, cs.H, cs.D, generator=g, device=dev)
+                               .to(torch.bfloat16))
+    for label, fn in (("quant_operands (V^T)", lambda: tfa.quant_operands(kq, vq, False)),
+                      ("quant_operands (V^T, bf16 K)", lambda: tfa.quant_operands(kq, vq, True)),
+                      ("quant_ext_rows i8", lambda: tfa.quant_ext_rows("i8", ks, vs, 2048)),
+                      ("quant_ext_rows v2", lambda: tfa.quant_ext_rows("v2", ks, vs, 2048))):
+        print(f"qattn pre-pass {label}: {cs.time_ms(fn):.4f} ms", flush=True)
+
+    def install(fn):
+        tfa._lib_quant_sm90 = lambda: fn
+    real = ctypes.CDLL(str(built[("flash_attention_sm90", "shipped")][0]))
+    real_fn = real.inferix_flash_attention_quant_sm90
+    real_fn.argtypes, real_fn.restype = tfa._ARGTYPES_QUANT_SM90, ctypes.c_int
+    for mode, kern in (("i8", tfa.flash_attention_prefix_quant_i8),
+                       ("v2", tfa.flash_attention_prefix_quant_v2)):
+        run = lambda: kern(q, kq, vq, ks, vs, cs.SKV)  # noqa: E731
+        install(real_fn)
+        ref = run()
+        plain = tfa.quant_ext_reference(mode, q, kq, vq, ks, vs, cs.SKV, None, None,
+                                        False).float()
+        bound, _ = cs.quant_attention_bound(mode, 1, cs.SKV)
+        for name in QATTN:
+            var = ctypes.CDLL(str(built[("flash_attention_sm90", name)][0]))
+            var_fn = var.inferix_flash_attention_quant_sm90
+            var_fn.argtypes, var_fn.restype = tfa._ARGTYPES_QUANT_SM90, ctypes.c_int
+            install(var_fn)
+            out = run()
+            same = "=" if torch.equal(out, ref) else \
+                f"max |out - plain| {(out.float() - plain).abs().max().item():.3e}"
+            t_real, t_var = in_turns(run, install, real_fn, var_fn)
+            print(f"qattn {mode} full cache (bound {bound:.4f} ms): kernel {fmt(t_real)} ms, "
+                  f"{name} {fmt(t_var)} ms {same}", flush=True)
+    install(real_fn)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gemm", action="store_true",
@@ -706,6 +861,8 @@ def main() -> None:
                     help="the halo conv's variants instead of the flash ones")
     ap.add_argument("--act-quant", action="store_true",
                     help="the row quantizers' registers and instruction counts instead")
+    ap.add_argument("--qattn", action="store_true",
+                    help="the int8-PV attention kernels' registers and variants instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
@@ -714,6 +871,12 @@ def main() -> None:
                          check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if args.qattn:
+        built = build_variants(["flash_attention_sm90"], QATTN)
+        for (_, name), (so, log) in built.items():
+            qattn_register_report(name, so, log)
+        qattn_phase(dev, built)
+        return
     if args.act_quant:
         built = build_variants(["act_quant"])
         act_quant_bounds(act_quant_report(*built[("act_quant", "shipped")]))

@@ -1,6 +1,7 @@
 """Prefix-span flash attention: the wrappers of the hand-written CUDA
-kernel (`csrc/flash_attention_sm90.cu`: wgmma and TMA, one instantiation
-each for bf16, e4m3 and int8 K/V) and their plain PyTorch versions.
+kernels (`csrc/flash_attention_sm90.cu`: wgmma and TMA, one instantiation
+each for bf16, e4m3 and int8 K/V, and the int8-PV kernels over int8 K/V)
+and their plain PyTorch versions.
 
 Port of `inferix_tpu/ops/flash_attention.py`:
 - `flash_attention_prefix` (`:204`, TPU kernel `_flash_kernel` `:53`) and its
@@ -11,6 +12,10 @@ Port of `inferix_tpu/ops/flash_attention.py`:
   `:390`) over an int8 K/V cache with one float32 scale per (token, head),
   dequantized inside the kernel by scaling the logits' columns by k_scale
   and the probabilities' columns by v_scale.
+- `flash_attention_prefix_quant_i8` (`:740`, TPU kernel
+  `_flash_kernel_quant_i8` `:660`) and `flash_attention_prefix_quant_v2`
+  (`:1039`, `_flash_kernel_quant_v2` `:962`): int8 PV on codes of p per kv
+  group (below).
 q [B, Sq, H, D] attends over the span [kv_start, kv_len) of k/v
 [B, Skv, H, D]; the bounds may be ints, 0-d tensors or [B] tensors (one span
 per batch row).
@@ -25,6 +30,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
@@ -518,33 +524,110 @@ def flash_attention_prefix_quant_v2_reference(
                                 scale, kv_block, return_lse)
 
 
-_ARGTYPES_QUANT_EXT = (
-    [ctypes.c_void_p] * 10                 # q, q_scale, k, v, k_scale, v_scale,
-                                           # out, lse, kv_len, codes
-    + [ctypes.c_int] * 5                   # B, H, Sq, Skv, kv group
-    + _STRIDES * 5                         # q, k, v, k_scale, v_scale
+_ARGTYPES_QUANT_SM90 = (
+    [ctypes.c_void_p] * 9                  # q, k, vt, rows, deq, out, lse, kv_len,
+                                           # codes
+    + [ctypes.c_int] * 6                   # B, H, Sq, Skv, kv group, deq groups
+    + _STRIDES * 3                         # q, k, out
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # q_scale, mode, stream
+)
+_ARGTYPES_OPERANDS = (
+    [ctypes.c_void_p] * 4                  # k, v, vt, kb
+    + [ctypes.c_int] * 3                   # B, H, Skv
+    + _STRIDES * 2 + [ctypes.c_void_p]     # k, v strides; stream
 )
 
 
-def _lib_quant_ext():
-    lib = _build.load_library("flash_attention_quant_ext")
-    fn = lib.inferix_flash_attention_quant_ext
+def _lib_quant_sm90():
+    fn = _build.load_library("flash_attention_sm90").inferix_flash_attention_quant_sm90
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES_QUANT_EXT
+        fn.argtypes = _ARGTYPES_QUANT_SM90
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_quant_operands():
+    fn = _build.load_library("flash_attention_sm90").inferix_quant_operands
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_OPERANDS
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pv_operand(v_q: torch.Tensor) -> torch.Tensor:
+    """The int8 PV product's B operand (s8 wgmma reads it K-major): V
+    [B, Skv, H, D] transposed to [B, H, D, n32] (n32 = Skv rounded up to 32,
+    zero keys past Skv), with its keys permuted within each 32-key chunk into
+    the order in which a thread's codes sit in the QK accumulator, so that
+    the codes go from the accumulator straight into the PV A fragments:
+    key' = 16 h + 4 t + c holds key 16 h + 8 (c >> 1) + 2 t + (c & 1)
+    (h < 2, t < 4, c < 4). One strided copy, once a call."""
+    b, skv, h, d = v_q.shape
+    n32 = -(-skv // 32) * 32
+    if n32 != skv:
+        v_q = F.pad(v_q, (0, 0, 0, 0, 0, n32 - skv))
+    x = v_q.reshape(b, n32 // 32, 2, 2, 4, 2, h, d)  # key = 16 h + 8 c1 + 2 t + c0
+    return x.permute(0, 6, 7, 1, 2, 4, 3, 5).reshape(b, h, d, n32)
+
+
+def quant_ext_rows(mode: str, k_scale: torch.Tensor, v_scale: torch.Tensor, grp: int):
+    """The kernel's per-key rows [B, H, R, n32] float32 (zero past Skv) and,
+    for "v2", deq [B, H, ceil(Skv / grp)]: "i8" rows k_scale, v_scale and
+    log2(v_scale) (the last only picks each row's candidate key for the
+    group's max of p * v_scale); "v2" rows k_scale and v_scale * (127 / vsb),
+    with vsb = max(the group's largest v_scale in the cache, 1e-20) and deq =
+    vsb / 127, each the plain version's own float32 operation."""
+    b, skv, h = k_scale.shape
+    n32 = -(-skv // 32) * 32
+    ks, vs = k_scale.float(), v_scale.float()
+    deq = None
+    if mode == "i8":
+        per_key = (ks, vs, torch.log2(vs))
+    else:
+        ng = -(-skv // grp)
+        vsb = torch.clamp_min(
+            F.pad(vs, (0, 0, 0, ng * grp - skv)).view(b, ng, grp, h).amax(2), 1e-20)
+        ratio = _true_div(127.0, vsb).repeat_interleave(grp, dim=1)[:, :skv]
+        per_key = (ks, vs * ratio)
+        deq = _true_div(vsb, 127.0).permute(0, 2, 1).contiguous()
+    rows = torch.zeros(b, h, len(per_key), n32, dtype=torch.float32, device=k_scale.device)
+    rows[..., :skv] = torch.stack(per_key, dim=2).permute(0, 3, 2, 1)
+    return rows, deq
+
+
+def quant_operands(k_q: torch.Tensor, v_q: torch.Tensor, widen_k: bool):
+    """The int8-PV kernels' operand layouts, once a call: (vt, kb) with vt =
+    `pv_operand(v_q)` and kb = k_q widened to bf16 [B, Skv, H, D] contiguous
+    (widen_k, for "v2"; else None). On CUDA tensors one launch of the
+    pre-pass kernel of `csrc/flash_attention_sm90.cu` (k_q/v_q as
+    `check_tma_kv` states); on CPU tensors the plain versions."""
+    b, skv, h, d = v_q.shape
+    if not v_q.is_cuda:
+        return pv_operand(v_q), (k_q.to(torch.bfloat16).contiguous() if widen_k else None)
+    vt = torch.empty(b, h, d, -(-skv // 32) * 32, dtype=torch.int8, device=v_q.device)
+    kb = torch.empty(b, skv, h, d, dtype=torch.bfloat16, device=v_q.device) if widen_k else None
+    with torch.cuda.device(v_q.device):
+        err = _lib_quant_operands()(
+            k_q.data_ptr(), v_q.data_ptr(), vt.data_ptr(),
+            kb.data_ptr() if kb is not None else None, b, h, skv,
+            *k_q.stride()[:3], *v_q.stride()[:3],
+            torch.cuda.current_stream(v_q.device).cuda_stream)
+    _check_launch(err, "quant_operands")
+    return vt, kb
 
 
 def quant_ext_kernel(mode: str, q, k_q, v_q, k_scale, v_scale, kv_len,
                      scale=None, kv_block=None, return_lse=False,
                      codes: Optional[torch.Tensor] = None):
     """Launch the int8-PV kernel of `mode` ("i8": TPU kernel 3, "v2": TPU
-    kernel 4) on CUDA tensors; raises on an operand it cannot take. codes,
-    when given ([B, H, Sq, Skv] uint8, zeroed), receives every p code the
-    kernel forms (keys past kv_len stay 0): the check of the kernel's
-    rounding events on the card; the path never passes it. Counts the launch
-    in the mode's wrapper's `launches`."""
+    kernel 4; `csrc/flash_attention_sm90.cu`, wgmma and TMA) on CUDA tensors;
+    raises on an operand it cannot take (k_q and v_q as `check_tma_kv`
+    states). Before it, once a call: the operand pre-pass (`quant_operands`)
+    and the per-key rows and deq (`quant_ext_rows`); "i8" quantizes q in the
+    kernel, as `quantize_q_int8` does. codes, when given ([B, H, Sq, Skv]
+    uint8, zeroed), receives every p code the kernel forms (keys past kv_len
+    stay 0): the check of the kernel's rounding events on the card; the path
+    never passes it. Counts the launch in the mode's wrapper's `launches`."""
     if mode not in _QUANT_EXT_MODES:
         raise ValueError(f"mode must be one of {_QUANT_EXT_MODES}, got {mode}")
     _check_cuda_operands(q, k_q, v_q, (torch.int8,))
@@ -553,12 +636,14 @@ def quant_ext_kernel(mode: str, q, k_q, v_q, k_scale, v_scale, kv_len,
                 or tuple(t.shape) != tuple(k_q.shape[:3]):
             raise ValueError(f"{name} must be float32 {tuple(k_q.shape[:3])} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_tma_kv("k", k_q)
+    check_tma_kv("v", v_q)
     b, sq, h, d = q.shape
     skv = k_q.shape[1]
     grp = _kv_group(kv_block, skv)
     if grp % 64:
-        raise ValueError(f"the kernel takes a kv group that is a multiple of its "
-                         f"64-key tile, got {grp}")
+        raise ValueError(f"the kernel takes a kv group that is a multiple of 64 keys, "
+                         f"got {grp}")
     if scale is None:
         scale = d ** -0.5
     if codes is not None and (codes.dtype != torch.uint8 or not codes.is_contiguous()
@@ -566,29 +651,24 @@ def quant_ext_kernel(mode: str, q, k_q, v_q, k_scale, v_scale, kv_len,
                               or codes.device != q.device):
         raise ValueError(f"codes must be a contiguous uint8 [{b}, {h}, {sq}, {skv}] "
                          "tensor on q's device")
-    lens = _bounds_tensor(0, kv_len, b, q.device)[:, 1].contiguous()  # no host sync
-    if mode == "i8":
-        qk, qs = quantize_q_int8(q, scale)
-        q_strides = qk.stride()[:3]
-    else:
-        qk, qs = q, None
-        q_strides = q.stride()[:3]
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
         if return_lse else None
     wrapper = (flash_attention_prefix_quant_i8 if mode == "i8"
                else flash_attention_prefix_quant_v2)
     if sq > 0:
+        lens = _bounds_tensor(0, kv_len, b, q.device)[:, 1].contiguous()  # no host sync
+        vt, kb = quant_operands(k_q, v_q, mode == "v2")
+        kk = k_q if kb is None else kb
+        rows, deq = quant_ext_rows(mode, k_scale, v_scale, grp)
         with torch.cuda.device(q.device):
-            err = _lib_quant_ext()(
-                qk.data_ptr(), qs.data_ptr() if qs is not None else None,
-                k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), out.data_ptr(),
+            err = _lib_quant_sm90()(
+                q.data_ptr(), kk.data_ptr(), vt.data_ptr(), rows.data_ptr(),
+                deq.data_ptr() if deq is not None else None, out.data_ptr(),
                 lse.data_ptr() if lse is not None else None, lens.data_ptr(),
                 codes.data_ptr() if codes is not None else None,
-                b, h, sq, skv, grp,
-                *q_strides, *k_q.stride()[:3], *v_q.stride()[:3],
-                *k_scale.stride(), *v_scale.stride(),
+                b, h, sq, skv, grp, deq.shape[-1] if deq is not None else 0,
+                *q.stride()[:3], *kk.stride()[:3], *out.stride()[:3],
                 scale * LOG2E, int(mode == "v2"),
                 torch.cuda.current_stream(q.device).cuda_stream)
         _check_launch(err, f"flash_attention_prefix_quant_{mode}")

@@ -212,7 +212,7 @@ _LOADERS = {
     "act_quant": ("act_quant", lambda: taq._lib()),
     "halo_conv": ("halo_conv", lambda: thc._library()),
     "gemm_sm90-fp8": ("gemm_sm90", lambda: tk._fp8_kernel()),
-    "flash_attention_quant_ext": ("flash_attention_quant_ext", lambda: tfa._lib_quant_ext()),
+    "flash_attention_sm90-quant": ("flash_attention_sm90", lambda: tfa._lib_quant_sm90()),
 }
 
 

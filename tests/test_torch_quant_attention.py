@@ -172,3 +172,131 @@ def test_quantize_q_int8_matches_jax_wrapper():
     got_q, got_s = tfa.quantize_q_int8(torch.from_numpy(q), scale)
     np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' operand layouts (`csrc/flash_attention_sm90.cu`): what the
+# wrapper lays out before the launch, and the numeric claim of the i8 fold
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("skv", [32, 100, 128, 384])
+def test_pv_operand_is_v_transposed_in_code_order(skv):
+    """V^T [B, H, D, n32] with each 32-key chunk in the order of a thread's
+    codes in the QK accumulator, against a direct index computation: key'
+    = 16 h + 4 t + c holds key 16 h + 8 (c >> 1) + 2 t + (c & 1); zero past
+    Skv (n32 = Skv rounded up to 32)."""
+    rng = np.random.default_rng(skv)
+    v = torch.from_numpy(rng.integers(-127, 128, (2, skv, 3, 128)).astype(np.int8))
+    vt = tfa.pv_operand(v)
+    n32 = -(-skv // 32) * 32
+    assert vt.shape == (2, 3, 128, n32) and vt.is_contiguous()
+    want = torch.zeros(2, 3, 128, n32, dtype=torch.int8)
+    for kp in range(n32):
+        chunk, r = divmod(kp, 32)
+        half, r = divmod(r, 16)
+        t, c = divmod(r, 4)
+        key = 32 * chunk + 16 * half + 8 * (c >> 1) + 2 * t + (c & 1)
+        if key < skv:
+            want[:, :, :, kp] = v[:, key]
+    assert torch.equal(vt, want)
+
+
+@pytest.mark.parametrize("widen_k", [False, True])
+def test_quant_operands_on_cpu_are_the_plain_layouts(widen_k):
+    """On CPU tensors the pre-pass is its plain versions: V^T as
+    `pv_operand` lays it out, and ("v2") the int8 keys widened to bf16,
+    exactly; a strided cache view goes in as it is."""
+    rng = np.random.default_rng(3)
+    cache = torch.from_numpy(rng.integers(-127, 128, (2, 2, 200, 3, 128)).astype(np.int8))
+    k, v = cache[0, :, :150], cache[1, :, :150]  # token stride H*D, batch stride 200*H*D
+    vt, kb = tfa.quant_operands(k, v, widen_k)
+    assert torch.equal(vt, tfa.pv_operand(v))
+    if widen_k:
+        assert kb.dtype == torch.bfloat16 and kb.is_contiguous()
+        assert torch.equal(kb.float(), k.float())
+    else:
+        assert kb is None
+
+
+@pytest.mark.parametrize("mode,skv,grp", [("i8", 384, 128), ("v2", 384, 128),
+                                          ("v2", 300, 192)])
+def test_quant_ext_rows_are_the_plain_versions_operations(mode, skv, grp):
+    """The per-key rows [B, H, R, n32] and (v2) deq [B, H, groups]: i8 the
+    k scale, v scale and log2 v scale; v2 the k scale and v_scale * (127 /
+    vsb) with vsb = max(the group's largest v scale over every key of the
+    group in the cache, 1e-20) and deq = vsb / 127, each the float32
+    operation the plain version performs; zero past Skv."""
+    rng = np.random.default_rng(skv + grp)
+    ks = torch.from_numpy(rng.random((2, skv, 3), dtype=np.float32))
+    vs = torch.from_numpy(rng.random((2, skv, 3), dtype=np.float32))
+    vs[1, :grp, 2] = 0.0  # a group whose scales are all zero takes the 1e-20 floor
+    rows, deq = tfa.quant_ext_rows(mode, ks, vs, grp)
+    n32 = -(-skv // 32) * 32
+    assert rows.shape == (2, 3, 3 if mode == "i8" else 2, n32)
+    assert torch.equal(rows[..., skv:], torch.zeros_like(rows[..., skv:]))
+    assert torch.equal(rows[:, :, 0, :skv], ks.permute(0, 2, 1))
+    if mode == "i8":
+        assert deq is None
+        assert torch.equal(rows[:, :, 1, :skv], vs.permute(0, 2, 1))
+        assert torch.equal(rows[:, :, 2, :skv], torch.log2(vs).permute(0, 2, 1))
+        return
+    assert deq.shape == (2, 3, -(-skv // grp))
+    for gi, g0 in enumerate(range(0, skv, grp)):
+        vsb = torch.clamp_min(vs[:, g0:g0 + grp].amax(1), 1e-20)            # [B, H]
+        assert torch.equal(deq[:, :, gi], tfa._true_div(vsb, 127.0))
+        ratio = vs[:, g0:g0 + grp] * tfa._true_div(127.0, vsb)[:, None, :]
+        assert torch.equal(rows[:, :, 1, g0:min(g0 + grp, skv)], ratio.permute(0, 2, 1))
+
+
+@pytest.mark.parametrize("case", ["cache slice", "token stride 0", "token stride 1544 bytes",
+                                  "empty cache"])
+def test_check_tma_kv_over_the_int8_pv_operands(case):
+    """The int8-PV wrappers take K/V through `check_tma_kv` on the card, as
+    B1 and B2 do: a cache layer slice passes; a broadcast (zero) stride, a
+    token stride off the 16-byte grid and an empty cache raise."""
+    cache = torch.zeros(2, 2, 64, 3, 128, dtype=torch.int8)
+    if case == "cache slice":
+        tfa.check_tma_kv("k", cache[0])
+        tfa.check_tma_kv("v", cache[1, :, :40])
+        return
+    if case == "token stride 0":
+        t = cache[0, :, :1].expand(2, 64, 3, 128)
+    elif case == "empty cache":
+        t = cache[0, :, :0]
+    else:
+        t = torch.zeros(2, 64, 3 * 128 + 8, dtype=torch.int8)[..., :3 * 128].view(2, 64, 3, 128)
+    with pytest.raises(ValueError):
+        tfa.check_tma_kv("k", t)
+
+
+def test_fold_estimate_moves_codes_only_at_ties():
+    """The i8 kernel's fold on the plain version's own values: the group's
+    max logit taken as max(f32(q_i8 . k_i8) * k_scale) * q_scale lies within
+    2 ulps of max(s); the codes' scale rmax estimated as exp2(max(s + lg2
+    vs) - m) lies within 1e-5 of max(p * vs); codes formed against the
+    estimate differ from the plain version's only where u lies within 1e-3
+    of a rounding tie (the dequantization step stays the exact one)."""
+    tq = tuple(map(torch.from_numpy, _inputs(1, seed=21, sq=64)))
+    q, kq, vq, ks, vs = tq
+    q_i8, qs = tfa.quantize_q_int8(q, 128 ** -0.5)
+    seen = []
+
+    def on_group(i, g0, g1, u, m, deq):
+        x = torch.einsum("qhd,khd->hqk", q_i8[i].double(), kq[i, g0:g1].double()).float()
+        ksg, vsg = ks[i, g0:g1].T[:, None, :], vs[i, g0:g1].T[:, None, :]
+        qsr = qs[i].T[:, :, None]
+        s = x * qsr * ksg                                      # the plain order
+        m_hat = (x * ksg).amax(-1, keepdim=True) * qsr
+        assert ((m_hat - s.amax(-1, keepdim=True)).abs()
+                <= 2 * torch.finfo(torch.float32).eps * s.abs().amax(-1, keepdim=True)).all()
+        pv = torch.exp2(s - m) * vsg
+        rmax = torch.clamp_min(pv.amax(-1, keepdim=True), 1e-20)
+        rhat = torch.clamp_min(torch.exp2((s + torch.log2(vsg)).amax(-1, keepdim=True) - m),
+                               1e-20)
+        assert ((rhat - rmax).abs() <= 1e-5 * rmax).all()
+        flips = torch.round(pv * tfa._true_div(127.0, rhat)) != torch.round(u)
+        assert ((u - torch.floor(u) - 0.5).abs()[flips] < TIE).all()
+        seen.append(u.numel())
+
+    tfa.quant_ext_reference("i8", *tq, 300, None, 128, False, on_group=on_group)
+    assert sum(seen) == 2 * 64 * 300
