@@ -59,12 +59,15 @@ Phases, each timed on a line of its own:
                 into the ring with the sink kept; one layer and one forward
                 with the kernel against the plain path (dequantize, attend).
   9. vae kernels - the bf16 and W8A8 halo conv kernels against their plain
-                versions at every conv class of the decode (W8A8 bit-equal),
+                versions at every conv class of the decode and of the encode
+                (W8A8 bit-equal; the encoder's RGB input conv, Cin 3, through
+                the wrappers' zero channel padding; Cin 24 padded to 32),
                 and the W8A8 activation quantization kernel (codes and s_x
                 bit-equal) at every W8A8 class; each timed beside its bound
                 and plain version, the convs beside cuDNN (B7's conv kernel
                 on its codes and the quantization each on its own, and the
-                two through the wrapper); the tile plan's L2 -> SM bytes.
+                two through the wrapper), summed a decode chunk and an
+                encode chunk; the tile plan's L2 -> SM bytes.
  10. vae decode - the fp8 path's 6 latent frames decoded in two 3-frame
                 chunks by the Wan2.1 causal VAE (default config, random
                 weights from a seed, bf16) with conv_impl "xla" (cuDNN),
@@ -98,6 +101,30 @@ Phases, each timed on a line of its own:
                 K/V the tensor maps cannot take; timed beside the bound and
                 SDPA over a dequantized bf16 copy, also at spans 4680, 14040
                 and 32760. No path calls them (0 launches).
+ 14. vae encode - 9 seeded pixel frames [1, 9, 480, 832, 3] in [-1, 1]
+                encoded (chunks of 1, 4, 4 frames) to [1, 3, 60, 104, 16] by
+                the bf16 VAE with conv_impl "xla", "halo" and "halo_w8a8":
+                22 B6 launches a chunk (22 B7 and 22 quantizations), halo
+                against xla, every W8A8 conv against the float32 conv of its
+                input, seconds a chunk.
+ 15. pipeline   - this slice's path: SelfForcingPipeline on Wan2.1-T2V-1.3B
+                at full width and depth (W8A8 linears, a seeded stand-in
+                text encoder, the bf16 halo VAE): run_text_to_video AFTER_ALL
+                over 21 frames (latents bit-equal to SemiARGenerator.generate
+                on the same draws, video bit-equal to the VAE's decode,
+                launches a block, 30 B6 a decode chunk, the profiler's
+                blocks, stages and time to the first block);
+                run_streaming_generation over 2 segments (9 frames, then 3
+                carried + 6 new) with AUTO resolving to TRUE_STREAMING, the
+                streamed pixels bit-equal to the decode of each segment's
+                new latents, then DEFERRED_DECODE; run_interactive_generation
+                (a prompt update before segment 1, stop() at its block 1);
+                with the int8 KV cache run_image_to_video over 18 frames
+                after the encode phase's 3-frame latent (150 B2 launches a
+                block) and the KV manager (set_range / get_range against
+                the plain versions, offload to pinned host and back, clear()
+                freeing the cache's bytes). Seconds a block and the time to
+                the first block beside the card's name and power limit.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -113,6 +140,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from unittest import mock
 
 import torch
@@ -123,6 +151,9 @@ import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
 from inferix_tpu_torch.core.config import EngineConfig
+from inferix_tpu_torch.core.interactive import InteractiveSession
+from inferix_tpu_torch.core.types import DecodeMode, StreamingMode
+from inferix_tpu_torch.kvcache.manager import KVCacheRequest
 from inferix_tpu_torch.models.wan.causal_dit import (
     dit_forward_inference, layer_params, block_forward, patch_embed,
     time_embeddings)
@@ -142,6 +173,7 @@ from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import rope_angles
+from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
 from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
 from inferix_tpu_torch.quant.kernels import (
@@ -1134,6 +1166,33 @@ VAE_CONVS = (
 DECODE_LAUNCHES = {"xla": {}, "halo": {"halo_conv3d": sum(c[7] for c in VAE_CONVS)},
                    "halo_w8a8": {"halo_conv3d_w8a8": sum(c[8] for c in VAE_CONVS),
                                  "quantize_conv_act": sum(c[8] for c in VAE_CONVS)}}
+# The encoder's stride-1 3x3x3 conv classes at 480x832 (the encode phase's 9
+# frames: a chunk of 1 frame, then chunks of 4), in the same fields; the
+# calls are a chunk of 4 frames'. The first chunk runs the same convs over 3
+# frames (its 60x104 classes equal the later chunks'). The stride-2
+# downsample convs and the temporal time_convs are not halo convs (cuDNN in
+# every impl), so W8A8 takes the same 22 convs as bf16.
+ENCODE_CONVS = (
+    ("enc conv1 3->96 480x832", 6, 480, 832, 3, 96, 3, 1, 1),
+    ("enc res 96 480x832", 6, 480, 832, 96, 96, 3, 4, 4),
+    ("enc res 96->192 240x416", 6, 240, 416, 96, 192, 3, 1, 1),
+    ("enc res 192 240x416", 6, 240, 416, 192, 192, 3, 3, 3),
+    ("enc res 192->384 120x208", 4, 120, 208, 192, 384, 3, 1, 1),
+    ("enc res 384 120x208", 4, 120, 208, 384, 384, 3, 3, 3),
+    ("enc res 384 60x104", 3, 60, 104, 384, 384, 3, 8, 8),
+    ("enc head 384->32 60x104", 3, 60, 104, 384, 32, 3, 1, 1),
+    ("enc conv1 3->96 480x832, first chunk", 3, 480, 832, 3, 96, 3, 0, 0),
+    ("enc res 96 480x832, first chunk", 3, 480, 832, 96, 96, 3, 0, 0),
+    ("enc res 96->192 240x416, first chunk", 3, 240, 416, 96, 192, 3, 0, 0),
+    ("enc res 192 240x416, first chunk", 3, 240, 416, 192, 192, 3, 0, 0),
+    ("enc res 192->384 120x208, first chunk", 3, 120, 208, 192, 384, 3, 0, 0),
+    ("enc res 384 120x208, first chunk", 3, 120, 208, 384, 384, 3, 0, 0),
+)
+ENCODE_CHUNK_CONVS = sum(c[7] for c in ENCODE_CONVS)  # 22, in every chunk
+ENCODE_LAUNCHES = {"xla": {}, "halo": {"halo_conv3d": ENCODE_CHUNK_CONVS},
+                   "halo_w8a8": {"halo_conv3d_w8a8": ENCODE_CHUNK_CONVS,
+                                 "quantize_conv_act": ENCODE_CHUNK_CONVS}}
+ENCODE_FRAMES = 9        # chunks of 1, 4, 4 pixel frames -> 3 latent frames
 # The W8A8 decode's halo conv kernel (B7) and the activation quantization
 # kernel, as the old row 11 (conv + the wrapper's float32 quantization) was
 # measured: PERF.md keeps the old times beside the new.
@@ -1509,18 +1568,24 @@ def cudnn_operands(x, w, b):
 
 
 def vae_kernel_phase(dev: torch.device) -> list:
-    """B6 and B7 against their plain versions at every decode conv class
-    (B7 and the activation quantization bit-equal), then timed beside the
-    bound and cuDNN (F.conv3d, bf16): B7's conv kernel on its codes and the
-    quantization kernel each on its own, and the W8A8 wrapper (both)."""
+    """B6 and B7 against their plain versions at every decode and encode conv
+    class (B7 and the activation quantization bit-equal; the encoder's RGB
+    input conv, Cin 3, through the wrappers' channel padding), then timed
+    beside the bound and cuDNN (F.conv3d, bf16): B7's conv kernel on its
+    codes and the quantization kernel each on its own, and the W8A8 wrapper
+    (both). Sums a decode chunk go to the kernels line; sums an encode chunk
+    are printed."""
     g = torch.Generator(device=dev).manual_seed(4)
     names = ("halo_conv3d", "halo_conv3d_w8a8", "quantize_conv_act")
-    sums = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-                    err=0.0) for k in names}
-    wrapper_ms = 0.0
+    all_sums = {work: {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                               bytes_ms=0.0, err=0.0) for k in names}
+                for work in ("decode", "encode")}
+    all_wrapper_ms = {"decode": 0.0, "encode": 0.0}
     failed = []
     before = all_counts()
-    for name, tin, h, w, cin, cout, kt, n_halo, n_w8a8 in VAE_CONVS:
+    for work, (name, tin, h, w, cin, cout, kt, n_halo, n_w8a8) in (
+            [("decode", c) for c in VAE_CONVS] + [("encode", c) for c in ENCODE_CONVS]):
+        sums = all_sums[work]
         x = torch.randn(tin, h, w, cin, generator=g, device=dev).to(torch.bfloat16)
         bound = 1.0 / (kt * 9 * cin) ** 0.5
         wt = ((torch.rand(kt, 3, 3, cin, cout, generator=g, device=dev) * 2 - 1)
@@ -1536,7 +1601,8 @@ def vae_kernel_phase(dev: torch.device) -> list:
             if kname == "halo_conv3d" and kt != 3:
                 continue  # the bf16 gate takes 3x3x3 convs only
             int8 = kname == "halo_conv3d_w8a8"
-            plan = tile_plan(tin, h, w, cin, cout, kt, int8)
+            plan = tile_plan(tin, h, w, halo_mod.padded_cin(cin, 16 if int8 else 8), cout,
+                             kt, int8)
             # as the decode calls it: on the weight operand CausalVAE packs once
             pk = pack_weight(wt, w8a8=int8)
             out = kern(x, wt, b, packed=pk)
@@ -1579,9 +1645,12 @@ def vae_kernel_phase(dev: torch.device) -> list:
                                ("bytes_ms", q_bytes_ms)):
                     acc[key] += calls * v
                 # the conv kernel on the codes, and the wrapper (both kernels)
-                ms = time_ms(lambda: halo_mod._launch(q, pk.wk, b, s_x, pk.s_w, kt, cout, True))
+                # (the codes padded to the operand's channels, as the wrapper pads x)
+                qk = F.pad(q, (0, pk.wk.shape[-1] - cin))
+                ms = time_ms(lambda: halo_mod._launch(qk, pk.wk, b, s_x, pk.s_w, kt, cout, True))
+                del qk
                 w_ms = time_ms(lambda: kern(x, wt, b, packed=pk))
-                wrapper_ms += calls * w_ms
+                all_wrapper_ms[work] += calls * w_ms
                 del q, s_x
                 extra = f", the wrapper (quantization + conv) {w_ms:.4f} ms"
             else:
@@ -1609,8 +1678,18 @@ def vae_kernel_phase(dev: torch.device) -> list:
     wt = torch.randn(3, 3, 3, 96, 96, device=dev)
     b = torch.zeros(96, device=dev)
     expect_raise("halo_conv3d float32", TypeError, lambda: halo_conv3d(x, wt, b))
-    expect_raise("halo_conv3d_w8a8 Cin 24", ValueError, lambda: halo_conv3d_w8a8(
-        x[..., :24].contiguous().to(torch.bfloat16), wt[:, :, :, :24], b))
+    # Cin 24 is no multiple of 16: the W8A8 wrapper pads it to 32 (it refused
+    # it before the padding), bit-equal to the plain version; an operand
+    # packed for another Cin is refused
+    x24, w24 = x[..., :24].contiguous().to(torch.bfloat16), wt[:, :, :, :24]
+    cin24_ok = torch.equal(halo_conv3d_w8a8(x24, w24, b),
+                           halo_conv3d_w8a8_reference(x24, w24, b))
+    print(f"vae case halo_conv3d_w8a8 Cin 24 (padded to 32): bit-equal {cin24_ok} "
+          f"(tol 0) {'ok' if cin24_ok else 'FAIL'}", flush=True)
+    if not cin24_ok:
+        failed.append("halo_conv3d_w8a8 Cin 24")
+    expect_raise("halo_conv3d_w8a8 operand of another Cin", ValueError, lambda: halo_conv3d_w8a8(
+        x24, w24, b, packed=pack_weight(wt[:, :, :, :40], w8a8=True)))
     expect_raise("halo_conv3d strided x", ValueError, lambda: halo_conv3d(
         x.to(torch.bfloat16)[:, :, ::2], wt, b))
     expect_raise("quantize_conv_act float32", TypeError, lambda: quantize_conv_act(x))
@@ -1618,6 +1697,16 @@ def vae_kernel_phase(dev: torch.device) -> list:
     if failed:
         raise AssertionError(f"VAE conv cases {failed} disagree with the plain versions")
     entries = []
+    sums = all_sums["decode"]
+    for kname in names:
+        acc = all_sums["encode"][kname]
+        bound_ms, bound_by = bound_of(acc["ops_ms"], acc["bytes_ms"])
+        lib = "-" if kname == "quantize_conv_act" else f"{acc['library_ms']:.4f}"
+        print(f"vae per encode chunk {kname}: {acc['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {acc['plain_ms']:.4f} ms, cudnn {lib} ms, "
+              f"max_abs {acc['err']:.3e}", flush=True)
+    print(f"vae per encode chunk W8A8 wrapper (quantization + conv kernel): "
+          f"{all_wrapper_ms['encode']:.4f} ms", flush=True)
     for kname, replaces, impl in (
             ("halo_conv3d", "inferix_tpu/ops/halo_conv.py:59", "halo"),
             ("halo_conv3d_w8a8", "inferix_tpu/ops/halo_conv.py:113", "halo_w8a8"),
@@ -1637,21 +1726,45 @@ def vae_kernel_phase(dev: torch.device) -> list:
                     f"{DECODE_LAUNCHES[impl][kname]} "
                     + ("quantizations (XLA ops on the TPU, not a Pallas site)"
                        if kname == "quantize_conv_act" else "convs")})
-    print(f"vae per chunk W8A8 wrapper (quantization + conv kernel): {wrapper_ms:.4f} ms",
-          flush=True)
+    print(f"vae per chunk W8A8 wrapper (quantization + conv kernel): "
+          f"{all_wrapper_ms['decode']:.4f} ms", flush=True)
     return entries
 
 
 def vae_params(dev: torch.device, cfg: VAEConfig):
-    """The decode's weights from seed 5. The init's attention output
+    """The VAE's weights from seed 5. The init's attention output
     projections are zero (the reference's training init); they are drawn
-    here, so the attention blocks change the pixels."""
+    here, the decoder's and then the encoder's, so the attention blocks
+    change the pixels and the latents."""
     g = torch.Generator(device=dev).manual_seed(5)
     params = init_vae_params(cfg, g, device=dev)
-    proj = params["decoder"]["middle"]["attn"]["proj"]
-    c = proj["w"].shape[-2]
-    proj["w"].uniform_(-c ** -0.5, c ** -0.5, generator=g)
+    for part in ("decoder", "encoder"):
+        proj = params[part]["middle"]["attn"]["proj"]
+        c = proj["w"].shape[-2]
+        proj["w"].uniform_(-c ** -0.5, c ** -0.5, generator=g)
     return params
+
+
+def checked_w8a8_conv(worst: list):
+    """halo_conv3d_w8a8 with each call held against the float32 conv of its
+    own input (W8A8_CONV_BOUND of the output scale); the worst share goes to
+    worst[0]."""
+    real_w8a8 = vae_mod.halo_conv3d_w8a8
+
+    def checked(x, w, b, packed=None):
+        out = real_w8a8(x, w, b, packed=packed)
+        ref = F.conv3d(x.permute(3, 0, 1, 2)[None].float(),
+                       w.float().permute(4, 3, 0, 1, 2), b.float(), padding=(0, 1, 1))
+        ref = ref[0].permute(1, 2, 3, 0)
+        share = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        worst[0] = max(worst[0], share)
+        if share > W8A8_CONV_BOUND:
+            raise AssertionError(f"a W8A8 conv {tuple(x.shape)} x {tuple(w.shape)} is off "
+                                 f"its float32 conv by {share:.3e} of the output scale "
+                                 f"(bound {W8A8_CONV_BOUND:g})")
+        return out
+
+    return checked
 
 
 def vae_decode_phase(dev: torch.device, latents: torch.Tensor) -> dict:
@@ -1666,20 +1779,7 @@ def vae_decode_phase(dev: torch.device, latents: torch.Tensor) -> dict:
                              f"{latents.shape[1]}")
     lat = latents[:1, :LATENT_FRAMES]
     w8a8_worst, videos, launches = [0.0], {}, {}
-    real_w8a8 = vae_mod.halo_conv3d_w8a8
-
-    def checked_w8a8(x, w, b, packed=None):
-        out = real_w8a8(x, w, b, packed=packed)
-        ref = F.conv3d(x.permute(3, 0, 1, 2)[None].float(),
-                       w.float().permute(4, 3, 0, 1, 2), b.float(), padding=(0, 1, 1))
-        ref = ref[0].permute(1, 2, 3, 0)
-        share = ((out.float() - ref).abs().max() / ref.abs().max()).item()
-        w8a8_worst[0] = max(w8a8_worst[0], share)
-        if share > W8A8_CONV_BOUND:
-            raise AssertionError(f"a W8A8 conv {tuple(x.shape)} x {tuple(w.shape)} is off "
-                                 f"its float32 conv by {share:.3e} of the output scale "
-                                 f"(bound {W8A8_CONV_BOUND:g})")
-        return out
+    checked_w8a8 = checked_w8a8_conv(w8a8_worst)
 
     want = DECODE_LAUNCHES
     # the W8A8 decode runs twice: timed, then with every conv checked (the
@@ -1733,6 +1833,373 @@ def vae_decode_phase(dev: torch.device, latents: torch.Tensor) -> dict:
     torch.cuda.empty_cache()
     phase("vae decode", t0)
     return launches
+
+def vae_encode_phase(dev: torch.device) -> tuple:
+    """Encode 9 seeded pixel frames [1, 9, 480, 832, 3] in [-1, 1] to latents
+    [1, 3, 60, 104, 16] with each conv impl (bf16): kernel launches a chunk
+    (22 B6; 22 B7 and 22 quantizations), latents finite, halo against xla,
+    every W8A8 conv against the float32 conv of its own input, seconds a
+    chunk. Returns (launches by impl, the halo latents)."""
+    t0 = time.perf_counter()
+    cfg = VAEConfig()
+    params = vae_params(dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(6)
+    video = (torch.rand(1, ENCODE_FRAMES, 480, 832, 3, generator=g, device=dev) * 2
+             - 1).to(torch.bfloat16)
+    w8a8_worst, lats, launches = [0.0], {}, {}
+    chunks = [(0, 1)] + [(i, i + 4) for i in range(1, ENCODE_FRAMES, 4)]
+    for impl, checked in (("xla", False), ("halo", False), ("halo_w8a8", False),
+                          ("halo_w8a8", True)):
+        vae = CausalVAE(cfg, params, dtype=torch.bfloat16, device=dev, conv_impl=impl)
+        reset_counts()
+        cache, outs, per_chunk, secs = None, [], [], []
+        patch = (mock.patch.object(vae_mod, "halo_conv3d_w8a8",
+                                   checked_w8a8_conv(w8a8_worst))
+                 if checked else contextlib.nullcontext())
+        with patch:
+            for i, (a, b) in enumerate(chunks):
+                before = all_counts()
+                t1 = time.perf_counter()
+                out, cache = vae.encode_chunk(video[:, a:b], cache, first=(i == 0))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t1)
+                per_chunk.append(count_diff(all_counts(), before))
+                outs.append(out)
+        lat = torch.cat(outs, dim=1)
+        label = impl + (" (each conv checked)" if checked else "")
+        print(f"vae encode {label}: s/chunk {', '.join(f'{x:.3f}' for x in secs)}, "
+              f"launches per chunk {per_chunk}", flush=True)
+        if per_chunk != [ENCODE_LAUNCHES[impl]] * len(chunks):
+            raise AssertionError(f"vae encode {impl}: launches per chunk {per_chunk}, "
+                                 f"want {ENCODE_LAUNCHES[impl]} in each")
+        if checked:
+            if not torch.equal(lat, lats[impl]):
+                raise AssertionError("the checked W8A8 encode differs from the timed one")
+            continue
+        launches[impl] = all_counts()
+        if impl == "halo" and not torch.equal(lat, vae.encode(video)):
+            raise AssertionError("vae encode: encode() differs from its chunks")
+        shape = (1, 1 + (ENCODE_FRAMES - 1) // cfg.temporal_factor, 60, 104, cfg.z_dim)
+        if tuple(lat.shape) != shape or not torch.isfinite(lat).all():
+            raise AssertionError(f"vae encode {impl}: latents {tuple(lat.shape)} (want "
+                                 f"{shape}) or not finite")
+        lats[impl] = lat
+        del vae, cache, outs
+    expect_raise("encode of 8 frames", ValueError,
+                 lambda: CausalVAE(cfg, params, dtype=torch.bfloat16, device=dev)
+                 .encode(video[:, :8]))
+    halo_err = rel_err(lats["halo"], lats["xla"])
+    w8a8_err = rel_err(lats["halo_w8a8"], lats["xla"])
+    print(f"vae encode: latents {tuple(lats['xla'].shape)} finite, std "
+          f"{lats['xla'].float().std().item():.3f}; halo vs xla rel err {halo_err:.3e} "
+          f"(tol {HALO_DECODE_RTOL:g}); halo_w8a8 vs xla rel err {w8a8_err:.3e} "
+          f"(information); worst W8A8 conv vs its float32 conv {w8a8_worst[0]:.3e} of "
+          f"the output scale (bound {W8A8_CONV_BOUND:g})", flush=True)
+    if halo_err > HALO_DECODE_RTOL:
+        raise AssertionError("the halo encode disagrees with the cuDNN encode")
+    del video
+    torch.cuda.empty_cache()
+    phase("vae encode", t0)
+    return launches, lats["halo"]
+
+
+# ---------------------------------------------------------------------------
+# The Self-Forcing pipeline: text features in, pixels out, through the entry
+# points a user calls (this slice's main path)
+# ---------------------------------------------------------------------------
+
+SEGMENT_FRAMES, OVERLAP_FRAMES = 9, 3  # streaming segments: 9 + 6 new frames
+I2V_FRAMES = 18                         # after a 3-frame prefix: the 21-frame cache
+
+
+def pipeline_config(quantize_kv: bool = False) -> EngineConfig:
+    """Wan2.1-T2V-1.3B at full width and depth, 480x832, a 21-frame cache,
+    21 frames, W8A8 linears (`bench.py:229-234`), the bf16 VAE on the halo
+    conv kernel, AUTO streaming over 9-frame segments with a 3-frame overlap;
+    quantize_kv: the int8 KV cache too (and no VAE: no decode)."""
+    cfg = main_path_config(7, w8a8=True)
+    r = cfg.runtime
+    r.vae_conv_impl = "halo"
+    r.frames_per_segment, r.overlap_frames = SEGMENT_FRAMES, OVERLAP_FRAMES
+    r.streaming_mode = StreamingMode.AUTO
+    if quantize_kv:
+        cfg.quant.quantize_kv_cache = True
+        r.decode_mode = DecodeMode.NO_DECODE
+    return cfg
+
+
+class StandInTextEncoder:
+    """A seeded stand-in for the UMT5 text encoder: bf16 features [1, 512,
+    4096] drawn from a seed taken from the prompt. Keeps the prompts it was
+    called with."""
+
+    def __init__(self, dev: torch.device):
+        self.dev, self.prompts = dev, []
+
+    def __call__(self, prompts):
+        self.prompts.append(prompts[0])
+        g = torch.Generator(device=self.dev).manual_seed(zlib.crc32(prompts[0].encode()))
+        return torch.randn(1, TEXT, 4096, generator=g, device=self.dev).to(torch.bfloat16)
+
+
+def add_counts(total: dict, diff: dict) -> None:
+    for k, v in diff.items():
+        total[k] = total.get(k, 0) + v
+
+
+def w8a8_block_launches(gen, kv_int8: bool) -> dict:
+    """A block's launches on the W8A8 path (rerun): per layer-forward 6 int8
+    GEMMs, 3 act-quants (+2 for the int8 K/V write), 2 LN+modulate, 1
+    LN+affine, 1 attention kernel."""
+    n = gen.cfg.model.num_layers * (len(gen.denoising_steps) + 1)
+    attn = "flash_attention_prefix_quant" if kv_int8 else "flash_attention_prefix"
+    return {"int8_matmul": 6 * n, "quantize_rows_int8": (5 if kv_int8 else 3) * n,
+            "adaln": 2 * n, "ln": n, attn: n}
+
+
+def pipeline_phase(dev: torch.device, smi: str, prefix: torch.Tensor) -> dict:
+    """SelfForcingPipeline end to end: run_text_to_video (AFTER_ALL, 21
+    frames), run_streaming_generation (2 segments, TRUE_STREAMING by AUTO,
+    then DEFERRED_DECODE), run_interactive_generation (a prompt update
+    before segment 1, a stop at its block 1), then with the int8 KV cache
+    run_image_to_video (18 frames after the encoded 3-frame prefix) and the
+    KV manager. Returns the launches of every kernel over the pipeline's
+    own calls (the checks' reference runs excluded)."""
+    t0 = time.perf_counter()
+    cfg = pipeline_config()
+    m, r = cfg.model, cfg.runtime
+    text = StandInTextEncoder(dev)
+    pipe = SelfForcingPipeline(cfg, text_encoder=text, device=dev)
+    pipe.setup()
+    torch.cuda.synchronize()
+    print(f"pipeline setup (weights drawn from runtime.seed and quantized, the bf16 "
+          f"halo VAE packed): {time.perf_counter() - t0:.3f} s", flush=True)
+    gen, vae = pipe.generator, pipe.vae
+    fpb = m.num_frame_per_block
+    path = {}
+
+    # --- run_text_to_video, AFTER_ALL, 21 frames
+    want_block = w8a8_block_launches(gen, False)
+    want_text = {"int8_matmul": 2 * m.num_layers, "quantize_rows_int8": 2 * m.num_layers}
+    reset_counts()
+    marks, per_block = [all_counts()], []
+
+    def on_block(x0, bi):
+        marks.append(all_counts())
+        per_block.append(count_diff(marks[-1], marks[-2]))
+
+    t1 = time.perf_counter()
+    video, latents = pipe.run_text_to_video(["a red fox"], return_latents=True,
+                                            decode_mode=DecodeMode.AFTER_ALL,
+                                            block_callback=on_block)
+    torch.cuda.synchronize()
+    t2v_s = time.perf_counter() - t1
+    run = all_counts()
+    add_counts(path, count_diff(run, {k: 0 for k in run}))
+    blocks = r.num_frames // fpb
+    want = [{k: v + want_text.get(k, 0) for k, v in want_block.items()}] \
+        + [want_block] * (blocks - 1)
+    decode_launches = count_diff(run, marks[-1])
+    want_decode = {"halo_conv3d": DECODE_LAUNCHES["halo"]["halo_conv3d"] * -(-r.num_frames // 3)}
+    print(f"pipeline t2v launches: block 0 {per_block[0]} (text encode included), "
+          f"blocks 1-{blocks - 1} {per_block[1]}, decode {decode_launches}", flush=True)
+    if per_block != want or decode_launches != want_decode:
+        raise AssertionError(f"pipeline launches per block {per_block}, decode "
+                             f"{decode_launches}; want {want}, {want_decode}")
+    shape = (1, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
+    vshape = (1, 1 + 4 * (r.num_frames - 1), 480, 832, 3)
+    if (tuple(latents.shape) != shape or tuple(video.shape) != vshape
+            or not torch.isfinite(video).all() or video.min() < 0 or video.max() > 1):
+        raise AssertionError(f"pipeline: latents {tuple(latents.shape)} (want {shape}), "
+                             f"video {tuple(video.shape)} (want {vshape}), or not in [0, 1]")
+    # the pipeline adds no arithmetic: the generator on the same draws and
+    # text features, and the VAE's decode, give the same bits
+    with torch.inference_mode():
+        noise, g, renoise = pipe._draw_noise(r.seed, shape)
+        ref_lat, _ = gen.generate(noise, pipe._encode_prompts(["a red fox"]),
+                                  generator=g, renoise=renoise)
+        ref_video = vae.decode(latents) * 0.5 + 0.5
+    lat_equal, vid_equal = torch.equal(ref_lat, latents), torch.equal(ref_video, video)
+    del noise, ref_lat, ref_video, video
+    prof = pipe.profiler.summary()
+    block_s = [b["time_ms"] / 1e3 for b in pipe.profiler.blocks]
+    stages = {k: v / 1e3 for k, v in prof["stages_ms"].items()}
+    print(f"pipeline t2v AFTER_ALL (latents bit-equal to SemiARGenerator.generate "
+          f"{lat_equal}, video bit-equal to vae.decode * 0.5 + 0.5 {vid_equal}): "
+          f"{t2v_s:.3f} s; profiler s/block {', '.join(f'{x:.3f}' for x in block_s)}, time "
+          f"to the first block {prof['time_to_first_block_s']:.3f} s, stages (s) "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in stages.items())}; {smi}", flush=True)
+    if not (lat_equal and vid_equal):
+        raise AssertionError("the pipeline's latents or video differ from the generator's "
+                             "and the VAE's")
+    if (prof["num_blocks"] != blocks or prof["time_to_first_block_s"] is None
+            or set(stages) != {"initialization", "diffusion_generation", "vae_decoding"}):
+        raise AssertionError(f"pipeline profiler: {prof['num_blocks']} blocks, stages "
+                             f"{sorted(stages)}, ttfb {prof['time_to_first_block_s']}")
+
+    # --- run_streaming_generation, 2 segments, TRUE_STREAMING (AUTO) then
+    # DEFERRED_DECODE: 9 frames, then 3 carried + 6 new
+    mode = pipe.resolve_streaming_mode()
+    print(f"pipeline streaming: AUTO resolves to {mode.value}", flush=True)
+    if mode != StreamingMode.TRUE_STREAMING:
+        raise AssertionError("AUTO did not resolve to TRUE_STREAMING on the card")
+    real_ccb = gen.cache_context_block
+    runs = {}
+    for smode in (StreamingMode.TRUE_STREAMING, StreamingMode.DEFERRED_DECODE):
+        r.streaming_mode = smode
+        streamed, marks, ctx_blocks = [], [], []
+        gen.cache_context_block = lambda *a, **k: (ctx_blocks.append(a[2].shape[1]),
+                                                   real_ccb(*a, **k))[1]
+        before = all_counts()
+        t1 = time.perf_counter()
+        try:
+            segs = pipe.run_streaming_generation(
+                ["a red fox", "a blue bird"], num_segments=2,
+                stream_callback=streamed.append,
+                segment_callback=lambda lat, i: marks.append(len(streamed)))
+        finally:
+            del gen.cache_context_block
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launched = count_diff(all_counts(), before)
+        add_counts(path, launched)
+        equal = []
+        with torch.inference_mode():
+            for i, seg in enumerate(segs):
+                got = torch.cat(streamed[(marks[i - 1] if i else 0):marks[i]], dim=1)
+                equal.append(torch.equal(got, vae.decode(seg) * 0.5 + 0.5))
+        runs[smode] = segs
+        print(f"pipeline streaming {smode.value}: {secs:.3f} s, new frames per segment "
+              f"{[x.shape[1] for x in segs]}, carried frames written by "
+              f"cache_context_block {ctx_blocks}, pixel chunks streamed per segment "
+              f"{[marks[0], marks[1] - marks[0]]}, bit-equal to vae.decode of each "
+              f"segment's new latents {equal}, B6 launches {launched.get('halo_conv3d')}",
+              flush=True)
+        del streamed
+        if ([x.shape[1] for x in segs] != [SEGMENT_FRAMES, SEGMENT_FRAMES - OVERLAP_FRAMES]
+                or ctx_blocks != [OVERLAP_FRAMES] or not all(equal)):
+            raise AssertionError(f"pipeline streaming {smode.value} disagrees")
+    r.streaming_mode = StreamingMode.AUTO
+    same = all(torch.equal(a, b) for a, b in zip(*runs.values()))
+    print(f"pipeline streaming: DEFERRED_DECODE segments bit-equal to TRUE_STREAMING's "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("the streaming modes generated different latents")
+    del runs, segs
+
+    # --- run_interactive_generation, 2 segments: a prompt update queued
+    # before segment 1, stop() at its block 1
+    holder = {}
+
+    def on_status(st):
+        if st.current_segment == 1 and "sent" not in holder:
+            holder["session"].submit_input(prompt="a blue bird")
+            holder["sent"] = True
+        if st.current_segment == 1 and st.current_block == 1:
+            holder["session"].stop()
+
+    holder["session"] = session = InteractiveSession(status_callback=on_status)
+    before, text.prompts = all_counts(), []
+    segs = pipe.run_interactive_generation(session, "a red fox", num_segments=2)
+    add_counts(path, count_diff(all_counts(), before))
+    frames = [x.shape[1] for x in segs]
+    print(f"pipeline interactive: new frames per segment {frames}, prompts "
+          f"{text.prompts}, stopped {session.status.is_stopped}, frames generated "
+          f"{session.status.frames_generated}", flush=True)
+    if (frames != [SEGMENT_FRAMES, fpb] or text.prompts != ["a red fox", "a blue bird"]
+            or not session.status.is_stopped or session.status.frames_generated != 12):
+        raise AssertionError("the interactive run did not stop or update where asked")
+    del segs, pipe, gen, vae, latents
+    torch.cuda.empty_cache()
+
+    # --- run_image_to_video with the int8 KV cache: 18 frames after the
+    # encode phase's 3-frame latent
+    pipe = SelfForcingPipeline(pipeline_config(quantize_kv=True), text_encoder=text,
+                               device=dev)
+    pipe.setup()
+    gen = pipe.generator
+    want_block = w8a8_block_launches(gen, True)
+    forwards = len(gen.denoising_steps) + 1
+    ctx = {k: v // forwards for k, v in want_block.items()}  # the prefix's one forward
+    before = all_counts()
+    marks, per_block = [before], []
+    t1 = time.perf_counter()
+    out = pipe.run_image_to_video(["a red fox"], prefix, num_frames=I2V_FRAMES,
+                                  block_callback=on_block)
+    torch.cuda.synchronize()
+    i2v_s = time.perf_counter() - t1
+    add_counts(path, count_diff(all_counts(), before))
+    first = {k: want_block.get(k, 0) + ctx.get(k, 0) + want_text.get(k, 0)
+             for k in want_block}
+    want = [first] + [want_block] * (I2V_FRAMES // fpb - 1)
+    begins = torch.equal(out[:, :prefix.shape[1]], prefix)
+    print(f"pipeline i2v (int8 KV): {i2v_s:.3f} s, latents {tuple(out.shape)} begin with "
+          f"the prefix {begins}, launches block 0 {per_block[0]} (prefix forward and text "
+          f"encode included), then {per_block[1]}; profiler s/block "
+          f"{', '.join(f'{b['time_ms'] / 1e3:.3f}' for b in pipe.profiler.blocks)}; {smi}",
+          flush=True)
+    if per_block != want or not begins or out.shape[1] != prefix.shape[1] + I2V_FRAMES \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"pipeline i2v: launches {per_block} (want {want}), begins "
+                             f"with the prefix {begins}, {tuple(out.shape)}")
+    del out
+
+    # --- the KV manager over the int8 cache: set_range / get_range against
+    # the act-quant plain version, offload / restore, device_bytes, clear
+    mgr = pipe.kv_manager
+    req = KVCacheRequest("check")
+    slot = mgr.allocate_slots(req)
+    g = torch.Generator(device=dev).manual_seed(7)
+    kv = [torch.randn(SQ, H, D, generator=g, device=dev).to(torch.bfloat16) for _ in "kv"]
+    before = all_counts()
+    mgr.set_range(req, 5, SQ, *kv)
+    set_launches = count_diff(all_counts(), before)
+    c = mgr.cache
+    got = mgr.get_range(req, 5, SQ, SQ)
+    set_ok = get_ok = True
+    for i, (codes, scales) in enumerate(((c.k, c.k_scale), (c.v, c.v_scale))):
+        q, s_ = quantize_rows_int8_reference(kv[i].reshape(-1, D))
+        set_ok &= torch.equal(codes[5, slot, SQ:2 * SQ], q.reshape(SQ, H, D))
+        set_ok &= torch.equal(scales[5, slot, SQ:2 * SQ], s_.reshape(SQ, H))
+        get_ok &= torch.equal(got[i], q.reshape(SQ, H, D).float() * s_.reshape(SQ, H, 1))
+    del codes, scales
+    nbytes = mgr.device_bytes()
+    want_bytes = sum(x.numel() * x.element_size() for x in c if x is not None)
+    snap = [x.clone() for x in c if x is not None]
+    del c, got
+    t1 = time.perf_counter()
+    mgr.offload_to_host()
+    host_pinned = all(x.is_pinned() for x in mgr._host_cache if x is not None)
+    mgr.restore_from_host()
+    torch.cuda.synchronize()
+    trip_s = time.perf_counter() - t1
+    restored = all(torch.equal(a, b) for a, b in
+                   zip(snap, [x for x in mgr.cache if x is not None]))
+    del snap
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    mgr.clear()
+    dropped = held - torch.cuda.memory_allocated(dev)
+    print(f"pipeline kv manager (int8 cache): set_range launches {set_launches}, codes and "
+          f"scales equal to the plain version {set_ok}, get_range equal to its plain "
+          f"dequantization {get_ok}; device_bytes {nbytes} (the cache's {want_bytes}); "
+          f"offload to pinned host ({host_pinned}) and back {trip_s:.3f} s, bit-equal "
+          f"{restored}; clear() freed {dropped} bytes", flush=True)
+    if not (set_ok and get_ok and restored and host_pinned and nbytes == want_bytes
+            and dropped >= nbytes and set_launches == {"quantize_rows_int8": 2}):
+        raise AssertionError("the KV manager disagrees with its plain versions or kept memory")
+    del pipe, gen, mgr
+    torch.cuda.empty_cache()
+
+    never = [k for k in ("int8_matmul", "quantize_rows_int8", "adaln", "ln",
+                         "flash_attention_prefix", "flash_attention_prefix_quant",
+                         "halo_conv3d") if not path.get(k)]
+    print(f"pipeline launches over its calls: {path}", flush=True)
+    if never:
+        raise AssertionError(f"the pipeline never launched {never}")
+    phase("pipeline", t0)
+    return path
+
 
 # ---------------------------------------------------------------------------
 # fp8 (e4m3) weight-only linears (TPU kernel 9), and the int8-PV attention
@@ -2313,11 +2780,21 @@ def main() -> None:
     vae_entries = vae_kernel_phase(dev)
     phase("vae kernels", t0)
     decode = vae_decode_phase(dev, latents)
-    vae_entries[0]["launches"] = decode["halo"]["halo_conv3d"]
-    vae_entries[1]["launches"] = decode["halo_w8a8"]["halo_conv3d_w8a8"]
-    vae_entries[2]["launches"] = decode["halo_w8a8"]["quantize_conv_act"]
+    encode, prefix = vae_encode_phase(dev)
+    pipe = pipeline_phase(dev, smi, prefix)
+    vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]
+                                  + pipe["halo_conv3d"])
+    vae_entries[1]["launches"] = (decode["halo_w8a8"]["halo_conv3d_w8a8"]
+                                  + encode["halo_w8a8"]["halo_conv3d_w8a8"])
+    vae_entries[2]["launches"] = (decode["halo_w8a8"]["quantize_conv_act"]
+                                  + encode["halo_w8a8"]["quantize_conv_act"])
+    for e, k in ((entries[0], "flash_attention_prefix"), (entries[1], "int8_matmul"),
+                 (entries[2], "quantize_rows_int8"), (kv_entries[0], "flash_attention_prefix_quant")):
+        e["launches"] += pipe[k]
+    entries[3]["launches"] += pipe["adaln"] + pipe["ln"]
     entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries
-    print(f"launches on this slice's paths: {paths}; decode {decode}", flush=True)
+    print(f"launches on this slice's paths: {paths}; decode {decode}; encode {encode}; "
+          f"pipeline {pipe}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

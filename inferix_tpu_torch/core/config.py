@@ -4,11 +4,23 @@ Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `QuantConfig`,
 `RuntimeConfig`, `EngineConfig`, `tiny_test_config`) with the same names and
 defaults, cut to the fields this port reads. It is a copy, not an import: the port never
 imports the JAX package.
+
+`EngineConfig.from_dict` loads what the JAX package's `EngineConfig.to_dict`
+writes. The JAX keys that name a TPU layout or an XLA switch the port does
+not have (`IGNORED_KEYS`) are taken by name and dropped; keys whose value the
+port hard-wires (`FIXED_KEYS`) must hold that value; the `parallel` section
+must describe one device (the port is single-device). Any other unknown key
+raises KeyError, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import enum
+import json
+import pathlib
+from typing import Any, Dict, Optional, Tuple
+
+from .types import DecodeMode, MemoryMode, StreamingMode
 
 
 @dataclasses.dataclass
@@ -80,6 +92,8 @@ class QuantConfig:
 
 @dataclasses.dataclass
 class RuntimeConfig:
+    dtype: str = "bfloat16"
+    seed: int = 42
     denoising_step_list: Tuple[int, ...] = (1000, 750, 500, 250)
     warp_denoising_step: bool = True
     context_noise: int = 0
@@ -87,6 +101,18 @@ class RuntimeConfig:
     # block's KV; "last_step": the final denoise step persists it instead.
     context_mode: str = "rerun"
     timestep_shift: float = 8.0
+    guidance_scale: float = 0.0
+    decode_mode: DecodeMode = DecodeMode.AFTER_ALL
+    streaming_mode: StreamingMode = StreamingMode.AUTO
+    memory_mode: MemoryMode = MemoryMode.RELAXED
+    vae_chunk_size: int = 2
+    free_cache_before_vae: bool = True
+    # the VAE's conv impl (`models.wan.vae.CONV_IMPLS`): "xla" (cuDNN),
+    # "halo" (the bf16 halo conv kernel), "halo_w8a8" (the W8A8 one, lossy)
+    vae_conv_impl: str = "xla"
+    # streaming segments
+    frames_per_segment: int = 21
+    overlap_frames: int = 3
     num_frames: int = 21
     latent_channels: int = 16
     latent_height: int = 60
@@ -94,11 +120,92 @@ class RuntimeConfig:
     batch_size: int = 1
 
 
+# JAX keys with no counterpart here, dropped by from_dict: the TPU cache
+# layouts and grids (span_grid, kv_head_major, kv_alloc_pad), the rope's MXU
+# formulation (rope_mxu), the unrolled XLA layer loop (unroll_layers), the
+# fused act-quant switch (the port always takes the fused chain), and
+# first_last_layer_excluded (read by neither package).
+IGNORED_KEYS = {
+    "model": ("unroll_layers",),
+    "quant": ("fused_act_quant", "first_last_layer_excluded"),
+    "runtime": ("span_grid", "kv_head_major", "kv_alloc_pad", "rope_mxu"),
+}
+# JAX keys whose value the port hard-wires: any other value raises.
+FIXED_KEYS = {"model": {"qk_norm": True, "independent_first_frame": False}}
+_ENUMS = {"decode_mode": DecodeMode, "streaming_mode": StreamingMode,
+          "memory_mode": MemoryMode}
+
+
+def _build(klass, section: str, sub: Optional[Dict[str, Any]]):
+    fields = {f.name for f in dataclasses.fields(klass)}
+    kwargs = {}
+    for k, v in (sub or {}).items():
+        if k in IGNORED_KEYS.get(section, ()):
+            continue
+        fixed = FIXED_KEYS.get(section, {})
+        if k in fixed:
+            if v != fixed[k]:
+                raise ValueError(f"{section}.{k} = {v!r}: the port implements "
+                                 f"{fixed[k]!r} only")
+            continue
+        if k not in fields:
+            raise KeyError(f"Unknown config key {k!r} for {klass.__name__}")
+        if isinstance(v, list):
+            v = tuple(v)
+        if k in _ENUMS:
+            v = _ENUMS[k](v)
+        kwargs[k] = v
+    return klass(**kwargs)
+
+
+def _check_single_device(parallel: Optional[Dict[str, Any]]) -> None:
+    """The JAX `parallel` section is dropped when it describes one device;
+    a mesh of more raises (the parallel layer is not ported)."""
+    for k, v in (parallel or {}).items():
+        if k in ("dp", "sp", "tp", "pp"):
+            if v != 1:
+                raise NotImplementedError(
+                    f"parallel.{k} = {v}: the port runs on one device (the "
+                    "parallel layer is not ported)")
+        elif k != "sp_mode":
+            raise KeyError(f"Unknown config key {k!r} for ParallelConfig")
+
+
 @dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    model_path: Optional[str] = None
+    profile: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
+        _check_single_device(d.get("parallel"))
+        return cls(
+            model=_build(ModelConfig, "model", d.get("model")),
+            quant=_build(QuantConfig, "quant", d.get("quant")),
+            runtime=_build(RuntimeConfig, "runtime", d.get("runtime")),
+            model_path=d.get("model_path"),
+            profile=bool(d.get("profile", False)),
+        )
+
+    @classmethod
+    def from_json(cls, path: str | pathlib.Path) -> "EngineConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def to_dict(self) -> Dict[str, Any]:
+        def clean(v):
+            if isinstance(v, enum.Enum):
+                return v.value
+            if isinstance(v, dict):
+                return {k: clean(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [clean(x) for x in v]
+            return v
+
+        return clean(dataclasses.asdict(self))
 
 
 def tiny_test_config() -> EngineConfig:
@@ -122,5 +229,7 @@ def tiny_test_config() -> EngineConfig:
         latent_height=8,
         latent_width=8,
         denoising_step_list=(1000, 500),
+        frames_per_segment=4,
+        overlap_frames=1,
     )
     return cfg

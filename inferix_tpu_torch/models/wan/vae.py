@@ -1,4 +1,4 @@
-"""Wan 2.1 causal 3D VAE, the decode path (port of
+"""Wan 2.1 causal 3D VAE, encode and decode (port of
 `inferix_tpu/models/wan/vae.py`).
 
 Latents [B, T, h, w, z] (channels last, normalised per channel) decode
@@ -7,7 +7,10 @@ temporal conv keeps the last kt - 1 input frames of the previous chunk in an
 explicit cache dict (zeros at the stream's start, the reference's causal
 padding), so decoding in chunks equals decoding frame by frame; the first
 chunk's 'Rep' rule passes the stream's first frame through the temporal
-upsample untouched.
+upsample untouched. Encoding runs the other way, pixels [B, 1 + 4k, H, W, 3]
+in chunks of 1 frame, then 4, to latents [B, 1 + k, H/8, W/8, z] (the
+posterior mean, normalised); its temporal downsample keeps the last frame of
+the previous chunk.
 
 The JAX package's process-wide switches `set_vae_conv_impl` and
 `set_vae_upsample_impl` are arguments of `CausalVAE` here:
@@ -16,15 +19,16 @@ The JAX package's process-wide switches `set_vae_conv_impl` and
 - "shifted_matmul": stride-1 convs as kt*kh*kw tap-shifted matrix products
   in f32;
 - "halo": the 3x3x3 stride-1 SAME convs whose frames hold H*W >= 256 pixels
-  go to `ops.halo_conv.halo_conv3d` (the bf16 halo conv kernel on the card);
+  go to `ops.halo_conv.halo_conv3d` (the bf16 halo conv kernel on the card),
+  the encoder's RGB input conv (Cin 3) included;
 - "halo_w8a8": those and the 1x3x3 upsample convs go to
-  `halo_conv3d_w8a8` (the W8A8 kernel; a lossy serving mode).
+  `halo_conv3d_w8a8` (the W8A8 kernel; a lossy serving mode). The encoder's
+  1x3x3 downsample convs have stride 2 and stay on `F.conv3d`, as the JAX
+  package keeps them on `lax.conv`, and so does every temporal `time_conv`.
 The kernels run on CUDA tensors and their plain versions on CPU tensors;
 where the JAX package falls back to XLA off the TPU, the port never falls
 back on the card. upsample_impl "repeat" (nearest 2x, then the 3x3 conv) or
 "phase" (four 2x2 convs at low resolution, exact; not under halo_w8a8).
-
-The encoder, `encode` and the downsample modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -253,9 +257,21 @@ def _upsample2x_conv3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def resample(p: Params, x: torch.Tensor, ctx: _CacheCtx, mode: str) -> torch.Tensor:
+    if mode in ("downsample2d", "downsample3d"):
+        x = _conv3d(p["conv"], x, ctx.conv_impl, s_stride=2, spatial_pad="down")
+        if mode == "downsample3d":
+            name = ctx.slot()
+            if ctx.first:
+                # the stream's first frame passes; it seeds the cache
+                ctx.push(name, x[:, -1:])
+            else:
+                cache = ctx.pull(name, x, (x.shape[0], 1, *x.shape[2:]))
+                ctx.push(name, x[:, -1:])
+                x = _conv3d(p["time_conv"], torch.cat([cache, x], dim=1),
+                            ctx.conv_impl, t_stride=2, spatial_pad="none")
+        return x
     if mode not in ("upsample2d", "upsample3d"):
-        raise NotImplementedError(f"resample mode {mode!r} (the encoder's) is not "
-                                  "ported yet")
+        raise ValueError(f"unknown resample mode {mode!r}")
     b, t, h, w, c = x.shape
     if mode == "upsample3d":
         name = ctx.slot()
@@ -282,8 +298,25 @@ def resample(p: Params, x: torch.Tensor, ctx: _CacheCtx, mode: str) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# Decoder
+# Encoder / Decoder
 # ---------------------------------------------------------------------------
+
+def encoder_apply(p: Params, x: torch.Tensor, ctx: _CacheCtx) -> torch.Tensor:
+    x = causal_conv3d(p["conv1"], x, ctx)
+    for layer in p["downsamples"]:
+        if "res" in layer:
+            x = res_block(layer["res"], x, ctx)
+        elif "attn" in layer:
+            x = attn_block(layer["attn"], x, ctx.conv_impl)
+        else:
+            (key,) = layer.keys()
+            x = resample(layer[key], x, ctx, mode=key.split(":")[1])
+    x = res_block(p["middle"]["res1"], x, ctx)
+    x = attn_block(p["middle"]["attn"], x, ctx.conv_impl)
+    x = res_block(p["middle"]["res2"], x, ctx)
+    x = F.silu(rms_norm_spatial(p["head_norm"], x))
+    return causal_conv3d(p["head_conv"], x, ctx)
+
 
 def decoder_apply(p: Params, x: torch.Tensor, ctx: _CacheCtx) -> torch.Tensor:
     x = causal_conv3d(p["conv1"], x, ctx)
@@ -322,11 +355,12 @@ def _pack_halo_weights(tree, conv_impl: str) -> None:
 
 
 class CausalVAE:
-    """Chunked streaming decode of the Wan causal VAE.
+    """Chunked streaming encode and decode of the Wan causal VAE.
 
-    params: the JAX package's tree (`{"decoder": ..., "conv2": ...}`, e.g.
-    from `utils.params.params_from_numpy`; an encoder subtree is ignored),
-    or None to draw one from seed 0 (`utils.params.init_vae_params`).
+    params: the JAX package's tree (`{"encoder", "decoder", "conv1",
+    "conv2"}`, e.g. from `utils.params.params_from_numpy`; a tree without
+    the encoder and conv1 decodes only), or None to draw one from seed 0
+    (`utils.params.init_vae_params`).
     float32 leaves are cast to `dtype` (bf16 is the serving dtype). On the
     card the halo conv impls lay out the weights of the convs their kernel
     takes once, here."""
@@ -349,7 +383,8 @@ class CausalVAE:
             from ...utils.params import init_vae_params
             params = init_vae_params(
                 cfg, torch.Generator(device=self.device).manual_seed(0), self.device)
-        self.params = _cast_tree({k: params[k] for k in ("decoder", "conv2")}, dtype)
+        self.params = _cast_tree({k: params[k] for k in ("encoder", "decoder", "conv1",
+                                                         "conv2") if k in params}, dtype)
         if self.device.type == "cuda":
             _pack_halo_weights(self.params, conv_impl)
 
@@ -388,3 +423,35 @@ class CausalVAE:
                                            first=(i == 0))
             chunks.append(out)
         return torch.clamp(torch.cat(chunks, dim=1), -1.0, 1.0)
+
+    @torch.inference_mode()
+    def encode_chunk(self, x: torch.Tensor, cache: Optional[Cache],
+                     first: bool) -> Tuple[torch.Tensor, Cache]:
+        """Encode pixel frames [B, T, H, W, 3] (the stream's first chunk 1
+        frame, every other 4) to the normalised posterior mean [B, 1, H/8,
+        W/8, z], carrying the temporal cache from chunk to chunk."""
+        if "encoder" not in self.params:
+            raise ValueError("these VAE parameters hold no encoder")
+        ctx = _CacheCtx(cache, first, self.conv_impl, self.upsample_impl)
+        x = x.to(device=self.device, dtype=self.dtype)
+        out = encoder_apply(self.params["encoder"], x, ctx)
+        mu = _conv3d(self.params["conv1"], out, self.conv_impl)[..., :self.cfg.z_dim]
+        mean, std = self._latent_stats(mu)
+        return (mu - mean) / std, ctx.cache
+
+    def encode(self, video: torch.Tensor) -> torch.Tensor:
+        """video [B, T, H, W, 3] in [-1, 1] with T = 1 + 4k -> latents
+        [B, 1 + k, H/8, W/8, z]: the first frame alone, then 4 frames a
+        chunk."""
+        t = video.shape[1]
+        if (t - 1) % 4:
+            raise ValueError(f"pixel frames must be 1 + 4k, got {t}")
+        outs: List[torch.Tensor] = []
+        cache: Optional[Cache] = None
+        pos = 0
+        for i in range(1 + (t - 1) // 4):
+            n = 1 if i == 0 else 4
+            out, cache = self.encode_chunk(video[:, pos:pos + n], cache, first=(i == 0))
+            outs.append(out)
+            pos += n
+        return torch.cat(outs, dim=1)

@@ -21,10 +21,15 @@ The kernels read the weight as [kt, 9, Cout, Cin]: per tap, each output
 channel's Cin values contiguous (the rows of the TMA box that is wgmma's B
 operand). `pack_weight` builds that operand (for W8A8 the weight codes and
 s_w) once per conv; a caller that keeps it passes it as `packed`, else each
-call builds it. `tile_plan` picks the kernel's tile for a conv class. The
-activation scale stays per call, as in the JAX contract: on the card
-`quantize_conv_act` computes it and the codes in one fused pair of passes
-(absmax, then codes), bit-equal to its plain version `_quantize_conv_act`.
+call builds it. TMA needs 16-byte rows, so the kernels take Cin a multiple
+of 8 (bf16) or 16 (s8 codes): for any other Cin (the VAE encoder's RGB
+input, Cin 3) `pack_weight` pads the operand's Cin with zero weights and the
+wrapper pads x's channels with zeros. The sums are unchanged, and so are
+B7's scales (the zeros raise no absmax), so this is exact. `tile_plan`
+picks the kernel's tile for a conv class. The activation scale stays per
+call, as in the JAX contract: on the card `quantize_conv_act` computes it
+and the codes in one fused pair of passes (absmax, then codes), bit-equal
+to its plain version `_quantize_conv_act`.
 
 On CUDA tensors each wrapper launches its kernel (bfloat16 x) or raises; it
 never falls back. On CPU tensors it takes its plain version.
@@ -257,17 +262,26 @@ class PackedWeight(NamedTuple):
     s_w: Optional[torch.Tensor]
 
 
+def padded_cin(cin: int, width: int) -> int:
+    """Cin rounded up to a multiple of width: 8 for bf16, 16 for s8 codes."""
+    return -(-cin // width) * width
+
+
 def pack_weight(w: torch.Tensor, w8a8: bool = False) -> PackedWeight:
-    """w [kt, 3, 3, Cin, Cout] -> the operand of the bf16 (or W8A8) kernel."""
+    """w [kt, 3, 3, Cin, Cout] -> the operand of the bf16 (or W8A8) kernel,
+    [kt, 9, Cout, Cin'] with Cin' = Cin rounded up to a multiple of 8 (16
+    for W8A8) and zero weights past Cin. s_w is the scale of the unpadded
+    weight."""
     w_el, s_w = quantize_conv_weight(w) if w8a8 else (w.to(torch.bfloat16), None)
     kt, _, _, cin, cout = w_el.shape
-    wk = w_el.permute(0, 1, 2, 4, 3).reshape(kt, 9, cout, cin).contiguous()
-    return PackedWeight(wk, s_w)
+    wk = w_el.permute(0, 1, 2, 4, 3).reshape(kt, 9, cout, cin)
+    return PackedWeight(F.pad(wk, (0, padded_cin(cin, 16 if w8a8 else 8) - cin))
+                        .contiguous(), s_w)
 
 
 def _check_packed(packed: PackedWeight, w: torch.Tensor, w8a8: bool) -> None:
     kt, _, _, cin, cout = w.shape
-    want = (kt, 9, cout, cin)
+    want = (kt, 9, cout, padded_cin(cin, 16 if w8a8 else 8))
     dtype = torch.int8 if w8a8 else torch.bfloat16
     if (tuple(packed.wk.shape) != want or packed.wk.dtype != dtype
             or packed.wk.device != w.device or (packed.s_w is None) == w8a8):
@@ -276,7 +290,10 @@ def _check_packed(packed: PackedWeight, w: torch.Tensor, w8a8: bool) -> None:
                          f"(want {want} {dtype}, from pack_weight(w, w8a8={w8a8}))")
 
 
-def _check_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, width: int):
+def _kernel_input(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, width: int
+                  ) -> torch.Tensor:
+    """Check the CUDA operands; return x as the kernel reads it, its
+    channels zero-padded to a multiple of width (16-byte rows)."""
     if not (w.is_cuda and b.is_cuda and w.device == x.device == b.device):
         raise ValueError("x, w and b must lie on the same CUDA device")
     if x.dtype != torch.bfloat16:
@@ -284,9 +301,8 @@ def _check_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, width: int):
                         f"{x.dtype} (the plain version takes float32 on the CPU)")
     if not x.is_contiguous():
         raise ValueError(f"x must be contiguous, got strides {x.stride()}")
-    if x.shape[-1] % width:
-        raise ValueError(f"the kernel needs Cin a multiple of {width} (16-byte "
-                         f"loads), got {x.shape[-1]}")
+    pad = padded_cin(x.shape[-1], width) - x.shape[-1]
+    return F.pad(x, (0, pad)) if pad else x
 
 
 def halo_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -294,9 +310,9 @@ def halo_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Stride-1, spatial-SAME, temporal-VALID conv with bias, f32
     accumulation: x [Tin, H, W, Cin], w [kt, 3, 3, Cin, Cout], b [Cout] ->
     [Tin - kt + 1, H, W, Cout] in x's dtype. On CUDA tensors this launches
-    the bf16 kernel (Cin a multiple of 8) on `packed` (`pack_weight(w)`,
-    built here if None) and counts the launch in `halo_conv3d.launches`; on
-    CPU tensors it takes the plain version."""
+    the bf16 kernel on `packed` (`pack_weight(w)`, built here if None; x's
+    channels zero-padded to a multiple of 8) and counts the launch in
+    `halo_conv3d.launches`; on CPU tensors it takes the plain version."""
     kt, _, cout, _ = _geometry(x, w, b)
     if packed is not None:
         _check_packed(packed, w, False)
@@ -304,9 +320,9 @@ def halo_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if w.is_cuda or b.is_cuda:
             raise ValueError("x, w and b must lie on one device")
         return halo_conv3d_reference(x, w, b)
-    _check_cuda(x, w, b, 8)
+    xk = _kernel_input(x, w, b, 8)
     packed = packed if packed is not None else pack_weight(w)
-    out = _launch(x, packed.wk, b, None, None, kt, cout, False)
+    out = _launch(xk, packed.wk, b, None, None, kt, cout, False)
     halo_conv3d.launches += 1
     return out
 
@@ -319,7 +335,8 @@ def halo_conv3d_w8a8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """The same conv in W8A8 (per-tensor activation scale, per-output-channel
     weight scale, exact int32 sums, f32 epilogue): a lossy serving mode. On
     CUDA tensors this quantizes x (`quantize_conv_act`, its own kernel and
-    count) and launches the int8 kernel (bf16 x, Cin a multiple of 16) on
+    count; x's channels zero-padded to a multiple of 16 first, which moves
+    neither s_x nor a code) and launches the int8 kernel (bf16 x) on
     `packed` (`pack_weight(w, w8a8=True)`, built here if None), counting the
     launch in `halo_conv3d_w8a8.launches`; on CPU tensors it takes the plain
     version."""
@@ -330,9 +347,9 @@ def halo_conv3d_w8a8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if w.is_cuda or b.is_cuda:
             raise ValueError("x, w and b must lie on one device")
         return halo_conv3d_w8a8_reference(x, w, b)
-    _check_cuda(x, w, b, 16)
+    xk = _kernel_input(x, w, b, 16)
     packed = packed if packed is not None else pack_weight(w, w8a8=True)
-    x_q, s_x = quantize_conv_act(x)
+    x_q, s_x = quantize_conv_act(xk)
     out = _launch(x_q, packed.wk, b, s_x, packed.s_w, kt, cout, True)
     halo_conv3d_w8a8.launches += 1
     return out

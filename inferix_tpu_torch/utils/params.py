@@ -2,8 +2,8 @@
 or drawn from a seed.
 
 The tree is the JAX package's own layout (`causal_dit.py:init_params`,
-`vae.py:init_decoder`): nested dicts (and, in the VAE decoder, a list of
-`upsamples`) whose transformer-block leaves are stacked on a leading [L]
+`vae.py:init_encoder`, `init_decoder`): nested dicts (and, in the VAE, the
+lists `downsamples` and `upsamples`) whose transformer-block leaves are stacked on a leading [L]
 axis, linear weights stored [in, out], conv weights [kt, kh, kw, in, out].
 The port keeps that layout, so a layer is a view `leaf[l]` and a checkpoint
 converted for one package fits both.
@@ -118,12 +118,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_vae_params(cfg, generator: torch.Generator,
                     device: str | torch.device = "cuda",
                     dtype: torch.dtype = torch.float32) -> Params:
-    """Random VAE decode parameters `{"decoder": ..., "conv2": ...}` from the
-    same distributions as the JAX package's `init_decoder` and the
-    `CausalVAE` 1x1x1 conv (not the same bits): conv weights and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), RMS-norm gammas 1, and the attention
-    output projections zero (the reference's init). cfg: a
-    `models.wan.vae.VAEConfig`; `generator` must live on `device`."""
+    """Random VAE parameters `{"encoder", "decoder", "conv1", "conv2"}` from
+    the same distributions as the JAX package's `init_encoder`,
+    `init_decoder` and the `CausalVAE` 1x1x1 convs (not the same bits): conv
+    weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), RMS-norm gammas
+    1, and the attention output projections zero (the reference's init).
+    The decoder and conv2 are drawn first, then the encoder and conv1, so a
+    generator seeded alike gives the decoder the bits it had before the
+    encoder was drawn too. cfg: a `models.wan.vae.VAEConfig`; `generator`
+    must live on `device`."""
     dev = resolve_device(device)
 
     def conv(kt, kh, kw, cin, cout):
@@ -151,6 +154,11 @@ def init_vae_params(cfg, generator: torch.Generator,
                          "b": torch.zeros(c, dtype=dtype, device=dev)}}
 
     def resample(c, mode):
+        if mode.startswith("downsample"):
+            p = {"conv": conv(1, 3, 3, c, c)}
+            if mode == "downsample3d":
+                p["time_conv"] = conv(3, 1, 1, c, c)
+            return p
         p = {"conv": conv(1, 3, 3, c, c // 2)}
         if mode == "upsample3d":
             p["time_conv"] = conv(3, 1, 1, c, 2 * c)
@@ -177,4 +185,26 @@ def init_vae_params(cfg, generator: torch.Generator,
     dec["upsamples"] = ups
     dec["head_norm"] = gamma(cfg.dim)
     dec["head_conv"] = conv(3, 3, 3, cfg.dim, 3)
-    return {"decoder": dec, "conv2": conv(1, 1, 1, cfg.z_dim, cfg.z_dim)}
+    conv2 = conv(1, 1, 1, cfg.z_dim, cfg.z_dim)
+
+    dims = [cfg.dim * u for u in (1, *cfg.dim_mult)]
+    enc: Params = {"conv1": conv(3, 3, 3, 3, dims[0])}
+    downs: List[Params] = []
+    scale = 1.0
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        for _ in range(cfg.num_res_blocks):
+            downs.append({"res": res(cin, cout)})
+            if scale in cfg.attn_scales:
+                downs.append({"attn": attn(cout)})
+            cin = cout
+        if i != len(cfg.dim_mult) - 1:
+            mode = "downsample3d" if cfg.temperal_downsample[i] else "downsample2d"
+            downs.append({f"resample:{mode}": resample(cout, mode)})
+            scale /= 2.0
+    enc["downsamples"] = downs
+    enc["middle"] = {"res1": res(dims[-1], dims[-1]), "attn": attn(dims[-1]),
+                     "res2": res(dims[-1], dims[-1])}
+    enc["head_norm"] = gamma(dims[-1])
+    enc["head_conv"] = conv(3, 3, 3, dims[-1], 2 * cfg.z_dim)
+    conv1 = conv(1, 1, 1, 2 * cfg.z_dim, 2 * cfg.z_dim)
+    return {"encoder": enc, "decoder": dec, "conv1": conv1, "conv2": conv2}

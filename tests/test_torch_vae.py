@@ -330,8 +330,9 @@ def _leaves(tree, path=()):
 def test_vae_param_bridge_and_seeded_init(tiny):
     """params_from_numpy walks the decoder's `upsamples` list and keeps every
     leaf's value; init_vae_params draws a tree of the JAX init's structure
-    and shapes, from its distributions (U(+-1/sqrt(fan_in)) convs, zero
-    attention projections, unit gammas)."""
+    and shapes (encoder, decoder and both 1x1x1 convs), from its
+    distributions (U(+-1/sqrt(fan_in)) convs, zero attention projections,
+    unit gammas)."""
     cfg, params, _ = tiny
     bridged = _leaves(params_from_numpy(params, "cpu", torch.float32))
     want = _leaves(params)
@@ -340,7 +341,9 @@ def test_vae_param_bridge_and_seeded_init(tiny):
         np.testing.assert_array_equal(t.numpy(), j)
     seeded = init_vae_params(tvae.VAEConfig(**TINY), torch.Generator().manual_seed(0),
                              device="cpu")
-    jdec = {"decoder": jvae.init_decoder(jax.random.key(1), cfg), "conv2": params["conv2"]}
+    jdec = {"encoder": jvae.init_encoder(jax.random.key(2), cfg),
+            "decoder": jvae.init_decoder(jax.random.key(1), cfg),
+            "conv1": params["conv1"], "conv2": params["conv2"]}
     assert [(p, tuple(t.shape)) for p, t in _leaves(seeded)] == \
         [(p, tuple(a.shape)) for p, a in _leaves(jdec)]
     head = seeded["decoder"]["head_conv"]["w"]
@@ -348,3 +351,169 @@ def test_vae_param_bridge_and_seeded_init(tiny):
     assert head.abs().max() <= bound and head.std() > bound / 3
     assert not seeded["decoder"]["middle"]["attn"]["proj"]["w"].any()
     assert (seeded["decoder"]["head_norm"]["gamma"] == 1).all()
+
+
+
+# ---------------------------------------------------------------------------
+# The encoder
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_enc(tiny):
+    """The tiny VAE's tree with the encoder's attention output projection
+    drawn too, and a 9-frame clip of 16x24 pixels in [-1, 1] (the halo gate
+    takes the convs at full resolution: H*W = 384)."""
+    cfg, params, _ = tiny
+    params = jax.tree.map(np.array, params)
+    proj = params["encoder"]["middle"]["attn"]["proj"]
+    rng = np.random.default_rng(6)
+    proj["w"] = (rng.standard_normal(proj["w"].shape) * 0.1).astype(np.float32)
+    video = rng.uniform(-1, 1, (1, 9, 16, 24, 3)).astype(np.float32)
+    return cfg, params, video
+
+
+def _ctx(pkg, cache, first):
+    if pkg is jvae:
+        return jvae._CacheCtx(cache, first)
+    return tvae._CacheCtx(cache, first, "xla", "repeat")
+
+
+@pytest.mark.parametrize("mode", ["downsample2d", "downsample3d"])
+def test_resample_downsample_matches_jax(mode):
+    """resample's downsample modes over three chunks (1, then 4, then 4
+    frames: the first chunk seeds the temporal cache, the later ones run
+    the stride-2 time conv on it): the outputs and the carried cache."""
+    rng = np.random.default_rng(8)
+    c = 16
+    p = {"conv": {"w": rng.standard_normal((1, 3, 3, c, c)).astype(np.float32) * 0.1,
+                  "b": rng.standard_normal((c,)).astype(np.float32) * 0.1}}
+    if mode == "downsample3d":
+        p["time_conv"] = {"w": rng.standard_normal((3, 1, 1, c, c)).astype(np.float32) * 0.1,
+                          "b": rng.standard_normal((c,)).astype(np.float32) * 0.1}
+    tp = params_from_numpy(p, "cpu", torch.float32)
+    jcache = tcache = None
+    for i, t in enumerate((1, 4, 4)):
+        x = rng.standard_normal((1, t, 10, 14, c)).astype(np.float32)
+        jctx, tctx = _ctx(jvae, jcache, i == 0), _ctx(tvae, tcache, i == 0)
+        want = jvae.resample(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jctx, mode)
+        got = tvae.resample(tp, torch.from_numpy(x), tctx, mode)
+        assert got.shape == want.shape == (1, 2 if i and mode == "downsample3d" else t,
+                                           5, 7, c)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
+        jcache, tcache = jctx.cache, tctx.cache
+        assert sorted(tcache) == sorted(jcache)
+        for k in jcache:
+            np.testing.assert_allclose(tcache[k].numpy(), np.asarray(jcache[k]), **DECODE_TOL)
+
+
+def test_encoder_apply_chunk_by_chunk(tiny_enc):
+    """encoder_apply over a 9-frame clip in chunks of 1, 4, 4 with the
+    caches carried: each chunk's output [1, t', 8, 12, 2z] against JAX."""
+    cfg, params, video = tiny_enc
+    tp = params_from_numpy(params["encoder"], "cpu", torch.float32)
+    jp = jax.tree.map(jnp.asarray, params["encoder"])
+    jcache = tcache = None
+    pos = 0
+    for i, n in enumerate((1, 4, 4)):
+        x = video[:, pos:pos + n]
+        pos += n
+        jctx, tctx = _ctx(jvae, jcache, i == 0), _ctx(tvae, tcache, i == 0)
+        want = jvae.encoder_apply(jp, jnp.asarray(x), jctx)
+        got = tvae.encoder_apply(tp, torch.from_numpy(x), tctx)
+        assert got.shape == want.shape == (1, 1 if i == 0 else 2, 8, 12, 2 * cfg.z_dim)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
+        jcache, tcache = jctx.cache, tctx.cache
+
+
+@pytest.mark.parametrize("frames", [1, 5, 9])
+@pytest.mark.parametrize("conv_impl", ["xla", "halo"])
+def test_encode_matches_jax(tiny_enc, conv_impl, frames):
+    """CausalVAE.encode of 1, 5 and 9 frames (the tiny config halves time
+    once: 1, 3 and 5 latent frames) through "xla" and "halo" (the JAX halo
+    kernel in interpret mode; the port's plain version, Cin 3 at the input
+    conv), normalised posterior means against JAX at DECODE_TOL."""
+    cfg, params, video = tiny_enc
+    x = video[:, :frames]
+    try:
+        jvae.set_vae_conv_impl(conv_impl, interpret_ok=True)
+        want = np.asarray(jvae.CausalVAE(cfg, params=jax.tree.map(jnp.asarray, params))
+                          .encode(jnp.asarray(x)))
+    finally:
+        jvae.set_vae_conv_impl("xla")
+    got = _port_vae(cfg, params, conv_impl).encode(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, 1 + (frames - 1) // 2, 8, 12, cfg.z_dim)
+    np.testing.assert_allclose(got, want, **DECODE_TOL)
+
+
+def test_encode_refuses_other_frame_counts(tiny_enc):
+    cfg, params, video = tiny_enc
+    vae = _port_vae(cfg, params)
+    for t in (2, 4, 8):
+        with pytest.raises(ValueError, match="1 \\+ 4k"):
+            vae.encode(torch.from_numpy(video[:, :t]))
+    with pytest.raises(ValueError, match="no encoder"):
+        tvae.CausalVAE(tvae.VAEConfig(**TINY), {k: v for k, v in params_from_numpy(
+            params, "cpu", torch.float32).items() if k in ("decoder", "conv2")},
+            dtype=torch.float32, device="cpu").encode(torch.from_numpy(video[:, :1]))
+
+
+def test_encoder_halo_routing(tiny_enc, monkeypatch):
+    """The gate on the encoder: "halo" and "halo_w8a8" take the same convs
+    (the stride-1 3x3x3 ones at H*W >= 256, the RGB input conv with Cin 3
+    among them; the stride-2 downsample convs stay on F.conv3d, so W8A8
+    adds no 1x3x3 conv), the same number in every chunk."""
+    cfg, params, video = tiny_enc
+    seen = {}
+    for impl, name in (("halo", "halo_conv3d"), ("halo_w8a8", "halo_conv3d_w8a8")):
+        orig = getattr(tvae, name)
+        monkeypatch.setattr(tvae, name, lambda x, w, b, packed=None, _o=orig, _i=impl: (
+            seen[_i].append((tuple(w.shape[:4]), x.shape[1] * x.shape[2])),
+            _o(x, w, b, packed=packed))[1])
+    for impl in ("halo", "halo_w8a8"):
+        seen[impl] = []
+        _port_vae(cfg, params, impl).encode(torch.from_numpy(video[:, :5]))
+    assert seen["halo"] == seen["halo_w8a8"]
+    assert all(k[:3] == (3, 3, 3) and hw >= 256 for k, hw in seen["halo"])
+    # per chunk: the input conv (Cin 3) and the full-resolution res block's
+    # two convs
+    assert [k[3] for k, _ in seen["halo"]] == [3, 16, 16] * 2
+
+
+@pytest.mark.parametrize("cin,w8a8,padded", [(3, False, 8), (3, True, 16), (24, True, 32),
+                                             (12, False, 16), (16, False, 16)])
+def test_pack_weight_pads_cin_with_zero_weights(cin, w8a8, padded):
+    """Cin that is not a multiple of 8 (bf16) or 16 (W8A8): the operand is
+    [kt, 9, Cout, Cin'] with Cin' the next multiple, wk[dt, 3 dh + dw, n, c]
+    = w[dt, dh, dw, c, n] below Cin and 0 above, built directly here; s_w is
+    the unpadded weight's; the wrappers on CPU tensors take it and return
+    the plain version's output."""
+    x, wt, b = map(torch.from_numpy, _conv_inputs(3, 6, 7, cin, 24, 3, seed=13))
+    packed = thc.pack_weight(wt, w8a8=w8a8)
+    if w8a8:
+        w_el, s_w = thc.quantize_conv_weight(wt)
+        assert torch.equal(packed.s_w, s_w)
+    else:
+        w_el = wt.to(torch.bfloat16)
+    want = torch.zeros(3, 9, 24, padded, dtype=w_el.dtype)
+    for dt in range(3):
+        for dh in range(3):
+            for dw in range(3):
+                for c in range(cin):
+                    want[dt, 3 * dh + dw, :, c] = w_el[dt, dh, dw, c, :]
+    assert packed.wk.is_contiguous() and thc.padded_cin(cin, 16 if w8a8 else 8) == padded
+    assert torch.equal(packed.wk, want)
+    kern, plain = ((thc.halo_conv3d_w8a8, thc.halo_conv3d_w8a8_reference) if w8a8
+                   else (thc.halo_conv3d, thc.halo_conv3d_reference))
+    assert torch.equal(kern(x, wt, b, packed=packed), plain(x, wt, b))
+
+
+def test_vae_keeps_the_encoder_and_packs_its_halo_convs(tiny_enc):
+    """CausalVAE keeps the encoder and conv1 beside the decoder and conv2;
+    packing for the card gives the encoder's 3x3x3 convs (the RGB input
+    conv's operand padded to Cin 8) their operands."""
+    cfg, params, _ = tiny_enc
+    vae = _port_vae(cfg, params, "halo")
+    assert sorted(vae.params) == ["conv1", "conv2", "decoder", "encoder"]
+    tvae._pack_halo_weights(vae.params, "halo")
+    assert vae.params["encoder"]["conv1"]["packed"].wk.shape == (3, 9, 16, 8)
+    assert vae.params["encoder"]["head_conv"]["packed"].wk.shape == (3, 9, 2 * cfg.z_dim, 32)
