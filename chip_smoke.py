@@ -125,6 +125,43 @@ Phases, each timed on a line of its own:
                 the plain versions, offload to pinned host and back, clear()
                 freeing the cache's bytes). Seconds a block and the time to
                 the first block beside the card's name and power limit.
+ 16. text encoders - WanTextEncoder at UMT5-XXL width and depth (bf16, the
+                byte stand-in tokenizer, B=2 prompts of other lengths over 512
+                tokens): padded rows exactly 0, the features against the
+                float32 run on the same weights, stream_layers=True bit-equal
+                to the resident run with both runs' peak device bytes;
+                clip_vision_encode (ViT-H/14, 224^2 -> 257 x 1280) and
+                xlm_roberta_clip_text (large) against their float32 runs;
+                seconds of each encode.
+ 17. umt5 pipeline - phase 15's run_text_to_video (W8A8, 21 frames,
+                AFTER_ALL) fed by that UMT5 encoder: latents bit-equal to
+                SemiARGenerator.generate on the same features and draws,
+                launches a block, the time to the first block.
+ 18. cfg        - CausalDiffusionPipeline, Wan2.1-T2V-1.3B bf16, B=1 (a
+                2-row cache), positive and negative prompts through UMT5:
+                UniPC with 20 steps over 2 blocks ((steps + 1) x 30 B1 a
+                block), one forward at B=2 against plain attention, then
+                DPM++ with 8 steps over 1 block at guidance 5 and 0 (the
+                latents differ); seconds a block.
+ 19. causvid    - CausVidPipeline.run_rollouts, fp8 weight-only linears and
+                the int8 KV cache, 2 rollouts of 9 frames with a 3-frame
+                overlap, the bf16 halo VAE: B8 900 / B2 150 / B4 300 a block,
+                B6 in every decode chunk and the boundary encode, segment 2
+                starting from the re-encoded boundary frame, pixel shapes
+                after the trim.
+ 20. continuous - ContinuousBatcher, W8A8 + int8 KV, 2 slots: streams
+                admitted at steps 0 and 1, one retired after 3 blocks and
+                another admitted into its slot at position 0; the 12-frame
+                ring with 1 sink; each stream against itself alone at B=1
+                with the same draws; B2 launches a step.
+ 21. i2v-14B    - Wan2.1-I2V-14B widths (dim 5120, 40 x 128 heads, ffn 13824,
+                40 layers, in_dim 36), W8A8 drawn and quantized layer by
+                layer, the bf16 21-frame cache: B3 / B4 / B5 / B1 (40 heads)
+                against their plain versions at its shapes; the text and
+                CLIP K/V (phase 16's features), 2 blocks of
+                dit_forward_inference (4 denoise + 1 context forward) on
+                36-channel inputs at 480x832, launches a block, peak device
+                bytes; one layer and one forward against every plain version.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -135,6 +172,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -152,10 +190,18 @@ import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
 from inferix_tpu_torch.core.config import EngineConfig
 from inferix_tpu_torch.core.interactive import InteractiveSession
+from inferix_tpu_torch.core.memory import tree_map
 from inferix_tpu_torch.core.types import DecodeMode, StreamingMode
 from inferix_tpu_torch.kvcache.manager import KVCacheRequest
+from inferix_tpu_torch.models.text.clip_vision import (
+    CLIPVisionConfig, clip_vision_encode, init_clip_vision_params)
+from inferix_tpu_torch.models.text import umt5 as umt5_mod
+from inferix_tpu_torch.models.text.umt5 import (
+    UMT5Config, WanTextEncoder, init_umt5_params, umt5_encode)
+from inferix_tpu_torch.models.text.xlm_roberta import (
+    XLMRobertaConfig, init_xlm_roberta_params, xlm_roberta_clip_text)
 from inferix_tpu_torch.models.wan.causal_dit import (
-    dit_forward_inference, layer_params, block_forward, patch_embed,
+    dit_forward_inference, fuse_qkv_params, layer_params, block_forward, patch_embed,
     time_embeddings)
 from inferix_tpu_torch.kvcache.cache import quantize_kv_block, valid_mask
 from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
@@ -173,14 +219,17 @@ from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import rope_angles
+from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
+from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
+from inferix_tpu_torch.pipeline.self_forcing_cfg import CausalDiffusionPipeline
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
-from inferix_tpu_torch.quant.api import memory_bytes, quantize_params
+from inferix_tpu_torch.quant.api import memory_bytes, quantize_params, to_kernel_layout
 from inferix_tpu_torch.quant.kernels import (
     GEMM_LIBRARY, fp8_matmul, fp8_matmul_reference, gemm_plan, int8_matmul,
     int8_matmul_reference, quantize_act_int8_per_token, quantize_weight_fp8,
     quantize_weight_int8)
-from inferix_tpu_torch.utils.params import init_params, init_vae_params
+from inferix_tpu_torch.utils.params import init_block_params, init_params, init_vae_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -2709,6 +2758,673 @@ def quant_attention_kernel_phase(dev: torch.device) -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# The text and image encoders (A10) and the other Wan pipelines (A11: CFG,
+# CausVid, continuous batching), and the I2V-14B DiT: phases 16-21
+# ---------------------------------------------------------------------------
+
+# bf16 against the float32 run of the same function on the same weights, in
+# norm over the real positions: each bf16 layer rounds its products and
+# elementwise results (2^-9 relative a rounding); a misplaced rounding point
+# or a wrong op moves a layer's output by O(1) of its norm. CLIP and XLM-R
+# (scaled attention, logits of O(1)) are held end to end. UMT5's attention
+# is unscaled: under the JAX initialiser's N(0, 1/in) weights its logits
+# have a standard deviation of ~8 (64 products of unit q and k), its
+# softmax sits near one-hot and bf16's rounding of q and k moves which key
+# wins here and there; over 24 layers the two runs drift apart (0.66 of the
+# features' norm at UMT5-XXL on an NVIDIA H100 80GB HBM3 at 700 W). So UMT5 is held layer by layer:
+# each layer's update in bf16 against the same layer in float32 on the same
+# bf16 input, the bf16 output feeding the next layer; the end-to-end
+# difference is printed beside it.
+ENCODER_RTOL = 5e-2
+# A stream generated beside others against the same stream alone at B=1 (the
+# same per-slot draws): the W8A8 path's int8 sums are exact and every kernel
+# works row by row, so the rows can differ only where a library call (the
+# cuBLAS bf16 GEMMs of the patch embedding, the head and the batched
+# cross-attention products) picks another algorithm for another M; such a
+# one-ulp difference is carried through the blocks like FORWARD_RTOL's.
+STREAM_RTOL = 5e-2
+UMT5_PROMPTS = ("a red fox runs across a snowy field at dawn, its breath steaming "
+                "in the cold air", "a small boat")
+CFG_STEPS, CFG_BLOCKS, DPM_STEPS = 20, 2, 8
+I2V_14B = dict(model_type="i2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+               in_dim=36, out_dim=16)  # Wan-AI/Wan2.1-I2V-14B-480P config.json
+I2V_BLOCKS, I2V_COND = 2, 20           # 4 mask + 16 image-latent channels
+
+
+class ByteTokenizer:
+    """A deterministic stand-in for the UMT5 tokenizer (the HF call
+    signature): a prompt's UTF-8 bytes b -> ids 3 + b, then EOS 1, padded
+    with 0 to max_length, with the attention mask."""
+
+    def __call__(self, prompts, padding="max_length", truncation=True, max_length=512,
+                 return_tensors="np"):
+        import numpy as np
+        ids = np.zeros((len(prompts), max_length), np.int64)
+        mask = np.zeros((len(prompts), max_length), np.int64)
+        for i, p in enumerate(prompts):
+            toks = ([3 + b for b in p.encode()] + [1])[:max_length]
+            ids[i, :len(toks)], mask[i, :len(toks)] = toks, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def cast_tree(tree, dtype):
+    return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+
+
+def timed(fn):
+    """(fn(), seconds), the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t1
+
+
+def umt5_layer_errors(params, cfg: UMT5Config, ids: torch.Tensor,
+                      mask: torch.Tensor) -> list:
+    """Each UMT5 layer in bf16 against the same layer in float32 on the same
+    bf16 input: the rel err of its update over the real positions; the bf16
+    output feeds the next layer (umt5_encode's loop, teacher-forced)."""
+    dev = ids.device
+    buckets = torch.as_tensor(umt5_mod.relative_position_buckets(
+        ids.shape[1], cfg.num_buckets, cfg.max_dist), dtype=torch.long, device=dev)
+    mask_bias = torch.where(mask[:, None, None, :] > 0, torch.zeros((), device=dev),
+                            torch.full((), -1e9, device=dev))
+    real = mask[..., None].bool()
+    x = params["token_embedding"][ids]
+    errs = []
+    for i in range(cfg.num_layers):
+        blk = layer_params(params["blocks"], i)
+        ys = [umt5_mod._t5_layer_body(xx, blk, mask_bias, None, buckets, cfg.num_heads,
+                                      cfg.head_dim) for xx in (x, x.float())]
+        errs.append(rel_err(torch.where(real, ys[0].float() - x.float(), 0),
+                            torch.where(real, ys[1] - x.float(), 0)))
+        x = ys[0]
+    return errs
+
+
+def text_encoder_phase(dev: torch.device, smi: str):
+    """Phase 16: WanTextEncoder at UMT5-XXL width and depth (bf16, B=2
+    prompts of other lengths, text_len 512): padded rows exactly 0, the
+    features against the float32 run on the same weights, stream_layers=True
+    bit-equal to the resident run with both peaks; CLIP ViT-H/14 and XLM-R
+    large (CLIP text head) against their float32 runs. Returns (the resident
+    encoder, the CLIP features [1, 257, 1280] float32)."""
+    t0 = time.perf_counter()
+    cfg = UMT5Config()
+    g = torch.Generator(device=dev).manual_seed(16)
+    params, draw_s = timed(lambda: init_umt5_params(cfg, g, device=dev))
+    tower = memory_bytes(params)
+    print(f"text: UMT5-XXL drawn on the card ({tower / 2**30:.3f} GiB bf16): {draw_s:.3f} s",
+          flush=True)
+    tok = ByteTokenizer()
+    enc = WanTextEncoder(cfg, params=params, tokenizer=tok, device=dev)
+    lengths = [len(p.encode()) + 1 for p in UMT5_PROMPTS]
+    enc(UMT5_PROMPTS)  # warm-up: cuBLAS handles and kernels
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    feats, resident_s = timed(lambda: enc(UMT5_PROMPTS))
+    resident_peak = torch.cuda.max_memory_allocated(dev)
+    pad_zero = all(not feats[i, n:].any() for i, n in enumerate(lengths))
+    real_nonzero = all(bool(feats[i, :n].abs().amax(-1).gt(0).all())
+                       for i, n in enumerate(lengths))
+    ids = torch.as_tensor(tok(list(UMT5_PROMPTS))["input_ids"], device=dev)
+    mask = (ids > 0).to(torch.int32)
+    with torch.inference_mode():
+        f32, f32_s = timed(lambda: umt5_encode(
+            {**params, "token_embedding": params["token_embedding"].float()}, cfg, ids, mask))
+        layer_errs = umt5_layer_errors(params, cfg, ids, mask)
+    m = mask[..., None].bool()
+    err = rel_err(torch.where(m, feats.float(), 0), torch.where(m, f32, 0))
+    print(f"text: WanTextEncoder UMT5-XXL bf16, 2 prompts of {lengths} tokens over 512: "
+          f"{resident_s:.3f} s, peak device bytes {resident_peak} (tower {tower}, before "
+          f"the call {base}); padded rows exactly 0 {pad_zero}, real rows nonzero "
+          f"{real_nonzero}; each layer's update against float32 on its bf16 input: rel "
+          f"err max {max(layer_errs):.3e}, median {statistics.median(layer_errs):.3e} (tol "
+          f"{ENCODER_RTOL:g}); end to end against the float32 run ({f32_s:.3f} s) rel err "
+          f"{err:.3e} (the unscaled attention's drift, not a gate); {smi}", flush=True)
+    if not (pad_zero and real_nonzero and max(layer_errs) <= ENCODER_RTOL
+            and tuple(feats.shape) == (2, 512, cfg.dim)):
+        raise AssertionError("the UMT5 layers disagree with their float32 runs, or the "
+                             "padding is not zero")
+    del f32
+
+    # the tower on pinned host memory, streamed a layer at a time; the
+    # device copy dropped while the streamed encoder runs
+    streamed_enc, pin_s = timed(lambda: WanTextEncoder(cfg, params=params, tokenizer=tok,
+                                                       device=dev, stream_layers=True))
+    host = {k: streamed_enc.params[k] for k in ("blocks", "token_embedding")}
+    enc.params = None
+    del params
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    streamed, stream_s = timed(lambda: streamed_enc(UMT5_PROMPTS))
+    stream_peak = torch.cuda.max_memory_allocated(dev)
+    equal = torch.equal(streamed, feats)
+    print(f"text: stream_layers=True (blocks and embedding pinned on the host in "
+          f"{pin_s:.3f} s): {stream_s:.3f} s, peak device bytes {stream_peak} (before the "
+          f"call {base}) against the resident run's {resident_peak}; bit-equal to the "
+          f"resident run {equal}; {smi}", flush=True)
+    if not equal or stream_peak >= resident_peak:
+        raise AssertionError("the streamed UMT5 run differs from the resident one or "
+                             "did not lower the peak")
+    # the resident encoder again, for phases 17-18
+    enc.params = {**streamed_enc.params, **tree_map(lambda a: a.to(dev), host)}
+    del streamed_enc, streamed, host
+
+    # CLIP ViT-H/14 on a 224^2 image, bf16 against float32 (the same
+    # bf16-rounded weights)
+    ccfg = CLIPVisionConfig()
+    gc = torch.Generator(device=dev).manual_seed(161)
+    cparams = cast_tree(init_clip_vision_params(ccfg, gc, device=dev), torch.bfloat16)
+    image = torch.rand(1, ccfg.image_size, ccfg.image_size, 3, generator=gc, device=dev) * 2 - 1
+    with torch.inference_mode():
+        clip_vision_encode(cparams, ccfg, image.to(torch.bfloat16))  # warm-up
+        clip_bf16, clip_s = timed(lambda: clip_vision_encode(cparams, ccfg,
+                                                             image.to(torch.bfloat16)))
+        clip_f32, clip32_s = timed(lambda: clip_vision_encode(
+            cast_tree(cparams, torch.float32), ccfg, image))
+    clip_err = rel_err(clip_bf16, clip_f32)
+    print(f"text: clip_vision_encode ViT-H/14 (32 layers, width 1280) -> "
+          f"{tuple(clip_bf16.shape)}: bf16 {clip_s:.3f} s, float32 {clip32_s:.3f} s, rel err "
+          f"{clip_err:.3e} (tol {ENCODER_RTOL:g}); {smi}", flush=True)
+    if tuple(clip_bf16.shape) != (1, ccfg.num_tokens, ccfg.width) or not clip_err <= ENCODER_RTOL:
+        raise AssertionError("the CLIP tower disagrees with its float32 run")
+    del cparams, clip_bf16
+
+    # XLM-R large with the CLIP head (out 1024), 77 tokens of two prompts
+    xcfg = XLMRobertaConfig(out_dim=1024)
+    gx = torch.Generator(device=dev).manual_seed(162)
+    xparams = cast_tree(init_xlm_roberta_params(xcfg, gx, device=dev), torch.bfloat16)
+    xids = torch.full((2, 77), xcfg.pad_id, dtype=torch.long, device=dev)
+    for i, p in enumerate(UMT5_PROMPTS):
+        toks = [0] + [3 + b for b in p.encode()][:75] + [2]
+        xids[i, :len(toks)] = torch.tensor(toks, device=dev)
+    with torch.inference_mode():
+        xlm_roberta_clip_text(xparams, xcfg, xids)  # warm-up
+        x_bf16, xlm_s = timed(lambda: xlm_roberta_clip_text(xparams, xcfg, xids))
+        x_f32, xlm32_s = timed(lambda: xlm_roberta_clip_text(
+            cast_tree(xparams, torch.float32), xcfg, xids))
+    xlm_err = rel_err(x_bf16, x_f32)
+    print(f"text: xlm_roberta_clip_text large (24 layers, dim 1024) -> "
+          f"{tuple(x_bf16.shape)}: bf16 {xlm_s:.3f} s, float32 {xlm32_s:.3f} s, rel err "
+          f"{xlm_err:.3e} (tol {ENCODER_RTOL:g}); {smi}", flush=True)
+    if tuple(x_bf16.shape) != (2, xcfg.out_dim) or not xlm_err <= ENCODER_RTOL:
+        raise AssertionError("XLM-R disagrees with its float32 run")
+    del xparams
+    torch.cuda.empty_cache()
+    phase("text encoders", t0)
+    return enc, clip_f32
+
+
+def umt5_pipeline_phase(dev: torch.device, smi: str, enc) -> dict:
+    """Phase 17: phase 15's run_text_to_video (W8A8, 21 frames, AFTER_ALL)
+    with the UMT5-XXL WanTextEncoder: launches a block, the latents
+    bit-equal to SemiARGenerator.generate on the same features and draws,
+    the time to the first block (text encode included)."""
+    t0 = time.perf_counter()
+    cfg = pipeline_config()
+    m, r = cfg.model, cfg.runtime
+    pipe = SelfForcingPipeline(cfg, text_encoder=enc, device=dev)
+    pipe.setup()
+    gen = pipe.generator
+    want_block = w8a8_block_launches(gen, False)
+    want_text = {"int8_matmul": 2 * m.num_layers, "quantize_rows_int8": 2 * m.num_layers}
+    reset_counts()
+    marks, per_block = [all_counts()], []
+
+    def on_block(x0, bi):
+        marks.append(all_counts())
+        per_block.append(count_diff(marks[-1], marks[-2]))
+
+    (video, latents), t2v_s = timed(lambda: pipe.run_text_to_video(
+        ["a red fox"], return_latents=True, decode_mode=DecodeMode.AFTER_ALL,
+        block_callback=on_block))
+    path = all_counts()
+    blocks = r.num_frames // m.num_frame_per_block
+    want = [{k: v + want_text.get(k, 0) for k, v in want_block.items()}] \
+        + [want_block] * (blocks - 1)
+    shape = (1, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
+    with torch.inference_mode():
+        noise, g, renoise = pipe._draw_noise(r.seed, shape)
+        ref, _ = gen.generate(noise, pipe._encode_prompts(["a red fox"]), generator=g,
+                              renoise=renoise)
+    equal = torch.equal(ref, latents)
+    prof = pipe.profiler.summary()
+    print(f"pipeline with UMT5-XXL: t2v AFTER_ALL {t2v_s:.3f} s, time to the first block "
+          f"{prof['time_to_first_block_s']:.3f} s (text encode included), profiler s/block "
+          f"{', '.join(f'{b['time_ms'] / 1e3:.3f}' for b in pipe.profiler.blocks)}; latents "
+          f"bit-equal to SemiARGenerator.generate {equal}; launches block 0 {per_block[0]}, "
+          f"then {per_block[1]}; video {tuple(video.shape)}; {smi}", flush=True)
+    if not equal or per_block != want or not torch.isfinite(video).all():
+        raise AssertionError(f"the UMT5-fed pipeline: bit-equal {equal}, launches "
+                             f"{per_block} (want {want})")
+    del pipe, gen, video, latents, ref
+    torch.cuda.empty_cache()
+    phase("umt5 pipeline", t0)
+    return path
+
+
+def cfg_phase(dev: torch.device, smi: str, enc) -> dict:
+    """Phase 18: CausalDiffusionPipeline on Wan2.1-T2V-1.3B in bf16, B=1 (a
+    2-row cache), positive and negative prompts through UMT5-XXL: UniPC with
+    CFG_STEPS steps over CFG_BLOCKS blocks, then DPM++ with DPM_STEPS over 1
+    block at guidance 5 and 0. Launches (steps + 1) x 30 B1 a block; one
+    forward at B=2 with the kernel against plain attention."""
+    t0 = time.perf_counter()
+    cfg = main_path_config(CFG_BLOCKS)
+    m = cfg.model
+    g = torch.Generator(device=dev).manual_seed(18)
+    params = init_params(m, g, device=dev)
+    path, last = {}, {}
+
+    def run(solver, steps, frames, guidance):
+        pipe = CausalDiffusionPipeline(cfg, params=params, num_sampling_steps=steps,
+                                       sample_solver=solver, text_encoder=enc, device=dev)
+        real, per_block, secs = pipe._cfg_block, [], []
+
+        def block(cache, xattn, noisy, start, gs):
+            before = all_counts()
+            out, s = timed(lambda: real(cache, xattn, noisy, start, gs))
+            per_block.append(count_diff(all_counts(), before))
+            secs.append(s)
+            last.update(pipe=pipe, cache=cache, xattn=xattn, start=start, latents=out)
+            return out
+
+        pipe._cfg_block = block
+        before = all_counts()
+        out = pipe.run_text_to_video(["a red fox"], negative_prompts=["blurry, static"],
+                                     num_frames=frames, guidance_scale=guidance)
+        add_counts(path, count_diff(all_counts(), before))
+        want = [{"flash_attention_prefix": (steps + 1) * m.num_layers}] * (frames // 3)
+        print(f"cfg {solver} {steps} steps, guidance {guidance}: s/block "
+              f"{', '.join(f'{x:.3f}' for x in secs)}, launches a block {per_block} (want "
+              f"{want[0]}), latents {tuple(out.shape)}; {smi}", flush=True)
+        if per_block != want or not torch.isfinite(out).all():
+            raise AssertionError(f"cfg {solver}: launches {per_block}, want {want}")
+        return out
+
+    run("unipc", CFG_STEPS, 3 * CFG_BLOCKS, None)
+    # one forward at B=2 (the cond / uncond pair) of the last block, kernel
+    # against plain attention, over the cache as generated
+    pipe, cache = last["pipe"], last["cache"]
+    pair = torch.cat([last["latents"]] * 2)
+    t = torch.full((2, 3), float(pipe.solver.timesteps[0]), device=dev)
+    flows = []
+    with torch.inference_mode():
+        for plain in (False, True):
+            with mock.patch.object(attention_mod, "flash_attention",
+                                   plain_flash_attention if plain
+                                   else attention_mod.flash_attention):
+                flow, _ = dit_forward_inference(pipe._params, pipe.statics, pipe.rope_tables,
+                                                pair, t, last["xattn"], cache, last["start"])
+            flows.append(flow)
+    fwd_err = rel_err(flows[0], flows[1])
+    print(f"cfg dit_forward_inference at B=2 kernel vs plain: flow rel err {fwd_err:.3e} "
+          f"(tol {FORWARD_RTOL:g})", flush=True)
+    if not fwd_err <= FORWARD_RTOL:
+        raise AssertionError("the CFG pair's forward with the kernel disagrees with plain")
+    del pipe, cache, flows, pair
+    last.clear()
+    g5 = run("dpm++", DPM_STEPS, 3, 5.0)
+    g0 = run("dpm++", DPM_STEPS, 3, 0.0)
+    moved = rel_err(g5, g0)
+    print(f"cfg dpm++: guidance 5 against guidance 0, rel diff {moved:.3e} (must be > 0)",
+          flush=True)
+    if not moved > 0:
+        raise AssertionError("guidance did not change the CFG latents")
+    last.clear()
+    torch.cuda.empty_cache()
+    phase("cfg", t0)
+    return path
+
+
+def causvid_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 19: CausVidPipeline.run_rollouts with fp8 weight-only linears
+    (`--quant fp8`) and the int8 KV cache, 2 rollouts of 9 frames with two
+    prompts, a 3-frame overlap, the bf16 halo VAE."""
+    t0 = time.perf_counter()
+    cfg = causvid_config()
+    r, q = cfg.runtime, cfg.quant
+    q.enabled, q.dtype, q.granularity = True, "fp8", "per_channel"
+    q.quantize_kv_cache, q.kv_cache_dtype = True, "int8"
+    r.frames_per_segment, r.vae_conv_impl = SEGMENT_FRAMES, "halo"
+    pipe = CausVidPipeline(cfg, text_encoder=StandInTextEncoder(dev), device=dev)
+    pipe.setup()
+    gen, vae = pipe.generator, pipe.vae
+    n = cfg.model.num_layers
+    forwards = len(gen.denoising_steps) + 1
+    want_block = {"fp8_matmul": 6 * n * forwards, "flash_attention_prefix_quant": n * forwards,
+                  "quantize_rows_int8": 2 * n * forwards}
+    want_ctx = {k: v // forwards for k, v in want_block.items()}
+    blocks, ctx, starts, seg_latents = [], [], [], []
+
+    def counted(real, into):
+        def fn(*a, **k):
+            before = all_counts()
+            out = real(*a, **k)
+            into.append(count_diff(all_counts(), before))
+            return out
+        return fn
+
+    gen.denoise_block = counted(gen.denoise_block, blocks)
+    gen.cache_context_block = counted(gen.cache_context_block, ctx)
+    real_start, real_t2v = pipe._encode_start_latents, pipe.run_text_to_video
+    pipe._encode_start_latents = lambda *a: starts.append((a, real_start(*a))) or starts[-1][1]
+    pipe.run_text_to_video = lambda *a, **k: seg_latents.append(real_t2v(*a, **k)) \
+        or seg_latents[-1]
+    reset_counts()
+    try:
+        videos, secs = timed(lambda: pipe.run_rollouts(["a red fox", "a blue bird"],
+                                                       num_rollouts=2,
+                                                       num_overlap_frames=OVERLAP_FRAMES))
+    finally:
+        for name in ("denoise_block", "cache_context_block"):
+            delattr(gen, name)
+        for name in ("_encode_start_latents", "run_text_to_video"):
+            delattr(pipe, name)
+    path = all_counts()
+    (video1, lat1, ov), start = starts[0]
+    boundary = video1.shape[1] - (4 * (OVERLAP_FRAMES - 1) + 1)
+    with torch.inference_mode():
+        enc_frame = vae.encode(video1[:, boundary:boundary + 1] * 2.0 - 1.0).to(lat1.dtype)
+    grounded = (torch.equal(start[:, :1], enc_frame) and torch.equal(start[:, 1:], lat1[:, -2:])
+                and torch.equal(seg_latents[1][:, :OVERLAP_FRAMES], start))
+    shapes = [tuple(v.shape) for v in videos]
+    pix = 1 + 4 * (SEGMENT_FRAMES - 1)
+    want_shapes = [(1, pix - (4 * (OVERLAP_FRAMES - 1) + 1), 480, 832, 3), (1, pix, 480, 832, 3)]
+    b6 = path.get("halo_conv3d", 0)
+    want_b6 = 2 * DECODE_LAUNCHES["halo"]["halo_conv3d"] * (SEGMENT_FRAMES // 3) \
+        + ENCODE_CHUNK_CONVS
+    print(f"causvid: 2 rollouts {secs:.3f} s, pixel shapes after the trim {shapes}; segment "
+          f"2 starts from the re-encoded boundary frame and the last 2 latents {grounded}; "
+          f"launches a block {blocks[0]} (all {len(blocks)} equal "
+          f"{all(b == blocks[0] for b in blocks)}), the carried prefix's forward {ctx}, "
+          f"B6 {b6} (want {want_b6}: 30 a decode chunk, 22 at the boundary encode); {smi}",
+          flush=True)
+    if (blocks != [want_block] * 5 or ctx != [want_ctx] or not grounded
+            or shapes != want_shapes or b6 != want_b6
+            or not all(torch.isfinite(v).all() and v.min() >= 0 and v.max() <= 1
+                       for v in videos)):
+        raise AssertionError(f"causvid: launches {blocks} / {ctx} (want {want_block} / "
+                             f"{want_ctx}), grounded {grounded}, shapes {shapes}, B6 {b6}")
+    del pipe, gen, vae, videos, starts, seg_latents
+    torch.cuda.empty_cache()
+    phase("causvid", t0)
+    return path
+
+
+def continuous_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 20: ContinuousBatcher with W8A8 linears and the int8 KV cache
+    over 2 slots. A at step 0, B at step 1, A retired after 3 blocks and C
+    admitted into its slot at position 0 while B goes on; then the 12-frame
+    ring with 1 sink (last_step): D at step 0 and E at step 1, 5 blocks each,
+    both wrapping the ring at their own positions. Each stream against the
+    same stream alone at B=1 with the same draws; B2 launches a step."""
+    t0 = time.perf_counter()
+    path = {}
+    feats = {p: StandInTextEncoder(dev)([p]) for p in ("a red fox", "a blue bird")}
+
+    def setup(cfg, batch, prompts):
+        cfg.runtime.batch_size = batch
+        gen = SemiARGenerator(cfg, params, device=dev)
+        b = ContinuousBatcher(gen)
+        b.set_conditioning(gen.encode_text_context(torch.cat([feats[p] for p in prompts])))
+        return b
+
+    def drive(cfg, script, prompts):
+        """script: per step, the (id, frames, seed) admitted and the ids
+        retired before it. Returns ({id: latents}, {id: slot}, B2 a step)."""
+        b = setup(cfg, 2, prompts)
+        per_step, outs, slots = [], {}, {}
+        for admit, retire in script:
+            for rid in retire:
+                outs[rid] = torch.cat(b.retire(rid).outputs, dim=1)
+            for rid, frames, seed in admit:
+                slots[rid] = b.admit(rid, frames, seed).slot
+            before = all_counts()
+            b.step()
+            diff = count_diff(all_counts(), before)
+            add_counts(path, diff)
+            per_step.append(diff.get("flash_attention_prefix_quant", 0))
+        for rid in list(b.streams):
+            outs[rid] = torch.cat(b.retire(rid).outputs, dim=1)
+        return outs, slots, per_step
+
+    def solo(cfg, frames, seed, prompt):
+        b = setup(cfg, 1, [prompt])
+        b.admit("solo", frames, seed)
+        for _ in range(frames // 3):
+            b.step()
+        return torch.cat(b.streams["solo"].outputs, dim=1)
+
+    base = kv_path_config("int8_b2")
+    g = torch.Generator(device=dev).manual_seed(20)
+    params = quantize_params(init_params(base.model, g, device=dev), base.quant)
+    prompts = ["a red fox", "a blue bird"]  # slot 0, slot 1
+    cases = {
+        "admit_retire": (base, [([("A", 9, 1)], []), ([("B", 9, 2)], []), ([], []),
+                                ([("C", 9, 3)], ["A"]), ([], []), ([], [])]),
+        "ring": (kv_path_config("window"), [([("D", 15, 4)], []), ([("E", 15, 5)], [])]
+                 + [([], [])] * 4),
+    }
+    worst = 0.0
+    for name, (cfg, script) in cases.items():
+        forwards = len(cfg.runtime.denoising_step_list) + (cfg.runtime.context_mode == "rerun")
+        (outs, slots, per_step), secs = timed(lambda: drive(cfg, script, prompts))
+        errs, equal = {}, {}
+        for rid, out in outs.items():
+            frames, seed = next((f, s) for adm, _ in script for r_, f, s in adm if r_ == rid)
+            ref = solo(cfg, frames, seed, prompts[slots[rid]])
+            errs[rid], equal[rid] = rel_err(out, ref), torch.equal(out, ref)
+        worst = max(worst, *errs.values())
+        want = cfg.model.num_layers * forwards
+        print(f"continuous {name}: {len(script)} steps at B=2 {secs:.3f} s, B2 launches a "
+              f"step {per_step} (want {want}), slots {slots}; each stream against itself "
+              f"alone at B=1: rel err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+              f"(tol {STREAM_RTOL:g}), bit-equal {equal}; {smi}", flush=True)
+        if per_step != [want] * len(script) or not all(v <= STREAM_RTOL for v in errs.values()):
+            raise AssertionError(f"continuous {name}: launches {per_step} (want {want}) or a "
+                                 f"stream moved by its neighbours {errs}")
+    del params
+    torch.cuda.empty_cache()
+    phase("continuous", t0)
+    return path
+
+
+def i2v_params(cfg: EngineConfig, g: torch.Generator, dev: torch.device):
+    """The I2V-14B tree in W8A8, drawn and quantized layer by layer (never
+    all in bf16): q/k/v fused and every int8 weight in the GEMM's layout, so
+    the generator copies nothing."""
+    m = cfg.model
+    params = init_params(dataclasses.replace(m, num_layers=0), g, device=dev)
+    stacked = None
+    for layer in range(m.num_layers):
+        blk = to_kernel_layout(fuse_qkv_params(quantize_params(
+            {"blocks": init_block_params(m, g, 1, device=dev)}, cfg.quant)))["blocks"]
+        if stacked is None:
+            stacked = tree_map(lambda a: torch.empty_strided(
+                (m.num_layers, *a.shape[1:]), (a[0].numel(), *a.stride()[1:]),
+                dtype=a.dtype, device=dev), blk)
+        tree_map(lambda dst, src: dst[layer].copy_(src[0]), stacked, blk)
+    params["blocks"] = stacked
+    return params
+
+
+def i2v_kernel_cases(dev: torch.device) -> None:
+    """B3, B4 and B5 against their plain versions at the I2V-14B shapes
+    (K, N of 5120 / 13824 / 15360, M of a block, the text and the CLIP
+    tokens), and B1 with 40 heads."""
+    d, f = I2V_14B["dim"], I2V_14B["ffn_dim"]
+    g = torch.Generator(device=dev).manual_seed(211)
+    failed = []
+    for nm, m_, k, n in (("qkv", SQ, d, 3 * d), ("o", SQ, d, d), ("fc1", SQ, d, f),
+                         ("fc2", SQ, f, d), ("k_img", 257, d, d), ("text_k", TEXT, d, d)):
+        check_gemm_plan(m_, n, "int8")
+        x, w, xs, ws, b = path_gemm_operands(dev, g, m_, k, n)
+        out = int8_matmul(x, w, xs, ws, bias=b)
+        torch.cuda.synchronize()
+        err = (out.float() - int8_matmul_reference(x, w, xs, ws, bias=b).float()).abs().max()
+        print(f"i2v case int8_matmul {nm} [{m_}x{k}]x[{k}x{n}]: max_abs {err.item():.3e} "
+              f"(tol 0)", flush=True)
+        if err.item() != 0:
+            failed.append(f"int8_matmul {nm}")
+    for nm, m_, k, act in (("o_in", SQ, d, None), ("fc2_in_gelu", SQ, f, "gelu"),
+                           ("img_tokens", 257, d, None), ("text", TEXT, d, None)):
+        x = (torch.randn(m_, k, generator=g, device=dev) * 2).to(torch.bfloat16)
+        got = quantize_rows_int8(x, act=act)
+        torch.cuda.synchronize()
+        ok, _ = check_quant_case(f"i2v quantize_rows_int8 {nm} [{m_}x{k}] act {act} G, "
+                                 f"chunks {row_plan(k)}", got,
+                                 quantize_rows_int8_reference(x, act), True)
+        if not ok:
+            failed.append(f"quantize_rows_int8 {nm}")
+    x = (torch.randn(1, SQ, d, generator=g, device=dev) * 3 + 0.5).to(torch.bfloat16)
+    mod = torch.randn(1, 3, 6, d, generator=g, device=dev) * 0.5
+    ok, _ = check_quant_case(f"i2v adaln_quantize_rows_int8 [1x{SQ}x{d}] 3 frames",
+                             adaln_quantize_rows_int8(x, mod[:, :, 0], mod[:, :, 1]),
+                             adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1]),
+                             False)
+    if not ok:
+        failed.append("adaln")
+    w3 = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    b3 = (0.1 * torch.randn(d, generator=g, device=dev)).to(torch.bfloat16)
+    x = x.reshape(SQ, d)
+    ok, _ = check_quant_case(f"i2v ln_quantize_rows_int8 affine [{SQ}x{d}]",
+                             ln_quantize_rows_int8(x, w3, b3),
+                             ln_quantize_rows_int8_reference(x, w3, b3), False)
+    if not ok:
+        failed.append("ln")
+    heads = I2V_14B["num_heads"]
+    q, k, v = (torch.randn(1, n_, heads, D, generator=g, device=dev).to(torch.bfloat16)
+               for n_ in (SQ, 2 * SQ, 2 * SQ))
+    out, lse = flash_attention_prefix(q, k, v, 2 * SQ, return_lse=True)
+    torch.cuda.synchronize()
+    ok, _ = check_attention_case(f"i2v flash_attention_prefix {heads} heads, span {2 * SQ}",
+                                 out, lse, *flash_attention_prefix_reference(
+                                     q, k, v, 2 * SQ, return_lse=True))
+    if not ok:
+        failed.append("flash_attention_prefix 40 heads")
+    if failed:
+        raise AssertionError(f"I2V-14B shapes: {failed} disagree with the plain versions")
+
+
+def i2v_phase(dev: torch.device, smi: str, clip_features: torch.Tensor) -> dict:
+    """Phase 21: the Wan2.1-I2V-14B DiT at full width and depth, W8A8, the
+    bf16 21-frame cache: precompute_crossattn_cache with phase 16's CLIP
+    features, then I2V_BLOCKS blocks of dit_forward_inference (4 denoise + 1
+    context forward each) on 36-channel inputs at 480x832; launches a block,
+    the peak memory; one layer and one forward with every kernel against
+    every plain version."""
+    t0 = time.perf_counter()
+    i2v_kernel_cases(dev)
+    cfg = main_path_config(I2V_BLOCKS, w8a8=True)
+    cfg.model = dataclasses.replace(cfg.model, **I2V_14B)
+    m, r = cfg.model, cfg.runtime
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    params, build_s = timed(lambda: i2v_params(cfg, g, dev))
+    gen = SemiARGenerator(cfg, params, device=dev)
+    del params
+    weights = memory_bytes(gen.params)
+    context = torch.randn(1, m.text_len, m.text_dim, generator=g, device=dev).to(torch.bfloat16)
+    reset_counts()
+    xattn, text_s = timed(lambda: gen.encode_text_context(context, clip_features))
+    text = count_diff(all_counts(), {k: 0 for k in KERNEL_COUNTERS})
+    want_text = {"int8_matmul": 4 * m.num_layers, "quantize_rows_int8": 4 * m.num_layers}
+    cache = gen.init_cache()
+    fpb, fs = m.num_frame_per_block, gen.frame_seq
+    shape = (1, fpb, r.latent_height, r.latent_width)
+    cond = torch.randn(*shape, I2V_COND, generator=g, device=dev).to(torch.bfloat16)
+    steps = gen.denoising_steps
+    n = m.num_layers * (len(steps) + 1)
+    # B1 twice a layer-forward: the self-attention, and the text
+    # cross-attention, whose float32 logits at 40 heads (383 MB) pass
+    # cache_attention's 256 MiB limit of the plain path
+    want_block = {"int8_matmul": 6 * n, "quantize_rows_int8": 3 * n, "adaln": 2 * n, "ln": n,
+                  "flash_attention_prefix": 2 * n}
+
+    def forward(x, t_val, start, need_output=True):
+        t = torch.full((1, fpb), t_val, device=dev)
+        flow, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                        torch.cat([x, cond], dim=-1), t, xattn, cache, start,
+                                        need_output=need_output)
+        return flow, t
+
+    per_block, secs, outs = [], [], []
+    with torch.inference_mode():
+        for bi in range(I2V_BLOCKS):
+            before = all_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            start = bi * fpb * fs
+            x = torch.randn(*shape, r.latent_channels, generator=g, device=dev).to(torch.bfloat16)
+            for i, t_val in enumerate(steps):   # SemiARGenerator.denoise_block's loop
+                flow, t = forward(x, t_val, start)
+                x0 = gen.schedule.flow_to_x0(flow, x, t)
+                if i < len(steps) - 1:
+                    fresh = torch.randn(x0.shape, generator=g, device=dev).to(x0.dtype)
+                    x = gen.schedule.add_noise(x0, fresh, torch.full_like(t, steps[i + 1]))
+            forward(x0, gen.context_noise, start, need_output=False)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            per_block.append(count_diff(all_counts(), before))
+            outs.append(x0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    path = count_diff(all_counts(), {k: 0 for k in all_counts()})
+    latents = torch.cat(outs, dim=1)
+    print(f"i2v-14B: W8A8 tree built layer by layer in {build_s:.3f} s ({weights / 2**30:.3f} "
+          f"GiB), text + CLIP K/V {text_s:.3f} s (launches {text}), s/block "
+          f"{', '.join(f'{x:.3f}' for x in secs)}, launches a block {per_block[0]}, latents "
+          f"{tuple(latents.shape)}, peak device bytes {peak}; {smi}", flush=True)
+    if (per_block != [want_block] * I2V_BLOCKS or text != want_text
+            or not torch.isfinite(latents).all() or xattn.k_img is None
+            or tuple(xattn.k_img.shape) != (m.num_layers, 1, 257, m.num_heads, m.head_dim)):
+        raise AssertionError(f"i2v-14B: launches {per_block} (want {want_block}), text "
+                             f"{text} (want {want_text})")
+
+    # one layer, then one forward, every kernel against every plain version,
+    # at the last block's first denoise step
+    f0 = (I2V_BLOCKS - 1) * fpb
+    start = f0 * fs
+    geo, spec = gen.statics.geo, gen.statics.spec
+    x_blk = torch.cat([outs[-1], cond], dim=-1)
+    t = torch.full((1, fpb), steps[0], device=dev)
+    with torch.inference_mode():
+        tokens = patch_embed(gen.params, m, x_blk)
+        _, e0 = time_embeddings(gen.params, m, t)
+        angles = rope_angles(gen.rope_tables, fpb, geo.grid_h, geo.grid_w, f0)
+        mask = valid_mask(spec, start + geo.tokens, device=dev)
+        blk = layer_params(gen.params["blocks"], 0)
+        ys, flows = [], []
+        for plain in (False, True):
+            before = all_counts()
+            with plain_versions() if plain else contextlib.nullcontext():
+                lc = (cache.k[0].clone(), cache.v[0].clone())
+                y, _ = block_forward(blk, m, spec, tokens, e0, angles, lc, xattn.k[0],
+                                     xattn.v[0], start, mask,
+                                     xattn_img=(xattn.k_img[0], xattn.v_img[0]))
+                flow, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                                x_blk, t, xattn, cache, start)
+            if plain and all_counts() != before:
+                raise AssertionError("a plain-version run launched a kernel")
+            ys.append(y)
+            flows.append(flow)
+        layer_err = rel_err(ys[0] - tokens, ys[1] - tokens)
+        fwd_err = rel_err(flows[0], flows[1])
+    print(f"i2v-14B block_forward kernels vs plain: update rel err {layer_err:.3e} (tol "
+          f"{W8A8_LAYER_RTOL:g}); dit_forward_inference: flow rel err {fwd_err:.3e} (tol "
+          f"{W8A8_FORWARD_RTOL:g})", flush=True)
+    if not (layer_err <= W8A8_LAYER_RTOL and fwd_err <= W8A8_FORWARD_RTOL):
+        raise AssertionError("the I2V-14B path with its kernels disagrees with the plain versions")
+    del gen, cache, xattn
+    torch.cuda.empty_cache()
+    phase("i2v-14B", t0)
+    return path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=2,
@@ -2782,6 +3498,19 @@ def main() -> None:
     decode = vae_decode_phase(dev, latents)
     encode, prefix = vae_encode_phase(dev)
     pipe = pipeline_phase(dev, smi, prefix)
+    enc, clip_features = text_encoder_phase(dev, smi)
+    p17 = umt5_pipeline_phase(dev, smi, enc)
+    p18 = cfg_phase(dev, smi, enc)
+    del enc
+    torch.cuda.empty_cache()
+    p19 = causvid_phase(dev, smi)
+    p20 = continuous_phase(dev, smi)
+    p21 = i2v_phase(dev, smi, clip_features)
+    print(f"launches on phases 16-21: umt5 pipeline {p17}; cfg {p18}; causvid {p19}; "
+          f"continuous {p20}; i2v-14B {p21}", flush=True)
+    for p in (p17, p18, p19, p20, p21):
+        add_counts(pipe, p)
+    fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]
                                   + pipe["halo_conv3d"])
     vae_entries[1]["launches"] = (decode["halo_w8a8"]["halo_conv3d_w8a8"]

@@ -199,7 +199,10 @@ def valid_mask(spec: KVCacheSpec, current_end,
 
 
 class CrossAttnCache(NamedTuple):
-    """Per-layer projected text K/V, computed once per prompt."""
+    """Per-layer projected text K/V, computed once per prompt; for an i2v
+    model also the CLIP image tokens' K/V."""
 
     k: torch.Tensor  # [L, B, text_len, H, D]
     v: torch.Tensor  # [L, B, text_len, H, D]
+    k_img: Optional[torch.Tensor] = None  # [L, B, 257, H, D]
+    v_img: Optional[torch.Tensor] = None

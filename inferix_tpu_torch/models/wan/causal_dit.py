@@ -1,10 +1,11 @@
 """Block-causal Wan DiT in PyTorch (port of
-`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, bf16,
-W8A8 and fp8 weight-only, over a bf16, int8 or fp8 KV cache with a global or
-rolling window).
+`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, t2v and
+i2v, bf16, W8A8 and fp8 weight-only, over a bf16, int8 or fp8 KV cache with a
+global or rolling window, one start for the batch or one a stream).
 
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
-offset, self-attention over the KV cache, cached text cross-attention, the
+offset, self-attention over the KV cache, cached text cross-attention (plus
+the CLIP image tokens' cross-attention for i2v), the
 GELU-tanh FFN, the modulated output head and unpatchify. Latents are
 channels-last `[B, F, H, W, C]`; parameters keep the JAX tree with layers
 stacked on a leading [L] axis (`utils/params.py`). fp32 promotion points
@@ -166,20 +167,47 @@ def embed_text(params: Params, cfg: ModelConfig, context: torch.Tensor) -> torch
     return linear(te["fc2"], F.gelu(linear(te["fc1"], context), approximate="tanh"))
 
 
-def precompute_crossattn_cache(params: Params, cfg: ModelConfig,
-                               context: torch.Tensor) -> CrossAttnCache:
-    """Project the text context through every layer's cross-attention K/V
-    once per prompt: [L, B, text_len, H, D] each."""
-    ctx = embed_text(params, cfg, context)
-    b, s, _ = ctx.shape
+def _project_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                k: str, v: str, norm_k: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every layer's cross-attention K (RMS-normed) and V of `tokens`
+    [B, s, dim]: [L, B, s, H, D] each."""
+    b, s, _ = tokens.shape
+    shape = (b, s, cfg.num_heads, cfg.head_dim)
     ks, vs = [], []
     for lid in range(cfg.num_layers):
         ca = layer_params(params["blocks"]["cross_attn"], lid)
-        ks.append(rms_norm(linear(ca["k"], ctx), ca["norm_k"]["w"],
-                           cfg.eps).reshape(b, s, cfg.num_heads, cfg.head_dim))
-        vs.append(linear(ca["v"], ctx)
-                  .reshape(b, s, cfg.num_heads, cfg.head_dim))
-    return CrossAttnCache(k=torch.stack(ks), v=torch.stack(vs))
+        ks.append(rms_norm(linear(ca[k], tokens), ca[norm_k]["w"], cfg.eps).reshape(shape))
+        vs.append(linear(ca[v], tokens).reshape(shape))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def embed_image(params: Params, cfg: ModelConfig,
+                clip_features: torch.Tensor) -> torch.Tensor:
+    """CLIP tokens [B, 257, 1280] -> [B, 257, dim] (the i2v `img_emb`
+    MLPProj: LayerNorm, linear, erf GELU, linear, LayerNorm)."""
+    ie = params["img_emb"]
+    h = layer_norm(clip_features, ie["norm1"]["w"], ie["norm1"]["b"])
+    h = F.gelu(linear(ie["fc1"], h))
+    return layer_norm(linear(ie["fc2"], h), ie["norm2"]["w"], ie["norm2"]["b"])
+
+
+def precompute_crossattn_cache(params: Params, cfg: ModelConfig,
+                               context: torch.Tensor,
+                               clip_features: Optional[torch.Tensor] = None
+                               ) -> CrossAttnCache:
+    """Project the text context through every layer's cross-attention K/V
+    once per prompt: [L, B, text_len, H, D] each. For an i2v model,
+    clip_features [B, 257, 1280] go through `img_emb` and each layer's
+    k_img / v_img (the JAX package's `precompute_crossattn_cache`)."""
+    k, v = _project_kv(params, cfg, embed_text(params, cfg, context), "k", "v", "norm_k")
+    if cfg.model_type == "i2v" and clip_features is not None:
+        # in the model's dtype (the JAX package computes img_emb in the
+        # features' dtype, float32 from its CLIP tower)
+        img = embed_image(params, cfg,
+                          clip_features.to(params["img_emb"]["fc1"]["w"].dtype))
+        k_img, v_img = _project_kv(params, cfg, img, "k_img", "v_img", "norm_k_img")
+        return CrossAttnCache(k=k, v=v, k_img=k_img, v_img=v_img)
+    return CrossAttnCache(k=k, v=v)
 
 
 def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
@@ -212,6 +240,7 @@ def block_forward(
     xattn_v: torch.Tensor,
     current_start,                # token offset of this block (int or [B])
     kv_mask: torch.Tensor,        # [Smax] or [B, Smax] bool: valid slots after the write
+    xattn_img: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # i2v image K/V
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
     place (quantizing it for an int8 cache, whose layer_cache then holds the
@@ -261,7 +290,11 @@ def block_forward(
     else:
         cq = linear(ca["q"], layer_norm(x, w3, b3, cfg.eps))
     cq = rms_norm(cq, ca["norm_q"]["w"], cfg.eps)
-    xa = cache_attention(cq.reshape(b, s, nh, hd), xattn_k, xattn_v)
+    cq = cq.reshape(b, s, nh, hd)
+    xa = cache_attention(cq, xattn_k, xattn_v)
+    if xattn_img is not None:
+        # i2v: the image attention is added to the text attention
+        xa = xa + cache_attention(cq, *xattn_img)
     x = x + linear(ca["o"], xa.reshape(b, s, c))
 
     # --- FFN: fc2(gelu_tanh(fc1(h))); with int8 weights the gelu runs
@@ -311,7 +344,7 @@ def dit_forward_inference(
     t: torch.Tensor,             # [B, F] timesteps
     xattn: CrossAttnCache,
     cache: KVCache,              # [L, B, Smax, H, D] x2 (+ scales), updated in place
-    current_start: int,          # token offset of the block
+    current_start,               # token offset of the block: int, or [B] (one a stream)
     need_output: bool = True,
 ) -> Tuple[Optional[torch.Tensor], KVCache]:
     """One forward of the causal DiT over a block. Returns (flow
@@ -327,20 +360,31 @@ def dit_forward_inference(
     JAX step attends over (in a ring, with the same oldest tokens already
     overwritten) and the cache after a block is the same. need_output=False
     (the context re-run) skips the head and returns flow None.
+
+    A [B] current_start (continuous batching: each stream at its own
+    block) gives each row its rope offset, its cache write position and its
+    live span; pass it as a CPU tensor, whose values the cache writes read
+    without waiting for the card.
     """
     cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     tokens = patch_embed(params, cfg, x)
     e, e0 = time_embeddings(params, cfg, t)
+    if isinstance(current_start, torch.Tensor) and current_start.dim() == 1:
+        current_start = current_start.to(torch.long)
+    elif not isinstance(current_start, int):
+        current_start = int(current_start)
     angles = rope_angles(rope_tables, geo.frames, geo.grid_h, geo.grid_w,
                          current_start // geo.frame_seq)
     kv_mask = valid_mask(spec, current_start + geo.tokens, device=x.device)
     fields = [f for f in cache if f is not None]
     h = tokens
     for lid in range(cfg.num_layers):
+        img = (None if xattn.k_img is None
+               else (xattn.k_img[lid], xattn.v_img[lid]))
         h, _ = block_forward(
             layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
             tuple(f[lid] for f in fields), xattn.k[lid], xattn.v[lid],
-            current_start, kv_mask)
+            current_start, kv_mask, xattn_img=img)
     if not need_output:
         return None, cache
     return unpatchify(head_forward(params, cfg, h, e), cfg, geo), cache

@@ -44,9 +44,17 @@ def build_rope_tables(head_dim: int, max_pos: int = 1024,
 
 
 def rope_angles(tables: RopeTables, f: int, h: int, w: int,
-                start_frame: int = 0) -> torch.Tensor:
+                start_frame=0) -> torch.Tensor:
     """Per-token angles for an (f, h, w) latent grid whose first frame sits
-    at absolute frame `start_frame`. Returns [f*h*w, head_dim//2] float32."""
+    at absolute frame `start_frame`: an int gives [f*h*w, head_dim//2]
+    float32; a [B] tensor (one start a stream, continuous batching) gives
+    [B, f*h*w, head_dim//2]."""
+    if isinstance(start_frame, torch.Tensor) and start_frame.dim() == 1:
+        frames = (start_frame.to(tables.t.device, torch.long)[:, None]
+                  + torch.arange(f, device=tables.t.device))
+        return torch.stack([rope_angles(tables._replace(t=tables.t[row]), f, h, w)
+                            for row in frames])
+    start_frame = int(start_frame)
     ang_t = tables.t[start_frame:start_frame + f]
     ang_h, ang_w = tables.h[:h], tables.w[:w]
     out = torch.cat([
@@ -60,7 +68,8 @@ def rope_angles(tables: RopeTables, f: int, h: int, w: int,
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Rotate the interleaved (even, odd) pairs of the head dim.
 
-    x: [..., S, H, D]; angles: [S, D//2]. Computed in float32 as
+    x: [..., S, H, D]; angles: [S, D//2], or [B, S, D//2] for x [B, S, H, D]
+    (one start a stream). Computed in float32 as
     x*cos + rot(x)*sin with rot(x)[2j] = -x[2j+1], rot(x)[2j+1] = x[2j]: term
     for term the arithmetic of the JAX default (the +-1 rotation matmul,
     `set_rope_impl("mxu")`, whose products by +-1 are exact). Cast back to

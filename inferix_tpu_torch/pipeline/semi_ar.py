@@ -49,6 +49,7 @@ class SemiARGenerator:
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
+        self.dtype = dtype
         self.device = resolve_device(device)
         m, r, qc = cfg.model, cfg.runtime, cfg.quant
         # KV cache storage (JAX `semi_ar.py:139-146`): int8 + scales
@@ -86,11 +87,40 @@ class SemiARGenerator:
     def init_cache(self) -> KVCache:
         return init_kv_cache(self.statics.spec, device=self.device)
 
-    def encode_text_context(self, context: torch.Tensor) -> CrossAttnCache:
-        """context: [B, text_len, text_dim] text-encoder features."""
+    def encode_text_context(self, context: torch.Tensor,
+                            clip_features: Optional[torch.Tensor] = None) -> CrossAttnCache:
+        """context: [B, text_len, text_dim] text-encoder features; for an
+        i2v model, clip_features [B, 257, 1280] add the image K/V."""
         with torch.inference_mode():
             return precompute_crossattn_cache(
-                self.params, self.cfg.model, context.to(self.device))
+                self.params, self.cfg.model, context.to(self.device),
+                None if clip_features is None else clip_features.to(self.device))
+
+    def _start_tokens(self, current_start_frame):
+        """A block's token offset: an int, or a [B] CPU tensor (one start a
+        stream; its values are read on the host without a device sync)."""
+        if isinstance(current_start_frame, int):
+            return current_start_frame * self.frame_seq
+        starts = torch.as_tensor(current_start_frame, device="cpu").to(torch.long)
+        if starts.dim() == 0:
+            return int(starts) * self.frame_seq
+        return starts * self.frame_seq
+
+    def _renoise(self, x0: torch.Tensor, generator) -> torch.Tensor:
+        """Fresh noise shaped like x0: from one generator for the batch, or
+        with a sequence, each row from its own generator (zeros where it is
+        None: an idle slot), so that a stream's draws do not depend on its
+        neighbours."""
+        if generator is None or isinstance(generator, torch.Generator):
+            return torch.randn(x0.shape, generator=generator, dtype=torch.float32,
+                               device=self.device).to(x0.dtype)
+        if len(generator) != x0.shape[0]:
+            raise ValueError(f"{len(generator)} generators for a batch of {x0.shape[0]}")
+        rows = [torch.zeros(x0.shape[1:], dtype=torch.float32, device=self.device)
+                if g is None else
+                torch.randn(x0.shape[1:], generator=g, dtype=torch.float32,
+                            device=self.device) for g in generator]
+        return torch.stack(rows).to(x0.dtype)
 
     def _forward(self, x, t_val, xattn, cache, start, need_output=True):
         b, f = x.shape[0], x.shape[1]
@@ -106,20 +136,24 @@ class SemiARGenerator:
         cache: KVCache,
         xattn: CrossAttnCache,
         noisy: torch.Tensor,                  # [B, f, H, W, C]
-        current_start_frame: int,
-        generator: Optional[torch.Generator] = None,
+        current_start_frame,
+        generator=None,
         renoise: Optional[Sequence[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, KVCache]:
         """Denoise one block and persist its K/V. Returns (x0, cache).
 
+        current_start_frame: an int, or one start a stream ([B] ints, the
+        JAX package's per-slot starts for continuous batching).
         renoise: the noise added after each denoise step but the last,
         n_steps - 1 tensors shaped like `noisy` (a test hands in the noise
-        the JAX package drew); when None it is drawn from `generator`.
+        the JAX package drew); when None it is drawn from `generator`: one
+        torch.Generator, or a sequence of one per batch row (None for an
+        idle row, which gets zeros).
         """
         steps = self.denoising_steps
         if renoise is not None and len(renoise) < len(steps) - 1:
             raise ValueError(f"renoise needs {len(steps) - 1} tensors, got {len(renoise)}")
-        start = int(current_start_frame) * self.frame_seq
+        start = self._start_tokens(current_start_frame)
         x = noisy.to(self.device)
         for i, t_val in enumerate(steps):
             flow, t = self._forward(x, t_val, xattn, cache, start)
@@ -129,9 +163,7 @@ class SemiARGenerator:
             if renoise is not None:
                 fresh = renoise[i].to(device=self.device, dtype=x0.dtype)
             else:
-                fresh = torch.randn(x0.shape, generator=generator,
-                                    dtype=torch.float32,
-                                    device=self.device).to(x0.dtype)
+                fresh = self._renoise(x0, generator)
             t_next = torch.full_like(t, steps[i + 1])
             x = self.schedule.add_noise(x0, fresh, t_next)
         if self.context_mode == "rerun":
@@ -142,11 +174,10 @@ class SemiARGenerator:
 
     @torch.inference_mode()
     def cache_context_block(self, cache: KVCache, xattn: CrossAttnCache,
-                            clean: torch.Tensor,
-                            current_start_frame: int) -> KVCache:
+                            clean: torch.Tensor, current_start_frame) -> KVCache:
         """Write a block of clean latents into the KV cache without
         denoising (initial_latent prefixes)."""
-        start = int(current_start_frame) * self.frame_seq
+        start = self._start_tokens(current_start_frame)
         self._forward(clean.to(self.device), self.context_noise, xattn, cache,
                       start, need_output=False)
         return cache

@@ -68,50 +68,79 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters from the same distributions as the JAX package's
     `init_params` (not the same bits): linear weights U(-1/sqrt(in),
     1/sqrt(in)) drawn in float32 and cast, zero biases, unit norm weights,
-    modulation N(0, 1)/sqrt(dim) in float32. `generator` must live on
-    `device`."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError("only the t2v model is ported")
+    modulation N(0, 1)/sqrt(dim) in float32. An i2v model (`model_type`
+    "i2v") also gets `img_emb` (LayerNorm 1280, linear 1280 -> 1280, linear
+    1280 -> dim, LayerNorm dim) and, in every block, `k_img`, `v_img` and
+    `norm_k_img`. `generator` must live on `device`."""
+    if cfg.model_type not in ("t2v", "i2v"):
+        raise ValueError(f"model_type must be 't2v' or 'i2v', got {cfg.model_type!r}")
     dev = resolve_device(device)
-    d, nl = cfg.dim, cfg.num_layers
+    d = cfg.dim
+    lin = _linear_init(generator, dev, dtype)
+    patch = math.prod(cfg.patch_size)
+    params = {
+        "patch_embedding": lin(patch * cfg.in_dim, d),
+        "text_embedding": {"fc1": lin(cfg.text_dim, d), "fc2": lin(d, d)},
+        "time_embedding": {"fc1": lin(cfg.freq_dim, d, torch.float32),
+                           "fc2": lin(d, d, torch.float32)},
+        "time_projection": lin(d, 6 * d, torch.float32),
+        "blocks": init_block_params(cfg, generator, cfg.num_layers, dev, dtype),
+        "head": {"head": lin(d, patch * cfg.out_dim),
+                 "modulation": torch.randn(2, d, generator=generator, dtype=torch.float32,
+                                           device=dev) / math.sqrt(d)},
+    }
+    if cfg.model_type == "i2v":
+        params["img_emb"] = {
+            "norm1": {"w": torch.ones(1280, dtype=dtype, device=dev),
+                      "b": torch.zeros(1280, dtype=dtype, device=dev)},
+            "fc1": lin(1280, 1280), "fc2": lin(1280, d),
+            "norm2": {"w": torch.ones(d, dtype=dtype, device=dev),
+                      "b": torch.zeros(d, dtype=dtype, device=dev)}}
+    return params
 
-    def uniform(shape, bound, out_dtype):
-        w = torch.empty(shape, dtype=torch.float32, device=dev)
-        return w.uniform_(-bound, bound, generator=generator).to(out_dtype)
 
+def _linear_init(generator: torch.Generator, dev: torch.device, dtype: torch.dtype):
+    """linear(in, out, out_dtype, layers) -> {"w": U(-1/sqrt(in), 1/sqrt(in))
+    [*layers, in, out], "b": zeros}."""
     def linear(in_dim, out_dim, out_dtype=dtype, layers=()):
-        return {"w": uniform((*layers, in_dim, out_dim), 1.0 / math.sqrt(in_dim),
-                             out_dtype),
+        w = torch.empty((*layers, in_dim, out_dim), dtype=torch.float32, device=dev)
+        bound = 1.0 / math.sqrt(in_dim)
+        return {"w": w.uniform_(-bound, bound, generator=generator).to(out_dtype),
                 "b": torch.zeros((*layers, out_dim), dtype=out_dtype, device=dev)}
+
+    return linear
+
+
+def init_block_params(cfg: ModelConfig, generator: torch.Generator, layers: int,
+                      device: str | torch.device = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> Params:
+    """The transformer blocks of `init_params`, stacked on a leading
+    [layers] axis (a caller can draw a deep model a few layers at a time)."""
+    dev = resolve_device(device)
+    d = cfg.dim
+    L = (layers,)
+    lin = _linear_init(generator, dev, dtype)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    def modulation(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=dev) / math.sqrt(d)
+    def attn(img: bool):
+        p = {**{n: lin(d, d, layers=L) for n in ("q", "k", "v", "o")},
+             "norm_q": {"w": ones(layers, d)}, "norm_k": {"w": ones(layers, d)}}
+        if img:
+            p.update(k_img=lin(d, d, layers=L), v_img=lin(d, d, layers=L),
+                     norm_k_img={"w": ones(layers, d)})
+        return p
 
-    L = (nl,)
-    attn = lambda: {**{n: linear(d, d, layers=L) for n in ("q", "k", "v", "o")},
-                    "norm_q": {"w": ones(nl, d)}, "norm_k": {"w": ones(nl, d)}}
-    patch = math.prod(cfg.patch_size)
     return {
-        "patch_embedding": linear(patch * cfg.in_dim, d),
-        "text_embedding": {"fc1": linear(cfg.text_dim, d), "fc2": linear(d, d)},
-        "time_embedding": {"fc1": linear(cfg.freq_dim, d, torch.float32),
-                           "fc2": linear(d, d, torch.float32)},
-        "time_projection": linear(d, 6 * d, torch.float32),
-        "blocks": {
-            "self_attn": attn(),
-            "cross_attn": attn(),
-            "norm3": {"w": ones(nl, d),
-                      "b": torch.zeros(nl, d, dtype=dtype, device=dev)},
-            "ffn": {"fc1": linear(d, cfg.ffn_dim, layers=L),
-                    "fc2": linear(cfg.ffn_dim, d, layers=L)},
-            "modulation": modulation(nl, 6, d),
-        },
-        "head": {"head": linear(d, patch * cfg.out_dim),
-                 "modulation": modulation(2, d)},
+        "self_attn": attn(False),
+        "cross_attn": attn(cfg.model_type == "i2v"),
+        "norm3": {"w": ones(layers, d),
+                  "b": torch.zeros(layers, d, dtype=dtype, device=dev)},
+        "ffn": {"fc1": lin(d, cfg.ffn_dim, layers=L),
+                "fc2": lin(cfg.ffn_dim, d, layers=L)},
+        "modulation": torch.randn(layers, 6, d, generator=generator, dtype=torch.float32,
+                                  device=dev) / math.sqrt(d),
     }
 
 
