@@ -162,6 +162,43 @@ Phases, each timed on a line of its own:
                 dit_forward_inference (4 denoise + 1 context forward) on
                 36-channel inputs at 480x832, launches a block, peak device
                 bytes; one layer and one forward against every plain version.
+ 22. files      - checkpoint files, written to a temporary directory by this
+                script's own inverses of the converters: phase 4's seeded
+                bf16 tree as a reference-format {"generator_ema": sd} .pt
+                (~2.8 GB) through load_self_forcing_checkpoint (values
+                bit-equal, dtypes by the JAX loader's policy);
+                SelfForcingPipeline(model_path) under W8A8, 2 blocks, latents
+                bit-equal to the pipeline given the in-memory conversion,
+                phase 6's launches a block; the default VAEConfig VAE as a
+                .pth through load_wan_vae (halo, bf16), its decode bit-equal,
+                30 B6 a chunk; UMT5-XXL width cut to 2 layers (~2.9 GB bf16)
+                in 3 HF safetensors shards (this script's own writer) through
+                load_sharded_safetensors, convert_t5_encoder_state_dict and
+                WanTextEncoder, the features bit-equal; seconds and GB/s of
+                each write and load.
+ 23. wholeclip  - dit_forward_bidirectional (one call), _block_causal (7
+                blocks of 3) and _teacher_forcing (7 noisy + 7 clean
+                forwards) in bf16 over 21 latent frames (32760 tokens): B1 at
+                32760 query rows over 32760 keys and the cross-attention call
+                at 512 keys against the plain version (chunked over the query
+                rows; ATTN_TOL), layer 0 against plain attention
+                (LAYER_RTOL), the three properties (the last frame moves
+                frame 0; blocks 0-5 bit-equal when block 6's input flips;
+                teacher forcing's block 0 independent of clean), B1 launches
+                a call (30 a forward, plus 30 where the cross-attention
+                logits pass 256 MiB), seconds and peak device bytes.
+ 24. resume     - W8A8 with the int8 KV cache, 6 of 30 layers, a 6-frame
+                rolling cache (9360 tokens): 2 blocks, save_generation_state
+                (cache, torch.Generator, frames_done), load_generation_state,
+                2 more blocks, bit-equal to the 4 blocks without the break;
+                30 B2 a block; save and load seconds.
+ 25. cli        - `python -m inferix_tpu_torch.cli` in subprocesses:
+                self-forcing with phase 22's checkpoint, --quant int8,
+                --frames 6 (exit 0, frames [21, 480, 832, 3] uint8 equal to
+                an in-process run_text_to_video on the same config and seed);
+                stream --tiny --backend file --segments 2 and causvid --tiny
+                --rollouts 2 on the card (exit 0, their frame counts); the
+                wall time of each.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -174,13 +211,17 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -190,6 +231,7 @@ import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
 from inferix_tpu_torch.core.config import EngineConfig
 from inferix_tpu_torch.core.interactive import InteractiveSession
+from inferix_tpu_torch.core.media.streaming_backend import latents_to_uint8
 from inferix_tpu_torch.core.memory import tree_map
 from inferix_tpu_torch.core.types import DecodeMode, StreamingMode
 from inferix_tpu_torch.kvcache.manager import KVCacheRequest
@@ -197,13 +239,14 @@ from inferix_tpu_torch.models.text.clip_vision import (
     CLIPVisionConfig, clip_vision_encode, init_clip_vision_params)
 from inferix_tpu_torch.models.text import umt5 as umt5_mod
 from inferix_tpu_torch.models.text.umt5 import (
-    UMT5Config, WanTextEncoder, init_umt5_params, umt5_encode)
+    UMT5Config, WanTextEncoder, convert_t5_encoder_state_dict, init_umt5_params, umt5_encode)
 from inferix_tpu_torch.models.text.xlm_roberta import (
     XLMRobertaConfig, init_xlm_roberta_params, xlm_roberta_clip_text)
 from inferix_tpu_torch.models.wan.causal_dit import (
-    dit_forward_inference, fuse_qkv_params, layer_params, block_forward, patch_embed,
-    time_embeddings)
-from inferix_tpu_torch.kvcache.cache import quantize_kv_block, valid_mask
+    DiTGeometry, dit_forward_bidirectional, dit_forward_block_causal, dit_forward_inference,
+    dit_forward_teacher_forcing, fuse_qkv_params, layer_params, block_forward, patch_embed,
+    precompute_crossattn_cache, time_embeddings)
+from inferix_tpu_torch.kvcache.cache import KVCache, KVCacheSpec, quantize_kv_block, valid_mask
 from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
@@ -218,7 +261,7 @@ from inferix_tpu_torch.ops import halo_conv as halo_mod
 from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
-from inferix_tpu_torch.ops.rope import rope_angles
+from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
@@ -229,7 +272,14 @@ from inferix_tpu_torch.quant.kernels import (
     GEMM_LIBRARY, fp8_matmul, fp8_matmul_reference, gemm_plan, int8_matmul,
     int8_matmul_reference, quantize_act_int8_per_token, quantize_weight_fp8,
     quantize_weight_int8)
+from inferix_tpu_torch.utils.checkpoint import (
+    convert_causal_wan_state_dict, convert_wan_vae_state_dict, load_self_forcing_checkpoint,
+    load_sharded_safetensors, load_wan_vae)
 from inferix_tpu_torch.utils.params import init_block_params, init_params, init_vae_params
+from inferix_tpu_torch.utils.state_checkpoint import (load_generation_state,
+                                                      save_generation_state)
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -3425,6 +3475,610 @@ def i2v_phase(dev: torch.device, smi: str, clip_features: torch.Tensor) -> dict:
     return path
 
 
+# --- phases 22-25: weights from files, the whole-clip forwards, resume, the CLI
+
+CKPT_BLOCKS = 2          # phase 22: blocks of the pipeline loaded from the .pt
+UMT5_FILE_LAYERS = 2     # phase 22: UMT5-XXL width, its depth cut to 2 of 24 layers
+UMT5_SHARDS = 3
+CLIP_FRAMES = 21         # phase 23: the whole clip, 21 latent frames (32760 tokens)
+PLAIN_ROWS = 2048        # query rows a chunk of the plain attention over the clip
+RESUME_LAYERS, RESUME_FRAMES, RESUME_BLOCKS = 6, 6, 4  # phase 24: 6 of 30 layers
+CLI_FRAMES = 6           # phase 25: latent frames of the self-forcing command
+CLI_PROMPT = "a scenic mountain valley"  # the CLI's default prompt
+_SAFETENSORS_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+                      torch.int8: "I8", torch.uint8: "U8", torch.int32: "I32",
+                      torch.int64: "I64", torch.float8_e4m3fn: "F8_E4M3"}
+
+
+def since_reset() -> dict:
+    """The launches since the last reset_counts(), by kernel (zeros left out)."""
+    return count_diff(all_counts(), {k: 0 for k in KERNEL_COUNTERS})
+
+
+def gate(ok: bool, msg: str) -> None:
+    """A check of phases 22-25: raise when it fails."""
+    if not ok:
+        raise AssertionError(msg)
+
+
+def host_copy(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().to("cpu").contiguous()
+
+
+def reference_state_dict(params: dict, m) -> dict:
+    """The DiT tree -> the reference `CausalWanModel` state dict on the host
+    (this script's own inverse of `convert_causal_wan_state_dict`: Linear
+    [out, in], the patch Conv3d [dim, in, pt, ph, pw], one key a layer)."""
+    sd = {}
+
+    def lin(name, p, i=None):
+        w, b = (p["w"], p["b"]) if i is None else (p["w"][i], p["b"][i])
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = host_copy(w.t()), host_copy(b)
+
+    pt, ph, pw = m.patch_size
+    pe = params["patch_embedding"]
+    sd["patch_embedding.weight"] = host_copy(
+        pe["w"].reshape(pt, ph, pw, m.in_dim, m.dim).permute(4, 3, 0, 1, 2))
+    sd["patch_embedding.bias"] = host_copy(pe["b"])
+    for name, key in (("text_embedding.0", ("text_embedding", "fc1")),
+                      ("text_embedding.2", ("text_embedding", "fc2")),
+                      ("time_embedding.0", ("time_embedding", "fc1")),
+                      ("time_embedding.2", ("time_embedding", "fc2")),
+                      ("head.head", ("head", "head"))):
+        lin(name, params[key[0]][key[1]])
+    lin("time_projection.1", params["time_projection"])
+    sd["head.modulation"] = host_copy(params["head"]["modulation"][None])
+    blocks = params["blocks"]
+    for i in range(m.num_layers):
+        p = f"blocks.{i}"
+        for kind in ("self_attn", "cross_attn"):
+            for n in ("q", "k", "v", "o"):
+                lin(f"{p}.{kind}.{n}", blocks[kind][n], i)
+            for n in ("norm_q", "norm_k"):
+                sd[f"{p}.{kind}.{n}.weight"] = host_copy(blocks[kind][n]["w"][i])
+        sd[f"{p}.norm3.weight"] = host_copy(blocks["norm3"]["w"][i])
+        sd[f"{p}.norm3.bias"] = host_copy(blocks["norm3"]["b"][i])
+        lin(f"{p}.ffn.0", blocks["ffn"]["fc1"], i)
+        lin(f"{p}.ffn.2", blocks["ffn"]["fc2"], i)
+        sd[f"{p}.modulation"] = host_copy(blocks["modulation"][i][None])
+    return sd
+
+
+def reference_vae_state_dict(params: dict) -> dict:
+    """The VAE tree -> the reference `WanVAE_` state dict on the host (this
+    script's own inverse of `convert_wan_vae_state_dict`: Conv3d
+    [out, in, kt, kh, kw]; the resample and attention convs Conv2d)."""
+    sd = {}
+
+    def conv(prefix, p, two_d=False):
+        w = p["w"]
+        sd[f"{prefix}.weight"] = host_copy(w[0].permute(3, 2, 0, 1) if two_d
+                                           else w.permute(4, 3, 0, 1, 2))
+        sd[f"{prefix}.bias"] = host_copy(p["b"])
+
+    def gamma(prefix, p):
+        sd[f"{prefix}.gamma"] = host_copy(p["gamma"].reshape(-1, 1, 1))
+
+    def res(prefix, p):
+        gamma(f"{prefix}.residual.0", p["norm1"])
+        conv(f"{prefix}.residual.2", p["conv1"])
+        gamma(f"{prefix}.residual.3", p["norm2"])
+        conv(f"{prefix}.residual.6", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{prefix}.shortcut", p["shortcut"])
+
+    def tower(prefix, t, samples):
+        conv(f"{prefix}.conv1", t["conv1"])
+        for idx, item in enumerate(t[samples]):
+            (key, p), = item.items()
+            if key == "res":
+                res(f"{prefix}.{samples}.{idx}", p)
+            else:
+                conv(f"{prefix}.{samples}.{idx}.resample.1", p["conv"], two_d=True)
+                if "time_conv" in p:
+                    conv(f"{prefix}.{samples}.{idx}.time_conv", p["time_conv"])
+        mid = t["middle"]
+        res(f"{prefix}.middle.0", mid["res1"])
+        gamma(f"{prefix}.middle.1.norm", mid["attn"]["norm"])
+        conv(f"{prefix}.middle.1.to_qkv", mid["attn"]["qkv"], two_d=True)
+        conv(f"{prefix}.middle.1.proj", mid["attn"]["proj"], two_d=True)
+        res(f"{prefix}.middle.2", mid["res2"])
+        gamma(f"{prefix}.head.0", t["head_norm"])
+        conv(f"{prefix}.head.2", t["head_conv"])
+
+    tower("encoder", params["encoder"], "downsamples")
+    tower("decoder", params["decoder"], "upsamples")
+    conv("conv1", params["conv1"])
+    conv("conv2", params["conv2"])
+    return sd
+
+
+def umt5_hf_state_dict(params: dict, cfg: UMT5Config) -> dict:
+    """The UMT5 tree -> an HF `UMT5EncoderModel` state dict on the host
+    (Linear [out, in], one relative-bias table a layer)."""
+    sd = {"shared.weight": host_copy(params["token_embedding"]),
+          "encoder.final_layer_norm.weight": host_copy(params["norm"]["w"])}
+    b = params["blocks"]
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}"
+        att = f"{pre}.layer.0.SelfAttention"
+        sd[f"{pre}.layer.0.layer_norm.weight"] = host_copy(b["norm1"]["w"][i])
+        sd[f"{pre}.layer.1.layer_norm.weight"] = host_copy(b["norm2"]["w"][i])
+        for n in ("q", "k", "v", "o"):
+            sd[f"{att}.{n}.weight"] = host_copy(b["attn"][n]["w"][i].t())
+        sd[f"{att}.relative_attention_bias.weight"] = host_copy(b["pos_emb"][i])
+        for n, key in (("wi_0", "gate"), ("wi_1", "fc1"), ("wo", "fc2")):
+            sd[f"{pre}.layer.1.DenseReluDense.{n}.weight"] = host_copy(b["ffn"][key]["w"][i].t())
+    return sd
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """This script's own writer of the safetensors format (an 8-byte
+    little-endian header length, the JSON header padded with spaces to a
+    multiple of 8, then each tensor's bytes in key order). Returns the
+    file's bytes."""
+    header, offset = {}, 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for name in sorted(tensors):
+            f.write(tensors[name].contiguous().view(-1).view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def tree_leaves_with_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves_with_paths(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def loader_dtype(path: str, ndim: int) -> torch.dtype:
+    """The JAX loader's policy under bf16 (`inferix_tpu/utils/checkpoint.py:
+    166-205`), restated: float32 for the time embedding, its projection, the
+    modulation and every one-axis leaf; bf16 for the rest."""
+    if "time_" in path or "modulation" in path or ndim < 2:
+        return torch.float32
+    return torch.bfloat16
+
+
+def gb_per_s(nbytes: int, secs: float) -> str:
+    return f"{nbytes / 1e9:.3f} GB in {secs:.3f} s ({nbytes / 1e9 / secs:.3f} GB/s)"
+
+
+def files_config(model_path: str = None) -> EngineConfig:
+    """Phase 22's pipeline: Wan2.1-T2V-1.3B at full width and depth, W8A8
+    linears, the bf16 KV cache, CKPT_BLOCKS blocks, no decode."""
+    cfg = main_path_config(CKPT_BLOCKS, w8a8=True)
+    cfg.model_path = model_path
+    cfg.runtime.decode_mode = DecodeMode.NO_DECODE
+    return cfg
+
+
+def files_phase(dev: torch.device, smi: str, ckpt_dir: str) -> tuple:
+    """Phase 22: checkpoint files. Phase 4's seeded bf16 tree written as a
+    reference-format `{"generator_ema": sd}` .pt in ckpt_dir (kept for
+    phase 25) and read back by `load_self_forcing_checkpoint`; the pipeline
+    with model_path under W8A8 against the same pipeline given the in-memory
+    conversion; the default VAEConfig VAE as a .pth through `load_wan_vae`
+    (halo); a UMT5-XXL-width tower in 3 HF safetensors shards through
+    `load_sharded_safetensors` and `WanTextEncoder`. Returns (the seeded
+    tree, the launches of the phase's own runs)."""
+    t0 = time.perf_counter()
+    cfg = files_config()
+    m = cfg.model
+    usage = shutil.disk_usage(ckpt_dir)
+    print(f"files: writing under a temporary directory with {usage.free / 1e9:.1f} GB free",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)  # phase 4's tree
+    params = init_params(m, g, device=dev, dtype=torch.bfloat16)
+    sd = reference_state_dict(params, m)
+    pt_path = os.path.join(ckpt_dir, "self_forcing_dmd.pt")
+    _, write_s = timed(lambda: torch.save({"generator_ema": sd}, pt_path))
+    pt_bytes = os.path.getsize(pt_path)
+    loaded, load_s = timed(lambda: load_self_forcing_checkpoint(ckpt_dir, m, device=dev))
+    want = dict(tree_leaves_with_paths(params))
+    got = dict(tree_leaves_with_paths(loaded))
+    values_equal = sorted(got) == sorted(want) and all(
+        torch.equal(got[k].float(), want[k].float()) for k in want)
+    bad_dtypes = [k for k, v in got.items() if v.dtype != loader_dtype(k, v.dim())]
+    f32_leaves = sorted(k for k, v in got.items() if v.dtype == torch.float32)
+    print(f"files: DiT .pt written {gb_per_s(pt_bytes, write_s)}, read and converted to "
+          f"the card {gb_per_s(pt_bytes, load_s)}; {len(got)} leaves bit-equal to the "
+          f"seeded tree {values_equal}, float32 leaves {f32_leaves}, leaves off the JAX "
+          f"loader's dtype policy {bad_dtypes}; {smi}", flush=True)
+    gate(values_equal and not bad_dtypes,
+         "the DiT loaded from the .pt differs from the seeded tree")
+    del loaded, got
+
+    # the pipeline from the file against the pipeline given the in-memory
+    # conversion of the same state dict
+    path = {}
+    pipe = SelfForcingPipeline(files_config(ckpt_dir), device=dev)
+    _, setup_s = timed(pipe.setup)
+    gen = pipe.generator
+    want_block = w8a8_block_launches(gen, False)
+    want_text = {"int8_matmul": 2 * m.num_layers, "quantize_rows_int8": 2 * m.num_layers}
+    reset_counts()
+    marks, per_block = [all_counts()], []
+
+    def on_block(x0, bi):
+        marks.append(all_counts())
+        per_block.append(count_diff(marks[-1], marks[-2]))
+
+    lat_file, run_s = timed(lambda: pipe.run_text_to_video(["a red fox"],
+                                                           block_callback=on_block))
+    add_counts(path, since_reset())
+    del pipe, gen
+    torch.cuda.empty_cache()
+    mem = SelfForcingPipeline(files_config(), params=convert_causal_wan_state_dict(
+        sd, m, device=dev), device=dev)
+    lat_mem = mem.run_text_to_video(["a red fox"])
+    del mem
+    equal = torch.equal(lat_file, lat_mem)
+    want = [{k: v + want_text.get(k, 0) for k, v in want_block.items()}] \
+        + [want_block] * (CKPT_BLOCKS - 1)
+    print(f"files: SelfForcingPipeline(model_path) W8A8 setup (load + quantize) "
+          f"{setup_s:.3f} s, {CKPT_BLOCKS} blocks {run_s:.3f} s, latents "
+          f"{tuple(lat_file.shape)} bit-equal to the pipeline given params= {equal}; "
+          f"launches a block {per_block}; {smi}", flush=True)
+    gate(equal and per_block == want, f"the pipeline from the file differs (equal {equal}) "
+         f"or its launches {per_block} are not {want}")
+    del sd
+    torch.cuda.empty_cache()
+
+    # the VAE: a .pth of the default VAEConfig, decoded with the halo impl
+    vcfg = VAEConfig()
+    vparams = init_vae_params(vcfg, torch.Generator(device=dev).manual_seed(22), dev)
+    vsd = reference_vae_state_dict(vparams)
+    del vparams
+    pth = os.path.join(ckpt_dir, "vae", "Wan2.1_VAE.pth")
+    os.makedirs(os.path.dirname(pth))
+    _, vwrite_s = timed(lambda: torch.save(vsd, pth))
+    pth_bytes = os.path.getsize(pth)
+    vae_file, vload_s = timed(lambda: load_wan_vae(pth, vcfg, dtype=torch.bfloat16,
+                                                   device=dev, conv_impl="halo"))
+    vae_mem = CausalVAE(vcfg, params=convert_wan_vae_state_dict(vsd, vcfg, dev),
+                        dtype=torch.bfloat16, device=dev, conv_impl="halo")
+    latents = lat_file.to(torch.bfloat16)
+    reset_counts()
+    with torch.inference_mode():
+        video_file, dec_s = timed(lambda: vae_file.decode(latents))
+        b6 = all_counts()["halo_conv3d"]
+        video_mem = vae_mem.decode(latents)
+    add_counts(path, {"halo_conv3d": b6})
+    vequal = torch.equal(video_file, video_mem)
+    want_b6 = DECODE_LAUNCHES["halo"]["halo_conv3d"] * -(-latents.shape[1] // 3)
+    print(f"files: VAE .pth written {gb_per_s(pth_bytes, vwrite_s)}, load_wan_vae (halo, "
+          f"bf16) {gb_per_s(pth_bytes, vload_s)}; decode {tuple(video_file.shape)} "
+          f"{dec_s:.3f} s, bit-equal to the VAE from the in-memory tree {vequal}, B6 {b6} "
+          f"(want {want_b6}); {smi}", flush=True)
+    gate(vequal and b6 == want_b6, "the VAE from the .pth differs, or its B6 launches")
+    del vae_file, vae_mem, video_file, video_mem, vsd
+    shutil.rmtree(os.path.dirname(pth))
+
+    # UMT5-XXL width, 2 layers, in 3 HF safetensors shards
+    ucfg = dataclasses.replace(UMT5Config(), num_layers=UMT5_FILE_LAYERS)
+    uparams = init_umt5_params(ucfg, torch.Generator(device=dev).manual_seed(23), device=dev)
+    hf = umt5_hf_state_dict(uparams, ucfg)
+    shard_dir = os.path.join(ckpt_dir, "umt5")
+    os.makedirs(shard_dir)
+    keys = sorted(hf, key=lambda k: (not k.startswith("shared"), k))
+    groups = [keys[:1], [k for k in keys[1:] if ".block.0." in k],
+              [k for k in keys[1:] if ".block.0." not in k]]
+    t1 = time.perf_counter()
+    st_bytes = sum(write_safetensors(
+        os.path.join(shard_dir, f"model-{i + 1:05d}-of-{UMT5_SHARDS:05d}.safetensors"),
+        {k: hf[k] for k in grp}) for i, grp in enumerate(groups))
+    st_write_s = time.perf_counter() - t1
+    del hf
+    uloaded, st_load_s = timed(lambda: convert_t5_encoder_state_dict(
+        load_sharded_safetensors(shard_dir), ucfg, device=dev))
+    tok = ByteTokenizer()
+    with torch.inference_mode():
+        f_file = WanTextEncoder(ucfg, params=uloaded, tokenizer=tok, device=dev)(UMT5_PROMPTS)
+        f_mem = WanTextEncoder(ucfg, params=uparams, tokenizer=tok, device=dev)(UMT5_PROMPTS)
+    leaves_file, leaves_mem = (dict(tree_leaves_with_paths(t)) for t in (uloaded, uparams))
+    tree_equal = sorted(leaves_file) == sorted(leaves_mem) and all(
+        leaves_file[k].dtype == v.dtype and torch.equal(leaves_file[k], v)
+        for k, v in leaves_mem.items())
+    fequal = torch.equal(f_file, f_mem)
+    print(f"files: UMT5-XXL width, {UMT5_FILE_LAYERS} layers, {UMT5_SHARDS} safetensors "
+          f"shards written {gb_per_s(st_bytes, st_write_s)}, load_sharded_safetensors + "
+          f"convert_t5_encoder_state_dict to the card {gb_per_s(st_bytes, st_load_s)}; tree "
+          f"bit-equal {tree_equal}, WanTextEncoder features {tuple(f_file.shape)} bit-equal "
+          f"to the in-memory tower's {fequal}; {smi}", flush=True)
+    gate(tree_equal and fequal,
+         "the UMT5 tower from the safetensors shards differs")
+    del uloaded, uparams, f_file, f_mem
+    shutil.rmtree(shard_dir)
+    torch.cuda.empty_cache()
+    phase("files", t0)
+    return params, path
+
+
+def plain_attention_chunked(q, k, v, kv_mask=None, scale=None):
+    """The mask wrapper's plain version, PLAIN_ROWS query rows at a time (a
+    prefix span is the same for every query row, so the rows are
+    independent): the whole logits at 32760 x 32760 would be ~51 GB."""
+    return torch.cat([plain_flash_attention(q[:, i:i + PLAIN_ROWS], k, v, kv_mask, scale)
+                      for i in range(0, q.shape[1], PLAIN_ROWS)], dim=1)
+
+
+def xattn_on_kernel(m, tokens: int) -> bool:
+    """Whether `cache_attention` sends the text cross-attention of a forward
+    over `tokens` query rows to B1: its float32 logits past 256 MiB."""
+    return 4 * m.num_heads * tokens * TEXT > 256 * 2**20
+
+
+def wholeclip_phase(dev: torch.device, smi: str, params: dict) -> dict:
+    """Phase 23: the three whole-clip forwards in bf16 over 21 latent frames
+    (32760 tokens) on phase 22's tree: B1 at 32760 query rows over 32760
+    keys and the cross-attention call at 512 keys against the plain version,
+    one layer against plain attention, the three properties, launches,
+    seconds and peak device bytes of each call."""
+    t0 = time.perf_counter()
+    m, r = EngineConfig().model, EngineConfig().runtime
+    g = torch.Generator(device=dev).manual_seed(230)
+    context = torch.randn(1, TEXT, m.text_dim, generator=g, device=dev).to(torch.bfloat16)
+    shape = (1, CLIP_FRAMES, r.latent_height, r.latent_width, r.latent_channels)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    clean = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    t = torch.full(shape[:2], 500.0, device=dev)
+    rope = build_rope_tables(m.head_dim, m.rope_max_seq_len, device=dev)
+    fpb = m.num_frame_per_block
+    geo = DiTGeometry(CLIP_FRAMES, r.latent_height, r.latent_width, m.patch_size)
+    n = m.num_layers
+    with torch.inference_mode():
+        xattn = precompute_crossattn_cache(params, m, context)
+    path, runs = {}, {}
+
+    def run(name, fn, want_b1):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, secs = timed(fn)
+        launches = since_reset()
+        add_counts(path, launches)
+        runs[name] = (secs, torch.cuda.max_memory_allocated(dev),
+                      launches.get("flash_attention_prefix", 0), want_b1)
+        return out
+
+    per_fwd = {clip: n * (1 + xattn_on_kernel(m, geo.tokens if clip else geo.tokens // 7))
+               for clip in (True, False)}
+    bidir = lambda xx: dit_forward_bidirectional(params, m, rope, xx, t, xattn,
+                                                 dtype=torch.bfloat16)
+    causal = lambda xx: dit_forward_block_causal(params, m, rope, xx, t, xattn, fpb,
+                                                 dtype=torch.bfloat16)
+    teacher = lambda cc: dit_forward_teacher_forcing(params, m, rope, x, cc, t, xattn, fpb,
+                                                     dtype=torch.bfloat16)
+    blocks = CLIP_FRAMES // fpb
+    flow = run("bidirectional", lambda: bidir(x), per_fwd[True])
+    x_last = x.clone()
+    x_last[:, -1] *= -1
+    flow_last = run("bidirectional, last frame flipped", lambda: bidir(x_last), per_fwd[True])
+    moved = (flow[:, 0].float() - flow_last[:, 0].float()).abs().max().item()
+    bc = run("block_causal", lambda: causal(x), blocks * per_fwd[False])
+    x_b6 = x.clone()
+    x_b6[:, -fpb:] *= -1
+    bc6 = run("block_causal, block 6 flipped", lambda: causal(x_b6), blocks * per_fwd[False])
+    causal_ok = torch.equal(bc[:, :-fpb], bc6[:, :-fpb]) and not torch.equal(bc[:, -fpb:],
+                                                                            bc6[:, -fpb:])
+    tf = run("teacher_forcing", lambda: teacher(clean), 2 * blocks * per_fwd[False])
+    clean0 = clean.clone()
+    clean0[:, :fpb] *= -1
+    tf0 = run("teacher_forcing, clean block 0 flipped", lambda: teacher(clean0),
+              2 * blocks * per_fwd[False])
+    tf_ok = torch.equal(tf[:, :fpb], tf0[:, :fpb]) and not torch.equal(tf[:, fpb:2 * fpb],
+                                                                       tf0[:, fpb:2 * fpb])
+    for name, (secs, peak, b1, want) in runs.items():
+        print(f"wholeclip: {name}: {secs:.3f} s, peak device bytes {peak}, B1 launches {b1} "
+              f"(want {want}); {smi}", flush=True)
+    shapes_ok = all(tuple(o.shape) == shape and torch.isfinite(o).all()
+                    for o in (flow, bc, tf))
+    print(f"wholeclip: flows {shape} finite {shapes_ok}; bidirectional frame 0 moved by "
+          f"{moved:.3e} when the last frame flipped; block-causal blocks 0-5 bit-equal and "
+          f"block 6 moved when block 6's input flipped {causal_ok}; teacher forcing block 0 "
+          f"bit-equal and block 1 moved when clean block 0 flipped {tf_ok}", flush=True)
+    gate(shapes_ok and moved > 0 and causal_ok and tf_ok
+            and all(b1 == want for _, _, b1, want in runs.values()),
+         "the whole-clip forwards: a property, a shape or the B1 launches failed")
+    del flow_last, bc, bc6, tf, tf0, clean0, x_b6, x_last
+
+    # B1 at the clip's shapes (layer 0 of the bidirectional call) against
+    # the plain version, and the layer against the layer with plain attention
+    calls = []
+    real = attention_mod.flash_attention
+
+    def record(q, k, v, kv_mask=None, scale=None):
+        if len(calls) < 2:
+            calls.append((q.clone(), k.clone(), v.clone(),
+                          None if kv_mask is None else kv_mask.clone()))
+        return real(q, k, v, kv_mask=kv_mask, scale=scale)
+
+    spec = KVCacheSpec(num_layers=n, batch=1, max_tokens=geo.tokens, num_kv_heads=m.num_heads,
+                       head_dim=m.head_dim, dtype=torch.bfloat16)
+    before = all_counts()
+    with torch.inference_mode():
+        tokens = patch_embed(params, m, x)
+        _, e0 = time_embeddings(params, m, t)
+        angles = rope_angles(rope, CLIP_FRAMES, geo.grid_h, geo.grid_w, 0)
+        mask = valid_mask(spec, geo.tokens, device=dev)
+        blk = layer_params(params["blocks"], 0)
+        ups = []
+        for plain in (False, True):
+            lc = tuple(torch.zeros(1, geo.tokens, m.num_heads, m.head_dim,
+                                   dtype=torch.bfloat16, device=dev) for _ in range(2))
+            with mock.patch.object(attention_mod, "flash_attention",
+                                   plain_attention_chunked if plain else record):
+                y, _ = block_forward(blk, m, spec, tokens, e0, angles, lc, xattn.k[0],
+                                     xattn.v[0], 0, mask)
+            ups.append(y - tokens)
+        layer_err = rel_err(ups[0], ups[1])
+        oks = []
+        for label, (q, k, v, kv_mask) in zip(("self-attention", "cross-attention"), calls):
+            out, lse = flash_attention_prefix(q, k, v, k.shape[1], return_lse=True)
+            refs = [flash_attention_prefix_reference(q[:, i:i + PLAIN_ROWS], k, v, k.shape[1],
+                                                     return_lse=True)
+                    for i in range(0, q.shape[1], PLAIN_ROWS)]
+            ref = torch.cat([a for a, _ in refs], dim=1)
+            ref_lse = torch.cat([b for _, b in refs], dim=2)
+            oks.append(check_attention_case(
+                f"wholeclip: B1 {label} q {tuple(q.shape)} over {k.shape[1]} keys, mask "
+                f"{'none' if kv_mask is None else int(kv_mask.sum())}", out, lse, ref,
+                ref_lse)[0])
+    restore_counts(before)
+    print(f"wholeclip: block_forward layer 0 at {geo.tokens} tokens, kernel vs plain "
+          f"attention: update rel err {layer_err:.3e} (tol {LAYER_RTOL:g})", flush=True)
+    gate(all(oks) and len(calls) == 2 and layer_err <= LAYER_RTOL,
+         "B1 at the whole clip's shapes disagrees with its plain version")
+    torch.cuda.empty_cache()
+    phase("wholeclip", t0)
+    return path
+
+
+def resume_phase(dev: torch.device, smi: str, state_dir: str) -> dict:
+    """Phase 24: W8A8 with the int8 KV cache, 6 of 30 layers, a 6-frame
+    rolling cache (9360 tokens): RESUME_BLOCKS blocks without a break
+    against 2 blocks, save_generation_state (cache, torch.Generator,
+    frames_done), load_generation_state and 2 more blocks."""
+    t0 = time.perf_counter()
+    cfg = main_path_config(RESUME_BLOCKS, w8a8=True)
+    m, r, q = cfg.model, cfg.runtime, cfg.quant
+    m.num_layers, m.local_attn_size = RESUME_LAYERS, RESUME_FRAMES
+    q.quantize_kv_cache, q.kv_cache_dtype = True, "int8"
+    g = torch.Generator(device=dev).manual_seed(24)
+    params = quantize_params(init_params(m, g, device=dev, dtype=torch.bfloat16), q)
+    gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev)
+    context = torch.randn(1, TEXT, m.text_dim, generator=g, device=dev).to(torch.bfloat16)
+    xattn = gen.encode_text_context(context)
+    fpb = m.num_frame_per_block
+    noise = torch.randn(1, RESUME_BLOCKS * fpb, r.latent_height, r.latent_width,
+                        r.latent_channels, generator=g, device=dev).to(torch.bfloat16)
+    full, _ = gen.generate(noise, xattn, generator=torch.Generator(device=dev).manual_seed(240))
+    reset_counts()
+    cache, gb = gen.init_cache(), torch.Generator(device=dev).manual_seed(240)
+    outs, launches = [], []
+
+    def block(cache, bi, g):
+        before = all_counts()
+        x0, cache = gen.denoise_block(cache, xattn, noise[:, bi * fpb:(bi + 1) * fpb],
+                                      bi * fpb, generator=g)
+        launches.append(count_diff(all_counts(), before))
+        outs.append(x0)
+        return cache
+
+    half = RESUME_BLOCKS // 2
+    for bi in range(half):
+        cache = block(cache, bi, gb)
+    path_npz = os.path.join(state_dir, "state.npz")
+    _, save_s = timed(lambda: save_generation_state(path_npz, cache=cache, generator=gb,
+                                                    frames_done=half * fpb))
+    del cache, gb
+    st, load_s = timed(lambda: load_generation_state(path_npz, device=dev))
+    cache2, g2 = KVCache(**st["cache"]), st["generator"]
+    for bi in range(st["frames_done"] // fpb, RESUME_BLOCKS):
+        cache2 = block(cache2, bi, g2)
+    path = since_reset()
+    resumed = torch.cat(outs, dim=1)
+    equal = torch.equal(resumed, full)
+    want_b2 = m.num_layers * (len(gen.denoising_steps) + 1)
+    b2 = [c.get("flash_attention_prefix_quant", 0) for c in launches]
+    print(f"resume: W8A8 + int8 KV, {m.num_layers} layers, a {RESUME_FRAMES}-frame ring of "
+          f"{gen.statics.spec.max_tokens} tokens: {RESUME_BLOCKS} blocks resumed after "
+          f"block {half - 1} bit-equal to the run without the break {equal}; "
+          f"save_generation_state {save_s:.3f} s ({os.path.getsize(path_npz)} bytes), "
+          f"load_generation_state {load_s:.3f} s; B2 a block {b2} (want {want_b2}); {smi}",
+          flush=True)
+    gate(equal and b2 == [want_b2] * RESUME_BLOCKS,
+         "the resumed stream differs from the stream without the break")
+    del gen, params, st, cache2, full
+    torch.cuda.empty_cache()
+    phase("resume", t0)
+    return path
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """PyTorch's default TF32 switches (what a fresh process such as the
+    CLI runs with), for the run compared with the CLI's output."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def cli(args: list) -> tuple:
+    """`python -m inferix_tpu_torch.cli <args>` in a subprocess from the
+    checkout; returns (frames of its .npz output, wall seconds)."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "inferix_tpu_torch.cli", *args], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t1
+    print(f"cli: {' '.join(args)}: exit {res.returncode} in {wall:.3f} s; its output: "
+          f"{res.stdout.strip().splitlines()[-2:]}", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-4000:], flush=True)
+    gate(res.returncode == 0, f"the CLI exited {res.returncode}: {args}")
+    out = [a for i, a in enumerate(args) if i and args[i - 1] == "--output"][0]
+    return np.load(out)["frames"], wall
+
+
+def cli_phase(dev: torch.device, smi: str, ckpt_dir: str, out_dir: str) -> dict:
+    """Phase 25: the port's CLI on the card in subprocesses. self-forcing
+    with phase 22's checkpoint, W8A8, CLI_FRAMES latent frames: exit 0,
+    frames [21, 480, 832, 3] uint8 equal to an in-process run_text_to_video
+    on the same config and seed; then stream (file backend, 2 segments) and
+    causvid (2 rollouts) at --tiny: exit 0 and their frame counts."""
+    t0 = time.perf_counter()
+    sf = os.path.join(out_dir, "sf.npz")
+    frames, sf_s = cli(["self-forcing", "--model-path", ckpt_dir, "--quant", "int8",
+                        "--frames", str(CLI_FRAMES), "--output", sf])
+    cfg = EngineConfig()
+    cfg.model_path, cfg.runtime.seed = ckpt_dir, 42
+    cfg.quant.enabled, cfg.quant.dtype = True, "int8"
+    reset_counts()
+    with torch_defaults():
+        pipe = SelfForcingPipeline(cfg, device=dev)
+        video, inproc_s = timed(lambda: pipe.run_text_to_video([CLI_PROMPT],
+                                                               num_frames=CLI_FRAMES))
+    path = since_reset()
+    want = latents_to_uint8(video.float().cpu().numpy())
+    del pipe, video
+    pix = 1 + 4 * (CLI_FRAMES - 1)
+    equal = frames.dtype == np.uint8 and frames.shape == want.shape \
+        and np.array_equal(frames, want)
+    print(f"cli: self-forcing frames {frames.shape} {frames.dtype} equal to the in-process "
+          f"run_text_to_video ({inproc_s:.3f} s) {equal}; {smi}", flush=True)
+    gate(frames.shape == (pix, 480, 832, 3) and equal,
+         "the CLI's frames differ from the in-process pipeline's")
+    torch.cuda.empty_cache()
+    counts_ok = []
+    for args, n_frames in ((["stream", "--tiny", "--backend", "file", "--segments", "2"], 22),
+                           (["causvid", "--tiny", "--rollouts", "2"], 17)):
+        got, _ = cli(args + ["--output", os.path.join(out_dir, f"{args[0]}.npz")])
+        counts_ok.append(got.shape[0] == n_frames)
+        print(f"cli: {args[0]} --tiny on the card: {got.shape[0]} frames (want {n_frames})",
+              flush=True)
+    gate(all(counts_ok),
+         "a tiny CLI command wrote the wrong number of frames")
+    phase("cli", t0)
+    return path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=2,
@@ -3506,9 +4160,21 @@ def main() -> None:
     p19 = causvid_phase(dev, smi)
     p20 = continuous_phase(dev, smi)
     p21 = i2v_phase(dev, smi, clip_features)
-    print(f"launches on phases 16-21: umt5 pipeline {p17}; cfg {p18}; causvid {p19}; "
-          f"continuous {p20}; i2v-14B {p21}", flush=True)
-    for p in (p17, p18, p19, p20, p21):
+    del clip_features
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt_dir, out_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+        os.makedirs(ckpt_dir)
+        os.makedirs(out_dir)
+        seeded, p22 = files_phase(dev, smi, ckpt_dir)
+        p23 = wholeclip_phase(dev, smi, seeded)
+        del seeded
+        p24 = resume_phase(dev, smi, out_dir)
+        p25 = cli_phase(dev, smi, ckpt_dir, out_dir)
+    print(f"launches on phases 16-25: umt5 pipeline {p17}; cfg {p18}; causvid {p19}; "
+          f"continuous {p20}; i2v-14B {p21}; files {p22}; wholeclip {p23}; resume {p24}; "
+          f"cli (in-process) {p25}", flush=True)
+    for p in (p17, p18, p19, p20, p21, p22, p23, p24, p25):
         add_counts(pipe, p)
     fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]

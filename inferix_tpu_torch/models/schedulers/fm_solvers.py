@@ -24,6 +24,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ...core.device import resolve_device
+
 
 class SolverState(NamedTuple):
     """DPM-Solver++ history carried between steps."""
@@ -53,7 +55,8 @@ class FlowDPMSolverMultistep:
         return cls(sigmas=sigmas, timesteps=(sigmas[:-1] * 1000.0))
 
     def init_state(self, sample_shape, dtype: torch.dtype = torch.float32,
-                   device="cpu") -> SolverState:
+                   device: str | torch.device = "cuda") -> SolverState:
+        device = resolve_device(device)
         return SolverState(prev_d=torch.zeros(tuple(sample_shape), dtype=dtype, device=device),
                            prev_valid=torch.tensor(False, device=device),
                            prev_h=torch.zeros((), dtype=torch.float32, device=device))
@@ -132,7 +135,8 @@ class FlowUniPCMultistep:
                    solver_order=solver_order, solver_type=solver_type)
 
     def init_state(self, sample_shape, dtype: torch.dtype = torch.float32,
-                   device="cpu") -> UniPCState:
+                   device: str | torch.device = "cuda") -> UniPCState:
+        device = resolve_device(device)
         shape = tuple(sample_shape)
         return UniPCState(
             m_hist=torch.zeros((self.solver_order,) + shape, dtype=dtype, device=device),

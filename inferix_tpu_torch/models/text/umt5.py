@@ -305,11 +305,13 @@ def convert_t5_encoder_state_dict(sd, cfg: UMT5Config,
 
     Both bias layouts: t5-v1_1 keeps one `relative_attention_bias` in block
     0 (cfg.shared_pos=True), UMT5 one per block. Linear weights [out, in]
-    are transposed to [in, out]; the bias tables stay float32."""
+    are transposed to [in, out]; the bias tables stay float32. Each leaf is
+    cast where it lies (on the host for a state dict read from files; one
+    rounding, as through float32) and then copied to `device` once."""
     dev = resolve_device(device)
 
     def t(x, dt=dtype):
-        return torch.as_tensor(x).detach().to(device=dev, dtype=torch.float32).to(dt)
+        return torch.as_tensor(x).detach().to(dt).to(dev)
 
     def lin(name):
         return {"w": t(sd[f"{name}.weight"]).t().contiguous()}

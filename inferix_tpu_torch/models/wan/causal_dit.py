@@ -6,7 +6,9 @@ global or rolling window, one start for the batch or one a stream).
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
 offset, self-attention over the KV cache, cached text cross-attention (plus
 the CLIP image tokens' cross-attention for i2v), the
-GELU-tanh FFN, the modulated output head and unpatchify. Latents are
+GELU-tanh FFN, the modulated output head and unpatchify; and the three
+whole-clip forwards (bidirectional, block-causal, teacher forcing) over a
+clip-sized cache. Latents are
 channels-last `[B, F, H, W, C]`; parameters keep the JAX tree with layers
 stacked on a leading [L] axis (`utils/params.py`). fp32 promotion points
 mirror the JAX package: time embeddings and modulation in fp32, norms
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 
 from ...core.config import ModelConfig
 from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
-                              valid_mask, write_block)
+                              init_kv_cache, valid_mask, write_block)
 from ...ops.attention import cache_attention
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
@@ -388,3 +390,100 @@ def dit_forward_inference(
     if not need_output:
         return None, cache
     return unpatchify(head_forward(params, cfg, h, e), cfg, geo), cache
+
+
+def _clip_statics(cfg: ModelConfig, x: torch.Tensor, frames: int,
+                  dtype: torch.dtype) -> DiTStatics:
+    """Statics for a forward of `frames`-frame blocks over a cache sized to
+    the whole clip x [B, F, H, W, C] (a global window of exactly F frames)."""
+    b, f, hh, ww = x.shape[:4]
+    geo = DiTGeometry(frames, hh, ww, cfg.patch_size)
+    spec = KVCacheSpec(num_layers=cfg.num_layers, batch=b, max_tokens=f * geo.frame_seq,
+                       num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim, dtype=dtype)
+    return DiTStatics(cfg=cfg, spec=spec, geo=geo)
+
+
+@torch.inference_mode()
+def dit_forward_bidirectional(
+    params: Params, cfg: ModelConfig, rope_tables: RopeTables,
+    x: torch.Tensor,              # [B, F, H, W, C] the whole clip
+    t: torch.Tensor,              # [B, F]
+    xattn: CrossAttnCache,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The non-causal Wan forward (the reference's `WanBaseModel` path for
+    bidirectional diffusion): every token attends to the whole clip. One
+    inference call whose cache is exactly the clip, from position 0, so the
+    prefix mask covers every token. dtype: the cache's; nothing survives
+    the call."""
+    statics = _clip_statics(cfg, x, x.shape[1], dtype)
+    cache = init_kv_cache(statics.spec, device=x.device)
+    flow, _ = dit_forward_inference(params, statics, rope_tables, x, t, xattn, cache, 0)
+    return flow
+
+
+@torch.inference_mode()
+def dit_forward_block_causal(
+    params: Params, cfg: ModelConfig, rope_tables: RopeTables,
+    x: torch.Tensor,              # [B, F, H, W, C] the whole clip
+    t: torch.Tensor,              # [B, F]
+    xattn: CrossAttnCache,
+    frames_per_block: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The whole-sequence block-causal forward (the reference's
+    teacher-forcing training path with flex-attention block masks): every
+    block attends to itself and every earlier block. The blocks go through
+    `dit_forward_inference` in order into a clip-sized cache, so the mask
+    is the cache's prefix mask."""
+    f = x.shape[1]
+    if f % frames_per_block:
+        raise ValueError(f"{f} frames are not a whole number of "
+                         f"{frames_per_block}-frame blocks")
+    statics = _clip_statics(cfg, x, frames_per_block, dtype)
+    cache = init_kv_cache(statics.spec, device=x.device)
+    flows = []
+    for bi in range(f // frames_per_block):
+        sl = slice(bi * frames_per_block, (bi + 1) * frames_per_block)
+        flow, cache = dit_forward_inference(
+            params, statics, rope_tables, x[:, sl], t[:, sl], xattn, cache,
+            bi * statics.geo.tokens)
+        flows.append(flow)
+    return torch.cat(flows, dim=1)
+
+
+@torch.inference_mode()
+def dit_forward_teacher_forcing(
+    params: Params, cfg: ModelConfig, rope_tables: RopeTables,
+    noisy: torch.Tensor,          # [B, F, H, W, C]
+    clean: torch.Tensor,          # [B, F, H, W, C] the ground-truth context
+    t: torch.Tensor,              # [B, F] timesteps of the noisy blocks
+    xattn: CrossAttnCache,
+    frames_per_block: int,
+    context_noise: float = 0.0,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Teacher forcing (the reference's `_forward_train` with clean_x):
+    noisy block i attends to the CLEAN blocks < i and to itself. Each noisy
+    block's forward writes its own K/V into its slots; the clean block's
+    forward at `context_noise` then overwrites the same slots in every layer
+    before a later block reads them, as the JAX package's discarded write
+    and persisted clean write leave them."""
+    b, f = noisy.shape[:2]
+    if f % frames_per_block:
+        raise ValueError(f"{f} frames are not a whole number of "
+                         f"{frames_per_block}-frame blocks")
+    statics = _clip_statics(cfg, noisy, frames_per_block, dtype)
+    cache = init_kv_cache(statics.spec, device=noisy.device)
+    t_ctx = torch.full((b, frames_per_block), context_noise, dtype=torch.float32,
+                       device=noisy.device)
+    flows = []
+    for bi in range(f // frames_per_block):
+        sl = slice(bi * frames_per_block, (bi + 1) * frames_per_block)
+        start = bi * statics.geo.tokens
+        flow, cache = dit_forward_inference(params, statics, rope_tables, noisy[:, sl],
+                                            t[:, sl], xattn, cache, start)
+        flows.append(flow)
+        dit_forward_inference(params, statics, rope_tables, clean[:, sl], t_ctx, xattn,
+                              cache, start, need_output=False)
+    return torch.cat(flows, dim=1)

@@ -16,8 +16,7 @@ What differs from the JAX pipeline:
   under "xla", as in JAX);
 - the JAX trace-time switches `set_fused_act_quant` and `set_rope_impl` have
   no counterpart: the port always takes the fused act-quant chain;
-- loading a checkpoint (`model_path`) and the disaggregated decode are not
-  ported; both raise.
+- the disaggregated decode is not ported; it raises.
 """
 from __future__ import annotations
 
@@ -33,6 +32,7 @@ from ..models.wan.causal_dit import Params
 from ..models.wan.vae import CausalVAE, VAEConfig
 from ..profiling.profiler import InferixProfiler
 from ..quant.api import quantize_params
+from ..utils.checkpoint import load_self_forcing_checkpoint
 from ..utils.params import init_params
 from .base import AbstractInferencePipeline
 from .semi_ar import SemiARGenerator
@@ -43,8 +43,9 @@ _VAE_DTYPE = {"xla": torch.float32, "shifted_matmul": torch.float32,
 
 
 class SelfForcingPipeline(AbstractInferencePipeline):
-    """params: the generator's parameter tree (drawn from `runtime.seed` when
-    None); vae: a `CausalVAE` (a default one, from seed 0, when None and
+    """params: the generator's parameter tree (when None: loaded from
+    `config.model_path` by `utils.checkpoint.load_self_forcing_checkpoint`,
+    or drawn from `runtime.seed` when no path is set); vae: a `CausalVAE` (a default one, from seed 0, when None and
     decoding); text_encoder: a callable from prompts to text features
     [B, text_len, text_dim] (zeros when None)."""
 
@@ -77,13 +78,12 @@ class SelfForcingPipeline(AbstractInferencePipeline):
         cfg = self.config
         if self._params is None:
             if cfg.model_path:
-                raise NotImplementedError(
-                    "loading model_path needs the checkpoint loader "
-                    "(inferix_tpu/utils/checkpoint.py), which is not ported yet "
-                    "(ROADMAP A14); pass params instead")
-            g = torch.Generator(device=self.device).manual_seed(cfg.runtime.seed)
-            self._params = init_params(cfg.model, g, device=self.device,
-                                       dtype=self._dtype)
+                self._params = load_self_forcing_checkpoint(
+                    cfg.model_path, cfg.model, dtype=self._dtype, device=self.device)
+            else:
+                g = torch.Generator(device=self.device).manual_seed(cfg.runtime.seed)
+                self._params = init_params(cfg.model, g, device=self.device,
+                                           dtype=self._dtype)
         if cfg.quant.enabled:
             self._params = quantize_params(self._params, cfg.quant)
         self.generator = SemiARGenerator(cfg, self._params, dtype=self._dtype,

@@ -267,9 +267,11 @@ def test_pipeline_refusals(pipes):
     _, tpipe = pipes
     with pytest.raises(NotImplementedError, match="parallel layer"):
         tpipe.set_disaggregated_decode(["cuda:1"])
+    # model_path is honoured (tests/test_torch_checkpoint.py loads one): a
+    # path that is not there fails at setup, as the JAX loader does
     cfg = tconfig.tiny_test_config()
     cfg.model_path = "/nonexistent"
-    with pytest.raises(NotImplementedError, match="checkpoint loader"):
+    with pytest.raises(FileNotFoundError):
         PortPipeline(cfg, dtype=torch.float32, device="cpu").setup()
 
 

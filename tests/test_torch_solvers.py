@@ -23,7 +23,7 @@ def _run(jsolver, tsolver, steps, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(SHAPE).astype(np.float32)
     jx, tx = jnp.asarray(x), torch.from_numpy(x)
-    jstate, tstate = jsolver.init_state(SHAPE), tsolver.init_state(SHAPE)
+    jstate, tstate = jsolver.init_state(SHAPE), tsolver.init_state(SHAPE, device="cpu")
     for i in range(steps):
         draw = rng.standard_normal(SHAPE).astype(np.float32)
         # the same flow for both: computed from the JAX sample in numpy
@@ -75,5 +75,5 @@ def test_bf16_sample_keeps_its_dtype():
     """A bf16 sample comes back bf16 (the tensor math runs in float32)."""
     t = tfm.FlowUniPCMultistep.create(4)
     x = torch.randn(SHAPE, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
-    out, state = t.step(x, 0, x, t.init_state(SHAPE))
+    out, state = t.step(x, 0, x, t.init_state(SHAPE, device="cpu"))
     assert out.dtype == torch.bfloat16 and state.m_hist.dtype == torch.float32
