@@ -199,6 +199,40 @@ Phases, each timed on a line of its own:
                 stream --tiny --backend file --segments 2 and causvid --tiny
                 --rollouts 2 on the card (exit 0, their frame counts); the
                 wall time of each.
+ 26. magi kernels - the MAGI-1 shapes: B1 through the GQA fold (24 q heads
+                over 8 kv heads, 12150 rows over spans of 12150 / 36450 /
+                60750 keys; e4m3 K/V at 60750; the caption cross-attention
+                of 4 chunk rows over 800 keys with per-row kv_len and a
+                strided V; 48 over 8 heads, 21600 rows over 86400 keys), B2
+                at 60750 and 86400, each against the fold over the plain
+                version (ATTN_TOL), B3 bit-equal at every MAGI-4.5B and 24B
+                linear, B4 exact at their inputs (gelu_exact over 12288,
+                silu_mul over 2 x 16384); each timed beside its bound.
+ 27. magi-4.5B  - examples/configs/magi_4p5b.json at full width and depth
+                (34 layers, width 3072, seeded bf16 weights), 720x720 (12150
+                tokens a chunk): a ChunkSchedule walk of 4 chunks (window 4,
+                noise2clean [5, 4, 3, 2], clean chunk range 1, 4 steps where
+                the reference takes 64: 7 window forwards) with per-chunk
+                dispatch over a bf16 cache of 4 chunks; the 4-chunk window
+                also as one whole-window forward (MAGI_WINDOW_RTOL); the
+                3-CFG batch (B=2, sync_kv_rows: the rows' spans bit-equal)
+                and the uncond forward; launches against the code's count,
+                seconds a window forward by size.
+ 28. magi-4.5B w8a8 - phase 27's tree to W8A8 (magi_quantize_params_int8):
+                the walk over a bf16, an int8 (B2) and an e4m3 (B1 kind 1)
+                window cache, each step against phase 27 (MAGI_W8A8_RTOL)
+                and the quantized caches against the bf16 one
+                (MAGI_KV_RTOL), launches against the code's count; then the
+                fp8 distill layout at full width, 3 layers, written as a
+                reference-format .pt and converted (convert_magi_state_dict),
+                its plain e4m3 forward against its magi_distill_quant_to_int8
+                W8A8 forward with distill_dt_factor (MAGI_FP8_RTOL).
+ 29. magi-24B   - examples/configs/magi_24b.json's widths (6144, 48 q heads
+                over 8, SwiGLU ffn 16384, half-channel VAE, x_rescale 0.1),
+                4 of 48 layers, W8A8 + the int8 cache, 720x1280 (21600
+                tokens a chunk): a 2-chunk window forward with fc1
+                concatenated and split (bit-equal), seconds, peak device
+                bytes and the full depth's bytes worked out.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -246,14 +280,20 @@ from inferix_tpu_torch.models.wan.causal_dit import (
     DiTGeometry, dit_forward_bidirectional, dit_forward_block_causal, dit_forward_inference,
     dit_forward_teacher_forcing, fuse_qkv_params, layer_params, block_forward, patch_embed,
     precompute_crossattn_cache, time_embeddings)
-from inferix_tpu_torch.kvcache.cache import KVCache, KVCacheSpec, quantize_kv_block, valid_mask
+from inferix_tpu_torch.kvcache.cache import (FP8_MAX, KVCache, KVCacheSpec, init_kv_cache,
+                                             quantize_kv_block, valid_mask)
+from inferix_tpu_torch.models.magi.dit import (
+    MagiModelConfig, init_magi_params, magi_forward, magi_forward_uncond,
+    magi_forward_window_scan, make_magi_statics, split_gated_fc1, sync_cache_rows)
+from inferix_tpu_torch.models.magi.scheduler import ChunkSchedule, MagiScheduleConfig
 from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
     ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
     quantize_rows_int8_reference, row_plan)
 from inferix_tpu_torch.ops.flash_attention import (
-    FP8, LOG2E, quant_ext_reference, flash_attention_prefix,
+    FP8, LOG2E, quant_ext_reference, flash_attention_gqa, flash_attention_gqa_quant,
+    flash_attention_prefix, gqa_fold, gqa_unfold,
     flash_attention_prefix_quant, flash_attention_prefix_quant_i8,
     flash_attention_prefix_quant_reference, flash_attention_prefix_quant_v2,
     flash_attention_prefix_reference, pv_operand, quant_ext_kernel, quant_operands)
@@ -267,14 +307,15 @@ from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
 from inferix_tpu_torch.pipeline.self_forcing_cfg import CausalDiffusionPipeline
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
-from inferix_tpu_torch.quant.api import memory_bytes, quantize_params, to_kernel_layout
+from inferix_tpu_torch.quant.api import (magi_distill_quant_to_int8, magi_quantize_params_int8,
+                                         memory_bytes, quantize_params, to_kernel_layout)
 from inferix_tpu_torch.quant.kernels import (
     GEMM_LIBRARY, fp8_matmul, fp8_matmul_reference, gemm_plan, int8_matmul,
     int8_matmul_reference, quantize_act_int8_per_token, quantize_weight_fp8,
     quantize_weight_int8)
 from inferix_tpu_torch.utils.checkpoint import (
-    convert_causal_wan_state_dict, convert_wan_vae_state_dict, load_self_forcing_checkpoint,
-    load_sharded_safetensors, load_wan_vae)
+    convert_causal_wan_state_dict, convert_magi_state_dict, convert_wan_vae_state_dict,
+    load_self_forcing_checkpoint, load_sharded_safetensors, load_torch_state_dict, load_wan_vae)
 from inferix_tpu_torch.utils.params import init_block_params, init_params, init_vae_params
 from inferix_tpu_torch.utils.state_checkpoint import (load_generation_state,
                                                       save_generation_state)
@@ -4008,6 +4049,707 @@ def resume_phase(dev: torch.device, smi: str, state_dir: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-29: the MAGI-1 DiT (models.magi)
+# ---------------------------------------------------------------------------
+
+MAGI_720 = (90, 90)        # 720x720 through the 8x VAE: 45 x 45 patches, 2025 tokens a frame
+MAGI_720x1280 = (90, 160)  # 45 x 80 patches, 3600 tokens a frame
+MAGI_CT, MAGI_CT_24B = 12150, 21600  # tokens a chunk of 6 frames
+# The walk of phases 27-28: magi_4p5b.json's window and kv ranges over 4
+# chunks; num_steps 4 where the reference takes 64 (a cut for the script's
+# wall): 7 window forwards of 1, 2, 3, 4, 4, 3, 2 chunks (the last three
+# with the clean chunk in front), 19 chunk forwards.
+MAGI_WALK = dict(chunk_num=4, window_size=4, num_steps=4, chunk_width=6,
+                 noise2clean_kvrange=(5, 4, 3, 2), clean_chunk_kvrange=1)
+MAGI_WHOLE_AT = 3           # the walk's 4-chunk window, also run as one whole-window forward
+MAGI_CAPTION_TOKENS = 300   # valid tokens of the prompt's caption mask (of 800)
+MAGI_NULL_TOKENS = 50       # the null caption's mask (the reference's 50 tokens)
+# The whole-window forward against the per-chunk walk at the same step: the
+# same math with other GEMM shapes (M 48600 against 12150), so other bf16
+# summation orders and roundings, carried through 34 bf16 layers: the
+# reasoning of FORWARD_RTOL.
+MAGI_WINDOW_RTOL = FORWARD_RTOL
+# W8A8 against bf16 (the same seeded weights): per-channel int8 weights and
+# per-token int8 activations put ~0.4% of quantization noise into each of the
+# 8 linears of a layer (a step is 1/127 of the row's or column's absmax);
+# through 34 layers and 4 Euler steps the velocities move by a few percent
+# (3.2e-2 at the first step to 5.8e-2 at the last on an H100): each step's
+# velocity within MAGI_W8A8_RTOL in norm of the bf16 walk's.
+MAGI_W8A8_RTOL = 0.1
+# The int8 or e4m3 window cache against the bf16 one, both W8A8: K/V
+# rounded to 1/127 of each (token, head) row's absmax, or to e4m3's 3 bits
+# of mantissa (2^-4 relative), on every attention read (2.2e-2 to 3.1e-2
+# on an H100).
+MAGI_KV_RTOL = 0.1
+# The fp8 distill layout's plain e4m3 forward against its int8 requant
+# (tests/test_magi_torch_parity.py::test_magi_pipeline_int8_requant_tracks_fp8).
+MAGI_FP8_RTOL = 0.05
+MAGI_FP8_LAYERS = 3         # the fp8 layout at full width: bf16 first, e4m3 middle, bf16 last
+MAGI_DISTILL_DT = 8.0       # distill_dt_factor of a 16-step distilled schedule (16 / 4 * 2)
+MAGI_24B_LAYERS = 4         # of 48: the 24B widths' depth cut for the script's wall
+
+
+def magi_config(name: str) -> MagiModelConfig:
+    """The model block of examples/configs/magi_<name>.json."""
+    with open(os.path.join(REPO, "examples", "configs", f"magi_{name}.json")) as f:
+        return MagiModelConfig(**json.load(f)["model"])
+
+
+def gqa_plain(q, k, v, kv_len, kv_start=0, k_scale=None, v_scale=None):
+    """The GQA fold over the plain versions of B1 / B2, PLAIN_ROWS folded
+    rows at a time (the rows of a span are independent)."""
+    rows = gqa_fold(q, k.shape[2])
+    if k_scale is None:
+        ref = lambda r: flash_attention_prefix_reference(r, k, v, kv_len, kv_start)  # noqa: E731
+    else:
+        ref = lambda r: flash_attention_prefix_quant_reference(  # noqa: E731
+            r, k, v, k_scale, v_scale, kv_len, kv_start)
+    out = torch.cat([ref(rows[:, i:i + PLAIN_ROWS]) for i in range(0, rows.shape[1], PLAIN_ROWS)],
+                    dim=1)
+    return gqa_unfold(out, q.shape[1])
+
+
+def check_out_case(label: str, out, ref) -> tuple:
+    """check_attention_case's per-element rule without an lse."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    rms = ref.pow(2).mean(dim=(1, 2, 3), keepdim=True).sqrt()
+    bound = ATTN_TOL * (ref.abs() + rms)
+    share = torch.where(bound > 0, diff / bound.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0)).max().item()
+    ok = share <= 1 and torch.isfinite(out).all().item()
+    print(f"{label}: max_abs {diff.max().item():.3e} max |diff|/({ATTN_TOL:g}*(|ref|+rms)) "
+          f"{share:.3f} (tol 1) {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, diff.max().item()
+
+
+def gqa_bound(sq: int, hq: int, hkv: int, spans, kv_bytes: float = 2.0):
+    """(bound_ms, bound_by) of GQA attention of sq query rows a batch row
+    over each row's live span: 4 sq hq D span operations at the bf16 peak;
+    q read and the output written once, each live K/V row read once a kv
+    head (kv_bytes an element, the int8 scales included)."""
+    flops = 4.0 * sq * hq * D * sum(spans)
+    nbytes = 2 * 2.0 * len(spans) * sq * hq * D + 2.0 * sum(spans) * hkv * D * kv_bytes
+    return bound_of(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3)
+
+
+# (name, M, K, N) of the MAGI linears: 4.5B at M = one chunk (12150 tokens),
+# the caption K/V at M = 4 chunks x 800; 24B widths at M 21600, its caption
+# K/V at M = 2 chunks x 800
+MAGI_GEMMS = (
+    ("4p5b q/qx", MAGI_CT, 3072, 3072), ("4p5b k/v", MAGI_CT, 3072, 1024),
+    ("4p5b kv_xattn", 3200, 3072, 2048), ("4p5b proj", MAGI_CT, 6144, 3072),
+    ("4p5b fc1", MAGI_CT, 3072, 12288), ("4p5b fc2", MAGI_CT, 12288, 3072),
+    ("24b q/qx", MAGI_CT_24B, 6144, 6144), ("24b k/v", MAGI_CT_24B, 6144, 1024),
+    ("24b kv_xattn", 1600, 6144, 2048), ("24b proj", MAGI_CT_24B, 12288, 6144),
+    ("24b fc1", MAGI_CT_24B, 6144, 32768), ("24b fc2", MAGI_CT_24B, 16384, 6144))
+# (name, M, K, act) of the MAGI int8 linears' input quantization
+MAGI_QUANTS = (
+    ("4p5b ln", MAGI_CT, 3072, None), ("4p5b proj in", MAGI_CT, 6144, None),
+    ("4p5b fc2 gelu_exact", MAGI_CT, 12288, "gelu_exact"),
+    ("24b ln", MAGI_CT_24B, 6144, None), ("24b proj in", MAGI_CT_24B, 12288, None),
+    ("24b fc2 silu_mul", MAGI_CT_24B, 32768, "silu_mul"))
+
+
+def magi_kernel_phase(dev: torch.device) -> dict:
+    """Phase 26: B1 / B2 through the GQA fold, B3 and B4 at the MAGI shapes,
+    each against its plain version, then timed beside its bound. Returns
+    the worst error of each kernel's cases."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    before = all_counts()
+    failed, worst = [], {"b1": 0.0, "b1_fp8": 0.0, "b2": 0.0, "b3": 0.0, "b4": 0.0}
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def attn_case(name, key, kern, plain, args, sq, hq, hkv, spans, kv_bytes, sdpa=None):
+        ok, err = check_out_case(f"magi {name}", kern(*args), plain(*args))
+        if not ok:
+            failed.append(name)
+        worst[key] = max(worst[key], err)
+        ms = time_ms(lambda: kern(*args), iters=5, warmup=1)
+        bnd, by = gqa_bound(sq, hq, hkv, spans, kv_bytes)
+        lib = f", sdpa {time_ms(sdpa, iters=5, warmup=1):.3f} ms" if sdpa else ""
+        print(f"magi {name}: {ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
+              f"{4 * sq * hq * D * sum(spans) / ms / 1e9:.1f} TFLOP/s{lib}", flush=True)
+
+    # 4.5B self-attention: 24 q heads over 8 kv heads, one chunk's 12150 rows
+    # over a 5-chunk cache (the widest noise2clean span); spans as the walk has them
+    q = randn(1, MAGI_CT, 24, D)
+    k, v = randn(1, 5 * MAGI_CT, 8, D), randn(1, 5 * MAGI_CT, 8, D)
+    for s0, s1 in ((0, MAGI_CT), (MAGI_CT, 4 * MAGI_CT), (0, 5 * MAGI_CT)):
+        sdpa = None
+        if s1 - s0 == 5 * MAGI_CT:  # the library: SDPA over K/V repeated to the q heads
+            qt, kt, vt = (x.repeat_interleave(24 // x.shape[2], 2).transpose(1, 2)
+                          for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+        attn_case(f"B1 rep 3 span [{s0}, {s1})", "b1", flash_attention_gqa, gqa_plain,
+                  (q, k, v, s1, s0), MAGI_CT, 24, 8, [s1 - s0], 2, sdpa)
+    k8, v8 = (x.float().clamp(-FP8_MAX, FP8_MAX).to(FP8) for x in (k, v))
+    attn_case(f"B1 e4m3 rep 3 span {5 * MAGI_CT}", "b1_fp8", flash_attention_gqa, gqa_plain,
+              (q, k8, v8, 5 * MAGI_CT, 0), MAGI_CT, 24, 8, [5 * MAGI_CT], 1)
+    del k8, v8
+    kq, ks = quantize_kv_block(k)
+    vq, vs = quantize_kv_block(v)
+    attn_case(f"B2 rep 3 span {5 * MAGI_CT}", "b2", flash_attention_gqa_quant,
+              lambda q_, k_, v_, ks_, vs_, e, s: gqa_plain(q_, k_, v_, e, s, ks_, vs_),
+              (q, kq, vq, ks, vs, 5 * MAGI_CT, 0), MAGI_CT, 24, 8, [5 * MAGI_CT], 1 + 4 / D)
+    del q, k, v, kq, vq, ks, vs
+    # the caption cross-attention: 4 chunk rows over 800 caption keys, per-row
+    # kv_len (prefix masks), K LayerNormed (contiguous), V a strided slice of kv_y
+    qx = randn(4, MAGI_CT, 24, D)
+    kv_y = randn(4, 800, 8, 2 * D)
+    yk, yv = kv_y[..., :D].contiguous(), kv_y[..., D:]
+    lens = torch.tensor([800, MAGI_CAPTION_TOKENS, MAGI_NULL_TOKENS, 1], dtype=torch.int32,
+                        device=dev)
+    attn_case("B1 cross rep 3, 800 caption keys, kv_len [800, 300, 50, 1], strided V", "b1",
+              flash_attention_gqa, gqa_plain, (qx, yk, yv, lens, 0), MAGI_CT, 24, 8,
+              lens.tolist(), 2)
+    del qx, kv_y, yk, yv
+    # 24B: 48 q heads over 8 kv heads (rep 6), 21600 rows over a 4-chunk span
+    q = randn(1, MAGI_CT_24B, 48, D)
+    k, v = randn(1, 4 * MAGI_CT_24B, 8, D), randn(1, 4 * MAGI_CT_24B, 8, D)
+    attn_case(f"B1 rep 6 span {4 * MAGI_CT_24B}", "b1", flash_attention_gqa, gqa_plain,
+              (q, k, v, 4 * MAGI_CT_24B, 0), MAGI_CT_24B, 48, 8, [4 * MAGI_CT_24B], 2)
+    kq, ks = quantize_kv_block(k)
+    vq, vs = quantize_kv_block(v)
+    del k, v
+    attn_case(f"B2 rep 6 span {4 * MAGI_CT_24B}", "b2", flash_attention_gqa_quant,
+              lambda q_, k_, v_, ks_, vs_, e, s: gqa_plain(q_, k_, v_, e, s, ks_, vs_),
+              (q, kq, vq, ks, vs, 4 * MAGI_CT_24B, 0), MAGI_CT_24B, 48, 8,
+              [4 * MAGI_CT_24B], 1 + 4 / D)
+    del q, kq, vq, ks, vs
+    torch.cuda.empty_cache()
+
+    # B3 at every MAGI linear, no bias (the MAGI int8 linear adds none)
+    for name, m, k_, n in MAGI_GEMMS:
+        x_q, w_q, xs, ws, _ = path_gemm_operands(dev, g, m, k_, n)
+        check_gemm_plan(m, n, "int8")
+        got = int8_matmul(x_q, w_q, xs, ws, torch.bfloat16)
+        want = int8_matmul_reference(x_q, w_q, xs, ws, torch.bfloat16)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.equal(got, want)
+        worst["b3"] = max(worst["b3"], err)
+        del want
+        ms = time_ms(lambda: int8_matmul(x_q, w_q, xs, ws, torch.bfloat16), iters=5, warmup=1)
+        bnd, by = bound_of(*gemm_times(m, k_, n))
+        print(f"magi B3 {name} [{m} x {k_}] x [{k_} x {n}]: bit-equal "
+              f"{'ok' if ok else 'FAIL'}, {ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
+              f"{gemm_rate('int8', m, k_, n, ms, bnd)}", flush=True)
+        if not ok:
+            failed.append(name)
+        del x_q, w_q, xs, ws, got
+        torch.cuda.empty_cache()
+
+    # B4 at every MAGI int8 linear's input, with fc2's folded activation
+    for name, m, k_, act in MAGI_QUANTS:
+        x = (torch.randn(m, k_, generator=g, device=dev) * 2).to(bf)
+        ok, err = check_quant_case(f"magi B4 {name}", quantize_rows_int8(x, act),
+                                   quantize_rows_int8_reference(x, act), exact=True)
+        worst["b4"] = max(worst["b4"], err)
+        if not ok:
+            failed.append(name)
+        k_out = k_ // 2 if act == "silu_mul" else k_
+        ms = time_ms(lambda: quantize_rows_int8(x, act), iters=5, warmup=1)
+        bnd = quant_bound(m, k_, k_out)
+        print(f"magi B4 {name} [{m} x {k_}] act {act}: {ms:.4f} ms, bound {bnd:.4f} ms "
+              f"(bytes), {quant_rate(ms, bnd)}", flush=True)
+        del x
+    restore_counts(before)
+    if failed:
+        raise AssertionError(f"MAGI kernel cases failed: {failed}")
+    return worst
+
+
+def magi_captions(params: dict, cfg: MagiModelConfig, dev, g):
+    """(caption [1, 800, 4096] bf16 with its prefix mask of
+    MAGI_CAPTION_TOKENS, the null caption: the learned table with its
+    50-token mask), as the pipeline builds them."""
+    cap = torch.randn(1, cfg.caption_max_length, cfg.caption_channels, generator=g,
+                      device=dev).to(torch.bfloat16)
+    null = params["y_embedder"]["null_caption_embedding"][None].to(torch.bfloat16)
+    masks = []
+    for n in (MAGI_CAPTION_TOKENS, MAGI_NULL_TOKENS):
+        m = torch.zeros(1, cfg.caption_max_length, device=dev)
+        m[:, :n] = 1.0
+        masks.append(m)
+    return cap, masks[0], null, masks[1]
+
+
+def magi_walk(params, statics, x0, caps, whole_at=None) -> dict:
+    """MAGI_WALK's schedule with per-chunk dispatch (`magi_forward_window_scan`),
+    as the pipeline walks it: the clean chunk re-forwarded in front of the
+    window (null caption, t = clean_t), Euler steps on the denoising chunks.
+    At step `whole_at` the window also runs as one whole-window forward
+    first (it rewrites every window position before reading it, so the
+    per-chunk forward after it sees the walk's own cache). Returns the
+    latents, each step's velocity (host, float32), (chunks, seconds) a
+    window forward, and the whole-window gate's pair."""
+    cfg, spec, geo = statics
+    cw, dev = geo.chunk_width, x0.device
+    sched = ChunkSchedule(MagiScheduleConfig(**MAGI_WALK))
+    cache = init_kv_cache(spec, dev)
+    cap, mask, null, null_mask = caps
+    drop = torch.tensor([False], device=dev)
+    x = x0.clone()
+    out = {"vels": [], "secs": []}
+    for step in range(sched.total_forward_steps):
+        c_start, c_end, _, _ = sched.window(step)
+        extra = sched.fwd_extra_1st_chunk(step)
+        w0 = c_start - 1 if extra else c_start
+        t_vals = sched.timesteps(step)
+        if extra:
+            t_vals = np.concatenate([[sched.cfg.clean_t], t_vals])
+        clean = [extra] + [False] * (c_end - w0 - 1)
+        caps_w = torch.stack([null[0] if c else cap[0] for c in clean])[None]
+        masks_w = torch.stack([null_mask[0] if c else mask[0] for c in clean])[None]
+        t = torch.tensor(np.asarray(t_vals, np.float32)[None], device=dev)
+        kvr = sched.kv_ranges(step, include_clean=extra)
+        args = (x[:, w0 * cw:c_end * cw], t, caps_w, masks_w, cache, w0, kvr)
+        if step == whole_at:
+            out["whole"] = magi_forward(params, statics, None, *args,
+                                        caption_dropout=drop)[0].float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, cache = magi_forward_window_scan(params, statics, None, *args, caption_dropout=drop)
+        torch.cuda.synchronize()
+        out["secs"].append((c_end - w0, time.perf_counter() - t0))
+        if step == whole_at:
+            out["per_chunk"] = v.float()
+        if extra:
+            v = v[:, cw:]
+        n_den = c_end - c_start
+        vv = v.float().reshape(1, n_den, cw, *v.shape[2:])
+        d = torch.tensor(sched.integrate_deltas(step), dtype=torch.float32,
+                         device=dev).reshape(1, -1, 1, 1, 1, 1)
+        xd = x[:, c_start * cw:c_end * cw].float().reshape(vv.shape)
+        x[:, c_start * cw:c_end * cw] = (xd + vv * d).reshape(
+            1, n_den * cw, *x.shape[2:]).to(x.dtype)
+        sched.mark_integrated(step)
+        out["vels"].append(v.float().cpu())
+    out["x"], out["cache"] = x, cache
+    return out
+
+
+def walk_launches(cfg: MagiModelConfig, walk: dict, w8a8: bool, kv: str) -> dict:
+    """The launches a walk's code implies, per chunk forward: self-attention
+    (B1 over a bf16 cache, B1 e4m3, or B2 over int8) and the caption
+    cross-attention (B1) once a layer; under W8A8 8 int8 linears a layer
+    (q, k, v, qx, kv_xattn, proj, fc1, fc2), each a B4 and a B3 launch,
+    and the int8 cache's K and V writes 2 B4 a layer."""
+    n = sum(c for c, _ in walk["secs"]) * cfg.num_layers
+    want = {"flash_attention_prefix": n * (1 + (kv == "bf16"))}
+    if kv == "e4m3":
+        want["flash_attention_prefix_fp8"] = n
+    if kv == "int8":
+        want["flash_attention_prefix_quant"] = n
+    if w8a8 or kv == "int8":
+        want["quantize_rows_int8"] = n * (8 * w8a8 + 2 * (kv == "int8"))
+    if w8a8:
+        want["int8_matmul"] = 8 * n
+    if "whole" in walk:  # the whole-window forward: self once a chunk a layer, cross once a layer
+        nc = walk["whole_chunks"]
+        want["flash_attention_prefix"] += cfg.num_layers * (nc * (kv == "bf16") + 1)
+    return want
+
+
+def step_errors(vels, ref_vels) -> list:
+    return [rel_err(a, b) for a, b in zip(vels, ref_vels)]
+
+
+def magi_4p5b_phase(dev: torch.device, smi: str) -> tuple:
+    """Phase 27: MAGI-4.5B at full width and depth in bf16, seeded weights:
+    the walk over a bf16 cache of 4 chunks at 720x720, the whole-window
+    forward against the per-chunk walk, the 3-CFG batch with
+    sync_kv_rows, the uncond forward. Returns (params, walk, inputs,
+    launches)."""
+    t0 = time.perf_counter()
+    cfg = magi_config("4p5b")
+    g = torch.Generator(device=dev).manual_seed(27)
+    params = init_magi_params(cfg, g, dev)
+    caps = magi_captions(params, cfg, dev, g)
+    statics = make_magi_statics(cfg, 1, *MAGI_720, MAGI_WALK["chunk_num"])
+    cw, ct = statics.geo.chunk_width, statics.geo.chunk_tokens
+    x0 = torch.randn(1, MAGI_WALK["chunk_num"] * cw, *MAGI_720, cfg.latent_channels,
+                     generator=g, device=dev).to(torch.bfloat16)
+    print(f"magi-4.5B: {cfg.num_layers} layers, width {cfg.hidden_size}, "
+          f"{cfg.num_attention_heads} q heads over {cfg.num_query_groups}, ffn "
+          f"{cfg.ffn_hidden_size}; {memory_bytes(params) / 1e9:.3f} GB of bf16 weights; "
+          f"chunk {ct} tokens, cache {statics.spec.max_tokens} tokens "
+          f"({kv_cache_bytes(statics.spec) / 1e9:.3f} GB); "
+          f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, bf16 reduced-precision "
+          f"reduction {torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
+    reset_counts()
+    walk = magi_walk(params, statics, x0, caps, whole_at=MAGI_WHOLE_AT)
+    walk["whole_chunks"] = walk["secs"][MAGI_WHOLE_AT][0]
+    got = since_reset()
+    want = walk_launches(cfg, walk, False, "bf16")
+    print(f"magi-4.5B bf16 walk: launches {got} (the code implies {want})", flush=True)
+    gate(got == want, "MAGI-4.5B bf16 walk launches")
+    err = rel_err(walk["whole"], walk["per_chunk"])
+    print(f"magi-4.5B whole-window forward vs the per-chunk walk at step {MAGI_WHOLE_AT} "
+          f"({walk['whole_chunks']} chunks): rel err {err:.3e} (tol {MAGI_WINDOW_RTOL:g})",
+          flush=True)
+    gate(err <= MAGI_WINDOW_RTOL, "whole-window vs per-chunk")
+    gate(all(torch.isfinite(v).all() for v in walk["vels"]), "finite velocities")
+    for n, s in walk["secs"]:
+        print(f"magi-4.5B bf16 window forward of {n} chunks: {s:.3f} s "
+              f"({2 * cfg.num_layers} B1 a chunk: {cfg.num_layers} self + "
+              f"{cfg.num_layers} cross)", flush=True)
+    launches = dict(got)
+    x = walk["x"]
+    del walk["cache"]
+    torch.cuda.empty_cache()
+
+    # the 3-CFG batch: row 0 with the caption, row 1 the null caption with
+    # the adaln dropout token; row 1's span persists in both rows
+    s2 = make_magi_statics(cfg, 2, *MAGI_720, MAGI_WALK["chunk_num"])
+    cache2 = init_kv_cache(s2.spec, dev)
+    sched = ChunkSchedule(MagiScheduleConfig(**MAGI_WALK))
+    t_vals = torch.tensor(np.asarray(sched.timesteps(MAGI_WHOLE_AT), np.float32), device=dev)
+    n = t_vals.shape[0]
+    cap, mask, null, null_mask = caps
+    caps2 = torch.stack([cap[0].expand(n, -1, -1), null[0].expand(n, -1, -1)])
+    masks2 = torch.stack([mask[0].expand(n, -1), null_mask[0].expand(n, -1)])
+    x2 = x[:, :n * cw].expand(2, -1, -1, -1, -1).contiguous()
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    v2, cache2 = magi_forward(params, s2, None, x2, t_vals[None].expand(2, -1), caps2, masks2,
+                              cache2, 0, sched.kv_ranges(MAGI_WHOLE_AT, False),
+                              caption_dropout=torch.tensor([False, True], device=dev),
+                              sync_kv_rows=True)
+    torch.cuda.synchronize()
+    cfg_s = time.perf_counter() - t1
+    synced = all(torch.equal(f[:, 0, :n * ct], f[:, 1, :n * ct]) for f in cache2 if f is not None)
+    gate(synced and torch.isfinite(v2).all().item(), "3-CFG batch: rows synced, finite")
+    del cache2
+    xu = x[0, :n * cw].reshape(n, cw, *x.shape[2:])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vu = magi_forward_uncond(params, s2, xu, t_vals[:, None], null.expand(n, -1, -1)[:, None],
+                             null_mask.expand(n, -1)[:, None])
+    torch.cuda.synchronize()
+    unc_s = time.perf_counter() - t1
+    gate(tuple(vu.shape) == (n, cw, *MAGI_720, cfg.out_channels)
+         and torch.isfinite(vu).all().item(), "uncond forward")
+    cfg_launches = since_reset()
+    print(f"magi-4.5B 3-CFG batch (B=2, {n} chunks, sync_kv_rows: row 0's span equal to row "
+          f"1's bit for bit): {cfg_s:.3f} s; uncond forward of {n} chunk rows: {unc_s:.3f} s; "
+          f"launches {cfg_launches}", flush=True)
+    add_counts(launches, cfg_launches)
+    del v2, vu
+    torch.cuda.empty_cache()
+    phase("magi-4.5B", t0)
+    return params, walk, (x0, caps), launches
+
+
+def kv_cache_bytes(spec) -> int:
+    """The bytes init_kv_cache(spec) allocates: K and V, and the int8
+    cache's float32 scales a (token, head)."""
+    per_head = spec.head_dim * (1 if spec.quantized else spec.dtype.itemsize) \
+        + 4 * spec.quantized
+    return 2 * spec.num_layers * spec.batch * spec.max_tokens * spec.num_kv_heads * per_head
+
+
+def magi_reference_sd(params: dict, cfg: MagiModelConfig, fp8_layers=()) -> dict:
+    """This script's inverse of `convert_magi_state_dict`: the stacked tree
+    as a reference `VideoDiTModel` state dict on the host; the linears of
+    `fp8_layers` in the distill-quant layout (e4m3 [1, out, in] with one
+    weight scale; proj and fc2 per-channel with a smooth scale, the others
+    per-tensor; input scales 0.02, as tests/test_magi_torch_parity.py's)."""
+    sd = {}
+    h = lambda x: x.detach().to("cpu").contiguous()  # noqa: E731
+    blocks = params["blocks"]
+
+    def lin(name, p, layer=None, bias=False):
+        w = p["w"] if layer is None else p["w"][layer]
+        sd[f"{name}.weight"] = h(w.t())
+        if bias:
+            sd[f"{name}.bias"] = h(p["b"] if layer is None else p["b"][layer])
+
+    def fp8_lin(name, w, per_channel):
+        wf = w.t().float()
+        ws = wf.abs().max() / 448.0
+        sd[f"{name}.weight"] = h((wf / ws).to(FP8)[None])
+        sd[f"{name}.weight_scale"] = h(ws.reshape(1))
+        g = torch.Generator(device=w.device).manual_seed(len(name))
+        if per_channel:
+            sd[f"{name}.smooth_scale"] = h(
+                torch.rand(1, w.shape[0], generator=g, device=w.device) * 0.5 + 0.75)
+            sd[f"{name}.input_scale"] = torch.tensor([0.02])
+        else:
+            sd[f"{name}.input_scale"] = torch.full((w.shape[0],), 0.02)
+
+    def ln(name, p, layer=None):
+        sd[f"{name}.weight"] = h(p["w"] if layer is None else p["w"][layer])
+        sd[f"{name}.bias"] = h(p["b"] if layer is None else p["b"][layer])
+
+    w = params["x_embedder"]["w"]
+    p = cfg.patch_size
+    sd["x_embedder.weight"] = h(w.reshape(cfg.t_patch_size, p, p, cfg.in_channels, -1)
+                                .permute(4, 3, 0, 1, 2))
+    lin("t_embedder.mlp.0", params["t_embedder"]["fc1"], bias=True)
+    lin("t_embedder.mlp.2", params["t_embedder"]["fc2"], bias=True)
+    ye = params["y_embedder"]
+    lin("y_embedder.y_proj_xattn.0", ye["y_proj_xattn"], bias=True)
+    lin("y_embedder.y_proj_adaln.0", ye["y_proj_adaln"], bias=True)
+    sd["y_embedder.null_caption_embedding"] = h(ye["null_caption_embedding"])
+    sd["rope.bands"] = h(params["rope_bands"])
+    for i in range(cfg.num_layers):
+        pre = f"videodit_blocks.layers.{i}"
+        att = f"{pre}.self_attention"
+        ln(f"{att}.linear_qkv.layer_norm", blocks["ln_qkv"], i)
+        for name, key, per_channel in (("linear_qkv.q", "q", False), ("linear_qkv.qx", "qx", False),
+                                       ("linear_qkv.k", "k", False), ("linear_qkv.v", "v", False),
+                                       ("linear_proj", "proj", True)):
+            if i in fp8_layers:
+                fp8_lin(f"{att}.{name}", blocks[key]["w"][i], per_channel)
+            else:
+                lin(f"{att}.{name}", blocks[key], i)
+        for name, key in (("q_layernorm", "q_ln"), ("q_layernorm_xattn", "qx_ln"),
+                          ("k_layernorm", "k_ln"), ("k_layernorm_xattn", "kx_ln")):
+            ln(f"{att}.{name}", blocks[key], i)
+        lin(f"{att}.linear_kv_xattn", blocks["kv_xattn"], i)
+        lin(f"{pre}.ada_modulate_layer.proj.0", blocks["ada_proj"], i, bias=True)
+        ln(f"{pre}.self_attn_post_norm", blocks["self_post_norm"], i)
+        ln(f"{pre}.mlp_post_norm", blocks["mlp_post_norm"], i)
+        ln(f"{pre}.mlp.layer_norm", blocks["mlp_ln"], i)
+        for name, key, per_channel in (("linear_fc1", "fc1", False), ("linear_fc2", "fc2", True)):
+            if i in fp8_layers:
+                fp8_lin(f"{pre}.mlp.{name}", blocks[key]["w"][i], per_channel)
+            else:
+                lin(f"{pre}.mlp.{name}", blocks[key], i)
+    ln("videodit_blocks.final_layernorm", params["final_layernorm"])
+    lin("final_linear.linear", params["final_linear"])
+    return sd
+
+
+def magi_w8a8_phase(dev: torch.device, smi: str, params: dict, ref: dict, inputs) -> dict:
+    """Phase 28: phase 27's tree to W8A8 (`magi_quantize_params_int8` on the
+    card, layer by layer), the walk over a bf16, an int8 and an e4m3 window
+    cache, each against phase 27's velocities; then the fp8 distill layout
+    at full width, 3 layers, from a reference-format .pt through
+    `convert_magi_state_dict`: its plain e4m3 forward against its
+    `magi_distill_quant_to_int8` W8A8 forward. Returns the launches."""
+    t0 = time.perf_counter()
+    cfg = magi_config("4p5b")
+    x0, caps = inputs
+    qparams = magi_quantize_params_int8(params)
+    print(f"magi-4.5B W8A8: {memory_bytes(qparams['blocks']) / 1e9:.3f} GB of block weights "
+          f"(bf16: {memory_bytes(params['blocks']) / 1e9:.3f} GB)", flush=True)
+    fp8_src = {k: v for k, v in params.items() if k != "blocks"}
+    fp8_src["blocks"] = tree_map(lambda x: x[:MAGI_FP8_LAYERS].clone(), params["blocks"])
+    del params["blocks"]
+    torch.cuda.empty_cache()
+    launches, walks = {}, {}
+    for kv in ("bf16", "int8", "e4m3"):
+        statics = make_magi_statics(cfg, 1, *MAGI_720, MAGI_WALK["chunk_num"],
+                                    quantize_kv=kv == "int8",
+                                    kv_dtype=FP8 if kv == "e4m3" else None)
+        reset_counts()
+        walk = magi_walk(qparams, statics, x0, caps)
+        got = since_reset()
+        want = walk_launches(cfg, walk, True, kv)
+        print(f"magi-4.5B W8A8 walk, {kv} cache: launches {got} (the code implies {want})",
+              flush=True)
+        gate(got == want, f"MAGI-4.5B W8A8 {kv} walk launches")
+        add_counts(launches, got)
+        errs = step_errors(walk["vels"], ref["vels"])
+        print(f"magi-4.5B W8A8 walk, {kv} cache, against the bf16 walk: velocity rel err "
+              f"by step {['%.3e' % e for e in errs]} (tol {MAGI_W8A8_RTOL:g}); latents "
+              f"{rel_err(walk['x'], ref['x']):.3e}", flush=True)
+        gate(max(errs) <= MAGI_W8A8_RTOL and all(torch.isfinite(v).all() for v in walk["vels"]),
+             f"W8A8 {kv} walk against bf16")
+        if kv != "bf16":
+            kv_errs = step_errors(walk["vels"], walks["bf16"]["vels"])
+            print(f"magi-4.5B W8A8 walk, {kv} cache, against the W8A8 bf16-cache walk: "
+                  f"{['%.3e' % e for e in kv_errs]} (tol {MAGI_KV_RTOL:g})", flush=True)
+            gate(max(kv_errs) <= MAGI_KV_RTOL, f"{kv} cache against bf16 cache")
+        for n, s in walk["secs"]:
+            print(f"magi-4.5B W8A8 {kv} cache window forward of {n} chunks: {s:.3f} s",
+                  flush=True)
+        del walk["cache"]
+        walks[kv] = walk
+        torch.cuda.empty_cache()
+    del qparams, walks
+    torch.cuda.empty_cache()
+
+    # the fp8 distill layout: first and last layers bf16, the middle e4m3
+    cfg3 = dataclasses.replace(cfg, num_layers=MAGI_FP8_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_magi_") as tmp:
+        path = os.path.join(tmp, "magi_fp8.pt")
+        t1 = time.perf_counter()
+        sd = magi_reference_sd(fp8_src, cfg3, fp8_layers=(1,))
+        torch.save(sd, path)
+        nbytes = os.path.getsize(path)
+        del sd
+        w_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tree = convert_magi_state_dict(load_torch_state_dict(path), cfg3, torch.bfloat16, dev)
+        r_s = time.perf_counter() - t1
+    gate("blocks_mid" in tree and tree["blocks_mid"]["q"]["w_q"].dtype == FP8
+         and torch.equal(tree["blocks_first"]["fc1"]["w"], fp8_src["blocks"]["fc1"]["w"][0])
+         and torch.equal(tree["blocks_last"]["q"]["w"], fp8_src["blocks"]["q"]["w"][2])
+         and torch.equal(tree["x_embedder"]["w"], fp8_src["x_embedder"]["w"]),
+         "fp8 layout converted, plain leaves bit-equal to the drawn tree")
+    print(f"magi-4.5B fp8 distill layout, {MAGI_FP8_LAYERS} layers: .pt write "
+          f"{gb_per_s(nbytes, w_s)}, read + convert {gb_per_s(nbytes, r_s)}", flush=True)
+    del fp8_src
+    s3 = make_magi_statics(cfg3, 1, *MAGI_720, 2)
+    cw = s3.geo.chunk_width
+    cap, mask, _, _ = caps
+    args = (x0[:, :2 * cw], torch.tensor([[0.3, 0.7]], device=dev), cap[:, None].expand(
+        1, 2, -1, -1), mask[:, None].expand(1, 2, -1), )
+    outs = {}
+    for name, tr in (("e4m3", tree), ("int8", None)):
+        if tr is None:
+            tr = magi_distill_quant_to_int8(tree)
+            gate(tr["blocks_mid"]["q"]["w_q"].dtype == torch.int8, "requantized to int8")
+            del tree
+        reset_counts()
+        v, _ = magi_forward_window_scan(tr, s3, None, *args, init_kv_cache(s3.spec, dev), 0,
+                                        [[0, 1], [0, 2]], distill_dt_factor=MAGI_DISTILL_DT)
+        got = since_reset()
+        outs[name] = v.float()
+        print(f"magi-4.5B fp8 distill layout, {name} forward of 2 chunks: launches {got}",
+              flush=True)
+        add_counts(launches, got)
+        del tr
+    err = rel_err(outs["int8"], outs["e4m3"])
+    print(f"magi-4.5B fp8 distill: W8A8 requant against the plain e4m3 forward, "
+          f"distill_dt_factor {MAGI_DISTILL_DT:g}: rel err {err:.3e} (tol {MAGI_FP8_RTOL:g})",
+          flush=True)
+    gate(err <= MAGI_FP8_RTOL and torch.isfinite(outs["int8"]).all().item(), "fp8 requant")
+    torch.cuda.empty_cache()
+    phase("magi-4.5B w8a8", t0)
+    return launches
+
+
+def magi_24b_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 29: MAGI-24B widths, MAGI_24B_LAYERS of 48 layers, W8A8 with the
+    int8 window cache at 720x1280: one window forward of 2 chunks with fc1
+    concatenated and split (bit-equal); then the 3-CFG paths at these widths,
+    the B=2 window forward (per-chunk dispatch, then the row sync) and the
+    uncond forward of MAGI_WALK's 4 denoising chunks as 4 rows. Seconds and
+    each path's transient device bytes (its peak less what was resident
+    before it), and the full depth's bytes worked out from them. Returns the
+    launches."""
+    t0 = time.perf_counter()
+    full = magi_config("24b")
+    cfg = dataclasses.replace(full, num_layers=MAGI_24B_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(29)
+    params = magi_quantize_params_int8(init_magi_params(cfg, g, dev))
+    torch.cuda.empty_cache()
+    st = make_magi_statics(cfg, 1, *MAGI_720x1280, 2, quantize_kv=True)
+    cw, ct = st.geo.chunk_width, st.geo.chunk_tokens
+    caps = magi_captions(params, cfg, dev, g)
+    x = torch.randn(1, 2 * cw, *MAGI_720x1280, cfg.latent_channels, generator=g,
+                    device=dev).to(torch.bfloat16)
+    cap, mask, null, null_mask = caps
+    args = (x, torch.tensor([[0.3, 0.7]], device=dev), cap[:, None].expand(1, 2, -1, -1),
+            mask[:, None].expand(1, 2, -1))
+    kvr = [[0, 1], [0, 2]]
+    outs, launches, act = {}, {}, {}
+
+    def measured(label, fn):
+        """fn() timed, with its launches and its transient device bytes."""
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        got = since_reset()
+        add_counts(launches, got)
+        act[label] = torch.cuda.max_memory_allocated(dev) - base
+        print(f"magi-24B widths ({MAGI_24B_LAYERS} of {full.num_layers} layers), W8A8 + int8 "
+              f"cache, {label}: {secs:.3f} s, transient {act[label] / 1e9:.3f} GB, "
+              f"launches {got}", flush=True)
+        return out
+
+    for layout, tree in (("concatenated", params),
+                         ("split", split_gated_fc1(params, cfg.ffn_hidden_size))):
+        cache = init_kv_cache(st.spec, dev)
+        outs[layout] = measured(
+            f"fc1 {layout}: window forward of 2 chunks ({ct} tokens each)",
+            lambda: magi_forward_window_scan(tree, st, None, *args, cache, 0, kvr))
+        del cache
+    (va, ca), (vb, cb) = outs["concatenated"], outs["split"]
+    gate(torch.equal(va, vb) and all(torch.equal(a, b) for a, b in zip(ca, cb) if a is not None)
+         and torch.isfinite(va).all().item(), "24B fc1 layouts bit-equal, finite")
+    del outs, va, vb, ca, cb
+    torch.cuda.empty_cache()
+
+    # the 3-CFG batch: row 0 with the caption, row 1 the null caption, the
+    # window span synced from row 1 after the per-chunk walk, as the pipeline
+    # dispatches it
+    st2 = make_magi_statics(cfg, 2, *MAGI_720x1280, 2, quantize_kv=True)
+    cache2 = init_kv_cache(st2.spec, dev)
+    x2, t2 = x.expand(2, -1, -1, -1, -1).contiguous(), args[1].expand(2, -1)
+    caps2 = torch.stack([cap[0].expand(2, -1, -1), null[0].expand(2, -1, -1)])
+    masks2 = torch.stack([mask[0].expand(2, -1), null_mask[0].expand(2, -1)])
+
+    def cfg_window():
+        v, c = magi_forward_window_scan(params, st2, None, x2, t2, caps2, masks2, cache2, 0, kvr,
+                                        caption_dropout=torch.tensor([False, True], device=dev))
+        return v, sync_cache_rows(st2.spec, c, 0, 2 * ct)
+
+    v2, cache2 = measured("3-CFG B=2 window forward of 2 chunks", cfg_window)
+    gate(all(torch.equal(f[:, 0, :2 * ct], f[:, 1, :2 * ct]) for f in cache2 if f is not None)
+         and torch.isfinite(v2).all().item(), "24B 3-CFG batch: rows synced, finite")
+    del v2, cache2
+    torch.cuda.empty_cache()
+    n = MAGI_WALK["chunk_num"]
+    xu = torch.randn(n, cw, *MAGI_720x1280, cfg.latent_channels, generator=g,
+                     device=dev).to(torch.bfloat16)
+    tu = torch.linspace(0.1, 0.7, n, device=dev)[:, None]
+    vu = measured(f"uncond forward of {n} chunk rows", lambda: magi_forward_uncond(
+        params, st2, xu, tu, null.expand(n, -1, -1)[:, None], null_mask.expand(n, -1)[:, None]))
+    gate(vu.shape == xu.shape and torch.isfinite(vu).all().item(), "24B uncond forward")
+    del vu, xu
+
+    w_blocks = memory_bytes(params["blocks"])
+    w_rest = memory_bytes(params) - w_blocks
+    w_full = w_blocks // MAGI_24B_LAYERS * full.num_layers
+    full_cache = kv_cache_bytes(dataclasses.replace(st.spec, num_layers=full.num_layers,
+                                                    batch=2, max_tokens=4 * ct))
+    card = torch.cuda.get_device_properties(dev).total_memory
+    resident = w_full + w_rest + full_cache
+    print(f"magi-24B widths at {MAGI_24B_LAYERS} layers: block weights {w_blocks / 1e9:.3f} GB, "
+          f"other weights {w_rest / 1e9:.3f} GB; at the full {full.num_layers} layers, worked "
+          f"out: {w_full / 1e9:.3f} GB of int8 block weights + {w_rest / 1e9:.3f} GB + a 3-CFG "
+          f"(B=2) int8 cache of 4 chunks {full_cache / 1e9:.3f} GB = {resident / 1e9:.3f} GB "
+          f"resident, of {card / 1e9:.1f} GB", flush=True)
+    for label, b in act.items():
+        print(f"magi-24B full depth with the transient of the {label}: "
+              f"{(resident + b) / 1e9:.3f} GB, fits {resident + b <= card}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    phase("magi-24B", t0)
+    return launches
+
+
+def magi_phases(dev: torch.device, smi: str) -> dict:
+    """Phases 26-29; returns the launches of the MAGI main paths (27-29)."""
+    t0 = time.perf_counter()
+    worst = magi_kernel_phase(dev)
+    print(f"magi kernels: worst max_abs by kernel {worst}", flush=True)
+    phase("magi kernels", t0)
+    params, walk, inputs, launches = magi_4p5b_phase(dev, smi)
+    add_counts(launches, magi_w8a8_phase(dev, smi, params, walk, inputs))
+    del params, walk
+    torch.cuda.empty_cache()
+    add_counts(launches, magi_24b_phase(dev, smi))
+    print(f"launches on the MAGI paths (phases 27-29): {launches}", flush=True)
+    return launches
+
+
 @contextlib.contextmanager
 def torch_defaults():
     """PyTorch's default TF32 switches (what a fresh process such as the
@@ -4176,6 +4918,10 @@ def main() -> None:
           f"cli (in-process) {p25}", flush=True)
     for p in (p17, p18, p19, p20, p21, p22, p23, p24, p25):
         add_counts(pipe, p)
+    torch.cuda.empty_cache()
+    magi = magi_phases(dev, smi)
+    add_counts(pipe, {k: v for k, v in magi.items() if k != "flash_attention_prefix_fp8"})
+    kv_entries[1]["launches"] += magi.get("flash_attention_prefix_fp8", 0)
     fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]
                                   + pipe["halo_conv3d"])

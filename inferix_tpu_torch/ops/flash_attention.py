@@ -16,6 +16,9 @@ Port of `inferix_tpu/ops/flash_attention.py`:
   `_flash_kernel_quant_i8` `:660`) and `flash_attention_prefix_quant_v2`
   (`:1039`, `_flash_kernel_quant_v2` `:962`): int8 PV on codes of p per kv
   group (below).
+- `flash_attention_gqa` (`:878`) and `flash_attention_gqa_quant` (`:916`):
+  grouped-query attention (MAGI's 24 or 48 q heads over 8 kv heads) through
+  the prefix kernels, the rep q heads of a kv head folded into its rows.
 q [B, Sq, H, D] attends over the span [kv_start, kv_len) of k/v
 [B, Skv, H, D]; the bounds may be ints, 0-d tensors or [B] tensors (one span
 per batch row).
@@ -723,3 +726,83 @@ def flash_attention_prefix_quant_v2(
 
 
 flash_attention_prefix_quant_v2.launches = 0
+
+
+def gqa_fold(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, Sq, Hq, D] -> [B, rep*Sq, Hkv, D], rep = Hq / Hkv: the rep query
+    heads of kv head g (heads g*rep .. g*rep + rep - 1) become rep-major rows
+    of head g. One copy: the rows of one head are not a single stride of q."""
+    b, sq, hq, d = q.shape
+    rep = hq // hkv
+    return q.reshape(b, sq, hkv, rep, d).permute(0, 3, 1, 2, 4).reshape(b, rep * sq, hkv, d)
+
+
+def gqa_unfold(out: torch.Tensor, sq: int) -> torch.Tensor:
+    """The inverse of `gqa_fold`: [B, rep*Sq, Hkv, D] -> [B, Sq, Hq, D]."""
+    b, rows, hkv, d = out.shape
+    rep = rows // sq
+    return out.reshape(b, rep, sq, hkv, d).permute(0, 2, 3, 1, 4).reshape(b, sq, hkv * rep, d)
+
+
+def _gqa_rep(q: torch.Tensor, k: torch.Tensor) -> int:
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    return hq // hkv
+
+
+def flash_attention_gqa(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, kv_start=0,
+    scale: Optional[float] = None, softmax: str = "fixedm",
+    return_lse: bool = False, max_span: Optional[int] = None,
+):
+    """Grouped-query attention of q [B, Sq, Hq, D] over k/v [B, Skv, Hkv, D]
+    (port of `inferix_tpu/ops/flash_attention.py:flash_attention_gqa`,
+    `:878`): the rep = Hq / Hkv query heads of a kv head are folded into its
+    query rows (`gqa_fold`), `flash_attention_prefix` runs once over the
+    Hkv heads, and the output is unfolded; the K/V are read once a group,
+    never repeated. rep 1 goes straight to `flash_attention_prefix`. On
+    CUDA tensors that launches the flash kernel (and counts it there); on
+    CPU tensors the plain version. lse comes back [B, Hq, Sq].
+
+    max_span (a host bound on kv_len - kv_start) sizes the TPU kernel's
+    grid; the CUDA kernel already walks only [kv_start, kv_len), so it is
+    accepted and has no effect."""
+    del max_span
+    rep = _gqa_rep(q, k)
+    if rep == 1:
+        return flash_attention_prefix(q, k, v, kv_len, kv_start, scale, softmax,
+                                      return_lse)
+    b, sq, hq, _ = q.shape
+    res = flash_attention_prefix(gqa_fold(q, k.shape[2]), k, v, kv_len, kv_start,
+                                 scale, softmax, return_lse)
+    out, lse = res if return_lse else (res, None)
+    out = gqa_unfold(out, sq)
+    if return_lse:
+        # rows are rep-major: [B, Hkv, rep*Sq] -> [B, Hkv*rep, Sq], head g*rep + r
+        return out, lse.reshape(b, hq, sq)
+    return out
+
+
+def flash_attention_gqa_quant(
+    q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+    k_scale: torch.Tensor, v_scale: torch.Tensor, kv_len, kv_start=0,
+    scale: Optional[float] = None, softmax: str = "fixedm",
+    return_lse: bool = False, max_span: Optional[int] = None,
+):
+    """The GQA fold of `flash_attention_gqa` over an int8 K/V cache with its
+    [B, Skv, Hkv] scales: `flash_attention_prefix_quant` (the int8-KV
+    kernel on CUDA tensors) over the folded rows (port of
+    `flash_attention_gqa_quant`, `:916`). return_lse is refused under the
+    fold, as in the JAX package; rep 1 passes it on. max_span: as in
+    `flash_attention_gqa`."""
+    del max_span
+    rep = _gqa_rep(q, k_q)
+    if rep == 1:
+        return flash_attention_prefix_quant(q, k_q, v_q, k_scale, v_scale, kv_len,
+                                            kv_start, scale, softmax, return_lse)
+    if return_lse:
+        raise NotImplementedError("return_lse under the GQA quant fold")
+    out = flash_attention_prefix_quant(gqa_fold(q, k_q.shape[2]), k_q, v_q, k_scale,
+                                       v_scale, kv_len, kv_start, scale, softmax)
+    return gqa_unfold(out, q.shape[1])

@@ -1,6 +1,5 @@
 """Quantization API: quantize the parameter tree, and the quantized linears
-that read it (port of `inferix_tpu/quant/api.py:1-258`, without MAGI's
-`magi_*` functions).
+that read it (port of `inferix_tpu/quant/api.py`).
 
 `quantize_params` replaces each eligible linear's {"w", "b"} with
 {"w_q", "scale", "b"}: int8 or e4m3 weights [.., K, N] and f32 scales, one
@@ -192,6 +191,86 @@ def to_kernel_layout(params: Params) -> Params:
             return {**params, "w_q": w.transpose(-1, -2).contiguous().transpose(-1, -2)}
         return {k: to_kernel_layout(v) for k, v in params.items()}
     return params
+
+
+# the MAGI trees' transformer-block subtrees: stacked `blocks`, or the fp8
+# distill layout's stacked `blocks_mid` between unstacked first / last
+MAGI_BLOCK_KEYS = ("blocks", "blocks_mid", "blocks_first", "blocks_last")
+_MAGI_BLOCK_LINEARS = ("q", "qx", "k", "v", "kv_xattn", "proj",
+                       "fc1", "fc1_up", "fc2")
+
+
+def _int8_per_layer(w: torch.Tensor, weight_of) -> Params:
+    """{"w_q", "scale"}: per-channel int8 of weight_of(sel) for each layer of
+    a stacked leaf w [L, K, N] (sel picks that layer's slice of any leaf of
+    the linear; one layer, sel the identity, for [K, N]), so the float32
+    temporary is one layer's. w_q comes K-contiguous (strides (.., 1, K)),
+    the int8 GEMM's layout (`to_kernel_layout`), on w's device."""
+    stacked = w.dim() == 3
+    layers = w.shape[0] if stacked else 1
+    k, n = w.shape[-2:]
+    w_q = torch.empty(layers, n, k, dtype=torch.int8, device=w.device).transpose(-1, -2)
+    scale = torch.empty(layers, n, dtype=torch.float32, device=w.device)
+    for i in range(layers):
+        sel = (lambda x, i=i: x[i]) if stacked else (lambda x: x)
+        w_q[i], scale[i] = quantize_weight_int8(weight_of(sel), per_channel=True)
+    return {"w_q": w_q if stacked else w_q[0], "scale": scale if stacked else scale[0]}
+
+
+def magi_distill_quant_to_int8(params: Params) -> Params:
+    """Requantize a MAGI fp8 distill-quant tree (e4m3 w_q + weight_scale,
+    with act_scale, or smooth_scale + input_scale) into W8A8 int8 serving
+    weights {w_q int8, scale [out]}, per output channel, the reference's
+    activation scaling folded into the weights:
+
+      per-tensor  (act_scale):  W = w_q * weight_scale
+      per-channel (smooth_scale, input_scale):
+                  W = (input_scale / smooth_scale)[:, None] * w_q * weight_scale
+
+    The dynamic per-token int8 activation quantization of `magi_linear`
+    replaces div_clamp_to at run time. Other leaves pass through. Works
+    layer by layer on the tree's device (the JAX package asks for the
+    host: 4.5B in float32 is ~18 GB); a stacked leaf's row scale is taken
+    per layer (input_scale[i] / smooth_scale[i])."""
+    def weight(d, sel):
+        w = sel(d["w_q"]).float() * sel(d["weight_scale"].float())
+        if "smooth_scale" in d:
+            w = w * (sel(d["input_scale"].float()) / sel(d["smooth_scale"].float()))[:, None]
+        return w
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if "w_q" in tree and tree["w_q"].dtype == FP8 and "weight_scale" in tree:
+                return _int8_per_layer(tree["w_q"], lambda sel: weight(tree, sel))
+            return {k: walk(v) for k, v in tree.items()}
+        return tree
+
+    return walk(params)
+
+
+def magi_quantize_params_int8(params: Params) -> Params:
+    """W8A8 int8 serving weights from a plain (bf16 / float32) MAGI tree:
+    each transformer-block linear ({"w"} in `_MAGI_BLOCK_LINEARS`) becomes
+    {w_q int8, scale [out]} per output channel (its "b", if any, kept; the
+    int8 linear does not add it). Embedders, adaLN, norms and the final
+    head keep their float weights. Layer by layer on the tree's device;
+    w_q in the int8 GEMM's layout."""
+    def quant_lin(d):
+        out = _int8_per_layer(d["w"], lambda sel: sel(d["w"]).float())
+        if "b" in d:
+            out["b"] = d["b"]
+        return out
+
+    def walk_block(blk):
+        return {k: (quant_lin(v) if k in _MAGI_BLOCK_LINEARS and isinstance(v, dict)
+                    and "w" in v else v)
+                for k, v in blk.items()}
+
+    out = dict(params)
+    for key in MAGI_BLOCK_KEYS:
+        if key in out:
+            out[key] = walk_block(out[key])
+    return out
 
 
 def memory_bytes(params: Params) -> int:

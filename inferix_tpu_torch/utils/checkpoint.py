@@ -11,6 +11,8 @@ port's parameter trees (port of the Wan half of
   (`utils/params.py`'s layout).
 - `convert_wan_vae_state_dict` / `load_wan_vae`: `Wan2.1_VAE.pth` -> the
   port's `CausalVAE`.
+- `convert_magi_state_dict` (`:334-451`): the reference MAGI `VideoDiTModel`
+  state dict, bf16 or the fp8 distill-quant layout, -> the MAGI DiT tree.
 
 Layouts converted: torch Linear [out, in] -> [in, out]; the patch Conv3d
 [dim, in, pt, ph, pw] -> [(pt ph pw in), dim]; VAE convs
@@ -308,3 +310,111 @@ def load_wan_vae(vae_path: str, cfg=None, dtype: torch.dtype = torch.float32,
         cfg = VAEConfig()
     params = convert_wan_vae_state_dict(load_torch_state_dict(vae_path), cfg, device)
     return CausalVAE(cfg, params=params, dtype=dtype, device=device, conv_impl=conv_impl)
+
+
+# ---------------------------------------------------------------------------
+# MAGI-1 DiT weights (bf16 or the fp8 distill-quant layout, learned rope)
+# ---------------------------------------------------------------------------
+
+def _stack(leaves: List[torch.Tensor]) -> torch.Tensor:
+    """torch.stack; e4m3 leaves through uint8 views (bits carried)."""
+    if leaves[0].dtype == torch.float8_e4m3fn:
+        return torch.stack([x.view(torch.uint8) for x in leaves]).view(torch.float8_e4m3fn)
+    return torch.stack(leaves)
+
+
+def convert_magi_state_dict(sd: Dict[str, Any], cfg, dtype: torch.dtype = torch.bfloat16,
+                            device: str | torch.device = "cuda") -> Params:
+    """The reference MAGI `VideoDiTModel` state dict -> the MAGI DiT tree
+    (`models.magi.dit`) on `device`, with the JAX converter's leaf dtypes.
+
+    Middle layers of the shipped fp8 "distill_quant" checkpoints carry e4m3
+    weights [1, out, in] + weight_scale / input_scale (/ smooth_scale);
+    first and last layers stay plain, and the tree then holds
+    `blocks_first`, stacked `blocks_mid` and `blocks_last` instead of
+    stacked `blocks`. The learned rotary bands (`rope.bands`) become
+    `rope_bands`. Linear weights [out, in] -> [in, out]; the Conv3d
+    x_embedder [h, C, tp, ph, pw] -> a matmul [(tp ph pw C), h] in the
+    patchify's feature order. e4m3 values are carried exactly (read as
+    e4m3, or as float32 values of e4m3 codes). cfg: a `MagiModelConfig`. A
+    missing key raises KeyError."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+
+    def host(name, dt=None) -> torch.Tensor:
+        x = torch.as_tensor(sd[name]).detach().to("cpu")
+        return x if dt is None else x.to(dt)
+
+    def lin_t(name, dt=dtype, bias=False) -> Params:
+        p = {"w": host(f"{name}.weight").t().to(dt)}
+        if bias:
+            p["b"] = host(f"{name}.bias", dt)
+        return p
+
+    def maybe_quant_lin(name) -> Params:
+        """A plain or an fp8 linear, as the checkpoint's tensors say."""
+        if f"{name}.weight_scale" not in sd:
+            return lin_t(name)
+        w = host(f"{name}.weight")
+        w = w.reshape(w.shape[-2], w.shape[-1]).t()
+        if w.dtype != torch.float8_e4m3fn:
+            w = w.to(f32).to(torch.float8_e4m3fn)
+        p = {"w_q": w, "weight_scale": host(f"{name}.weight_scale", f32).reshape(())}
+        if f"{name}.smooth_scale" in sd:                # per-channel
+            p["smooth_scale"] = host(f"{name}.smooth_scale", f32).reshape(-1)
+            p["input_scale"] = host(f"{name}.input_scale", f32).reshape(())
+        else:                                           # per-tensor
+            p["act_scale"] = host(f"{name}.input_scale", f32).reshape(-1)
+        return p
+
+    def ln_t(name, dt=f32) -> Params:
+        return {"w": host(f"{name}.weight", dt), "b": host(f"{name}.bias", dt)}
+
+    def block(i: int) -> Params:
+        pre = f"videodit_blocks.layers.{i}"
+        att = f"{pre}.self_attention"
+        return {
+            "ln_qkv": ln_t(f"{att}.linear_qkv.layer_norm", dtype),
+            "q": maybe_quant_lin(f"{att}.linear_qkv.q"),
+            "qx": maybe_quant_lin(f"{att}.linear_qkv.qx"),
+            "k": maybe_quant_lin(f"{att}.linear_qkv.k"),
+            "v": maybe_quant_lin(f"{att}.linear_qkv.v"),
+            "q_ln": ln_t(f"{att}.q_layernorm"),
+            "qx_ln": ln_t(f"{att}.q_layernorm_xattn"),
+            "k_ln": ln_t(f"{att}.k_layernorm"),
+            "kx_ln": ln_t(f"{att}.k_layernorm_xattn"),
+            "kv_xattn": lin_t(f"{att}.linear_kv_xattn"),
+            "proj": maybe_quant_lin(f"{att}.linear_proj"),
+            "ada_proj": lin_t(f"{pre}.ada_modulate_layer.proj.0", f32, bias=True),
+            "self_post_norm": ln_t(f"{pre}.self_attn_post_norm"),
+            "mlp_post_norm": ln_t(f"{pre}.mlp_post_norm"),
+            "mlp_ln": ln_t(f"{pre}.mlp.layer_norm", dtype),
+            "fc1": maybe_quant_lin(f"{pre}.mlp.linear_fc1"),
+            "fc2": maybe_quant_lin(f"{pre}.mlp.linear_fc2"),
+        }
+
+    blocks = [block(i) for i in range(cfg.num_layers)]
+    w = host("x_embedder.weight")
+    h_dim = w.shape[0]
+    w = w.reshape(h_dim, cfg.in_channels, cfg.t_patch_size, cfg.patch_size, cfg.patch_size)
+    params: Params = {
+        "x_embedder": {"w": w.permute(2, 3, 4, 1, 0).reshape(-1, h_dim).to(dtype)},
+        "t_embedder": {"fc1": lin_t("t_embedder.mlp.0", f32, bias=True),
+                       "fc2": lin_t("t_embedder.mlp.2", f32, bias=True)},
+        "y_embedder": {
+            "y_proj_xattn": lin_t("y_embedder.y_proj_xattn.0", dtype, bias=True),
+            "y_proj_adaln": lin_t("y_embedder.y_proj_adaln.0", f32, bias=True),
+            "null_caption_embedding": host("y_embedder.null_caption_embedding", dtype),
+        },
+        "rope_bands": host("rope.bands", f32),
+        "final_layernorm": ln_t("videodit_blocks.final_layernorm"),
+        "final_linear": lin_t("final_linear.linear"),
+    }
+    if any("w_q" in b["q"] for b in blocks):
+        params["blocks_first"] = blocks[0]
+        params["blocks_mid"] = tree_map(lambda *xs: _stack(list(xs)), *blocks[1:-1])
+        params["blocks_last"] = blocks[-1]
+    else:
+        params["blocks"] = tree_map(lambda *xs: _stack(list(xs)), *blocks)
+    return tree_map(lambda x: x.to(dev, copy=True, memory_format=torch.contiguous_format),
+                    params)

@@ -38,7 +38,9 @@ def params_from_numpy(tree: Params, device: str | torch.device = "cuda",
     torch.float8_e4m3fn through a uint8 view, so their bits are carried, not
     re-rounded. Works for stacked layers, for unfused or fused (`qkv`)
     self-attention projections, for float, int8- or fp8-quantized trees
-    alike, and for the VAE's tree (lists are walked like dicts)."""
+    alike, for the VAE's tree (lists are walked like dicts), and for the
+    MAGI trees (stacked `blocks`, or the fp8 layout's unstacked
+    `blocks_first` / `blocks_last` beside stacked `blocks_mid`)."""
     dev = resolve_device(device)
 
     def convert(node, fp32: bool):

@@ -611,3 +611,73 @@ def test_files_read_without_optional_packages(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the MAGI DiT: converter over .pt and safetensors files
+# ---------------------------------------------------------------------------
+
+def _magi_reference_sd(layout: str):
+    """A reference-format MAGI state dict (tests/test_magi_torch_parity.py's
+    key names and shapes): every float tensor bf16 ("bf16"), or the fp8
+    distill layout with its middle layer e4m3 and its scales float32."""
+    from inferix_tpu.models.magi.dit import tiny_magi_config
+    from test_magi_torch_parity import make_reference_sd
+
+    cfg = dataclasses.replace(tiny_magi_config(), num_layers=3)
+    sd = make_reference_sd(cfg, fp8_layers=(1,) if layout == "fp8" else ())
+    out = {}
+    for k, v in sd.items():
+        if v.dtype == torch.float32 and not k.endswith(("_scale", "input_scale")):
+            v = v.to(torch.bfloat16)
+        out[k] = v.contiguous().clone()
+    return cfg, out
+
+
+@pytest.mark.parametrize("layout", ["bf16", "fp8"])
+@pytest.mark.parametrize("fmt", ["pt", "safetensors"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convert_magi_state_dict_files(tmp_path, layout, fmt, dtype):
+    """A reference MAGI state dict written to a `.pt` file or a safetensors
+    shard and read by the port's readers: `convert_magi_state_dict` gives
+    the JAX converter's tree (on the same dict) leaf for leaf in path,
+    shape, dtype and value: `blocks` stacked, or the fp8 layout's
+    `blocks_first` / stacked `blocks_mid` / `blocks_last`."""
+    from safetensors.torch import save_file
+
+    from inferix_tpu_torch.models.magi.dit import MagiModelConfig
+
+    jcfg, sd = _magi_reference_sd(layout)
+    if fmt == "pt":
+        torch.save(sd, tmp_path / "dit.pt")
+        read = tckpt.load_torch_state_dict(str(tmp_path / "dit.pt"))
+    else:
+        save_file(sd, str(tmp_path / "model-00001-of-00001.safetensors"))
+        read = tckpt.load_sharded_safetensors(str(tmp_path))
+    assert sorted(read) == sorted(sd)
+    got = tckpt.convert_magi_state_dict(read, MagiModelConfig(**dataclasses.asdict(jcfg)),
+                                        getattr(torch, dtype), "cpu")
+    want = jckpt.convert_magi_state_dict(sd, jcfg, dtype=getattr(jnp, dtype))
+    _assert_tree_equal(got, want)
+    if layout == "fp8":
+        assert got["blocks_mid"]["q"]["w_q"].dtype == torch.float8_e4m3fn
+        assert got["blocks_mid"]["proj"]["smooth_scale"].shape == (1, 256)
+        assert "blocks" not in got
+    else:
+        assert got["blocks"]["q"]["w"].shape == (3, 128, 128)
+
+
+def test_convert_magi_state_dict_values_as_float32():
+    """e4m3 weights handed over as float32 values of their codes (how a
+    numpy path carries them) convert to the same e4m3 bits."""
+    jcfg, sd = _magi_reference_sd("fp8")
+    from inferix_tpu_torch.models.magi.dit import MagiModelConfig
+
+    cfg = MagiModelConfig(**dataclasses.asdict(jcfg))
+    widened = {k: (v.float() if v.dtype == torch.float8_e4m3fn else v) for k, v in sd.items()}
+    a = tckpt.convert_magi_state_dict(sd, cfg, torch.float32, "cpu")
+    b = tckpt.convert_magi_state_dict(widened, cfg, torch.float32, "cpu")
+    _assert_port_trees_equal(a, b)
+    del sd["videodit_blocks.layers.2.mlp.linear_fc2.weight"]
+    with pytest.raises(KeyError):
+        tckpt.convert_magi_state_dict(sd, cfg, device="cpu")

@@ -473,3 +473,100 @@ def test_cpu_tensors_take_the_plain_versions_at_any_width(width):
              taq.adaln_quantize_rows_int8_reference(x, mod[:, :, 0], mod[:, :, 1]))):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert [c.launches for c in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# MAGI's quantizers (`magi_distill_quant_to_int8`, `magi_quantize_params_int8`)
+# ---------------------------------------------------------------------------
+
+def _magi_fp8_tree(num_layers, fp8_layers):
+    import dataclasses
+
+    from inferix_tpu.models.magi.dit import tiny_magi_config
+    from inferix_tpu.utils.checkpoint import convert_magi_state_dict
+    from test_magi_torch_parity import make_reference_sd
+
+    cfg = dataclasses.replace(tiny_magi_config(), num_layers=num_layers)
+    return convert_magi_state_dict(make_reference_sd(cfg, fp8_layers), cfg, dtype=jnp.float32)
+
+
+def _assert_int8_leaves_equal(got, want, path=""):
+    """Every leaf equal (codes and float32 scales exactly); each int8 w_q
+    laid out K-contiguous for the int8 GEMM."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _assert_int8_leaves_equal(got[k], want[k], f"{path}/{k}")
+        return
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape, path
+    if path.endswith("w_q") and got.dtype == torch.int8:
+        assert got.stride()[-2:] == (1, got.shape[-2]), (path, got.stride())
+    if got.dtype == torch.float8_e4m3fn:  # passed through: values exact in float32
+        got, want = got.float(), want.astype(np.float32)
+    np.testing.assert_array_equal(_np(got), _np(want), err_msg=path)
+
+
+def test_magi_distill_quant_to_int8_matches_jax():
+    """The fp8 distill layout (one e4m3 middle layer, stacked; per-tensor
+    and per-channel linears) requantized to int8 on both sides: codes and
+    scales equal, the other leaves passed through."""
+    jt = _magi_fp8_tree(3, (1,))
+    want = japi.magi_distill_quant_to_int8(jt)
+    got = tapi.magi_distill_quant_to_int8(params_from_numpy(jax.tree.map(np.asarray, jt),
+                                                            "cpu", torch.float32))
+    _assert_int8_leaves_equal(got, want)
+    mid = got["blocks_mid"]
+    assert mid["proj"]["w_q"].dtype == torch.int8 and set(mid["proj"]) == {"w_q", "scale"}
+    assert got["blocks_first"]["q"]["w"].dtype == torch.float32
+
+
+def test_magi_distill_quant_to_int8_per_layer_row_scales():
+    """Two stacked e4m3 middle layers: the port takes each layer's row
+    scale input_scale[i] / smooth_scale[i] and equals the JAX requant of
+    each layer alone. The JAX function refuses the stacked tree: its
+    input_scale [L] / smooth_scale [L, K] broadcasts L against K."""
+    jt = _magi_fp8_tree(4, (1, 2))
+    with pytest.raises(ValueError, match="broadcast"):
+        japi.magi_distill_quant_to_int8(jt)
+    got = tapi.magi_distill_quant_to_int8(params_from_numpy(jax.tree.map(np.asarray, jt),
+                                                            "cpu", torch.float32))
+    for i in range(2):
+        layer = jax.tree.map(lambda a: a[i], jt["blocks_mid"])
+        want = japi.magi_distill_quant_to_int8(layer)
+        _assert_int8_leaves_equal({k: {n: x[i] for n, x in v.items()}
+                                   for k, v in got["blocks_mid"].items()}, want)
+
+
+@pytest.mark.parametrize("layout", ["blocks", "fp8_first_last", "split_fc1"])
+def test_magi_quantize_params_int8_matches_jax(layout):
+    """Plain MAGI trees to W8A8 on both sides: the stacked `blocks`, the
+    unstacked first / last layers of the fp8 layout, and a gated tree with
+    fc1 split into fc1 / fc1_up; a linear's bias kept."""
+    import dataclasses
+
+    from inferix_tpu.models.magi import dit as jmagi
+    from inferix_tpu_torch.models.magi import dit as tmagi
+
+    if layout == "fp8_first_last":
+        jt = _magi_fp8_tree(3, (1,))
+    else:
+        cfg = jmagi.tiny_magi_config()
+        if layout == "split_fc1":
+            cfg = dataclasses.replace(cfg, gated_linear_unit=True)
+        jt = jmagi.init_magi_params(jax.random.key(2), cfg, jnp.float32)
+        jt["blocks"]["q"]["b"] = jnp.ones_like(jt["blocks"]["q"]["w"][:, 0])
+        if layout == "split_fc1":
+            jt = jmagi.split_gated_fc1(jt, cfg.ffn_hidden_size)
+    tt = params_from_numpy(jax.tree.map(np.asarray, jt), "cpu", torch.float32)
+    if layout == "split_fc1":
+        tt = tmagi.split_gated_fc1(tt, 256)
+        tt["blocks"] = {k: ({n: x.contiguous() for n, x in v.items()} if isinstance(v, dict)
+                            else v) for k, v in tt["blocks"].items()}
+    want = japi.magi_quantize_params_int8(jt)
+    got = tapi.magi_quantize_params_int8(tt)
+    _assert_int8_leaves_equal(got, want)
+    if layout == "blocks":
+        assert "b" in got["blocks"]["q"] and got["blocks"]["fc2"]["w_q"].dtype == torch.int8
+        assert got["final_linear"]["w"] is tt["final_linear"]["w"]
+
