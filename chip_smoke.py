@@ -233,7 +233,52 @@ Phases, each timed on a line of its own:
                 tokens a chunk): a 2-chunk window forward with fc1
                 concatenated and split (bit-equal), seconds, peak device
                 bytes and the full depth's bytes worked out.
-(Phase 13 runs after phase 7, phases 11-12 after phase 6.)
+ 30. vitvae     - the MAGI ViT-VAE at full width (768 wide, 12 blocks, 16
+                heads of 48, patch 4x8x8, z 16; seeded float32 weights, bf16
+                compute): a 6-latent-frame chunk decoded at 90x90 (48601
+                tokens) to [1, 24, 720, 720, 3]; its attention (SDPA pinned
+                to the flash backend, never the [S, S] logits) against the
+                plain float32 version on two slices of query rows (ATTN_TOL),
+                refusing a head dim the backend cannot take; its first block
+                in bf16 against float32 (VIT_BLOCK_RTOL); the rope tables and
+                the pos-embed resize against the CPU path; a 1-frame image and
+                a 24-frame prefix encoded at 720x720; a 24B chunk decoded at
+                90x160 (86401 tokens); seconds and peak device bytes of each.
+                The phase's encodes and decodes run in bf16; the I2V prefix
+                of phase 31 is encoded from float32 frames, in float32, as
+                the JAX package does.
+ 31. magi-4.5B pipeline - MagiVideoPipeline on magi_4p5b.json at full width
+                and depth (phase 27's tree, bf16), 3-CFG, 720x720, 4 chunks,
+                4 steps where the json takes 64, per-chunk dispatch, the
+                caption from MagiT5Embedder (t5-v1_1-xxl width, 2 of 24
+                layers, the byte stand-in tokenizer; bit-equal to umt5_encode),
+                each chunk decoded by phase 30's VAE: B1 launches against the
+                code's count (68 a chunk forward at B=2, 68 an uncond
+                forward), the rows' spans synced after each window, the
+                chunks bit-equal to a hand walk of the model's calls; a resume
+                after window 3 bit-equal; "scan" bit-equal to "per_chunk" on a
+                2-chunk window; an I2V run from a seeded 720x720 image (the
+                prefix-extraction forward counted); seconds a window, a
+                decode chunk and to the first chunk.
+ 32. magi-4.5B distill-quant - magi_4p5b_distill_quant.json (cfg 1, distill,
+                the int8 window cache): phase 27's tree in the fp8 distill
+                layout, requantized to W8A8 (magi_distill_quant_to_int8), a
+                4-chunk walk of 8 steps (4 never pass the re-mix threshold):
+                B1 / B2 / B3 / B4 launches against the code's count with the
+                nearly-clean re-mix's extra chunks; each window's velocity
+                against the same walk in bf16 (MAGI_W8A8_RTOL).
+ 33. magi-24B pipeline - MagiVideoPipeline on magi_24b.json's widths at 4 of
+                48 layers: W8A8, the int8 cache, 3-CFG, 720x1280, 2 chunks,
+                the 16-channel latents decoded by phase 30's VAE: finite
+                pixels, the rows synced, peak device bytes beside phase 29's
+                full depth.
+ 34. magi cli   - `python -m inferix_tpu_torch.cli magi` in a subprocess from
+                files the phase writes (magi_4p5b.json cut to 2 layers, a
+                seeded .pt, phase 30's VAE as config.json + safetensors), 2
+                chunks: exit 0, frames [48, 720, 720, 3] equal to the same run
+                in process.
+(Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 after
+phase 27.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -244,6 +289,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -259,6 +305,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import inferix_tpu_torch.models.magi.vae as vitvae_mod
 import inferix_tpu_torch.models.wan.vae as vae_mod
 import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
@@ -273,7 +320,8 @@ from inferix_tpu_torch.models.text.clip_vision import (
     CLIPVisionConfig, clip_vision_encode, init_clip_vision_params)
 from inferix_tpu_torch.models.text import umt5 as umt5_mod
 from inferix_tpu_torch.models.text.umt5 import (
-    UMT5Config, WanTextEncoder, convert_t5_encoder_state_dict, init_umt5_params, umt5_encode)
+    MagiT5Embedder, UMT5Config, WanTextEncoder, convert_t5_encoder_state_dict, init_umt5_params,
+    t5_v1_1_xxl_config, text_preprocessing, umt5_encode)
 from inferix_tpu_torch.models.text.xlm_roberta import (
     XLMRobertaConfig, init_xlm_roberta_params, xlm_roberta_clip_text)
 from inferix_tpu_torch.models.wan.causal_dit import (
@@ -286,6 +334,8 @@ from inferix_tpu_torch.models.magi.dit import (
     MagiModelConfig, init_magi_params, magi_forward, magi_forward_uncond,
     magi_forward_window_scan, make_magi_statics, split_gated_fc1, sync_cache_rows)
 from inferix_tpu_torch.models.magi.scheduler import ChunkSchedule, MagiScheduleConfig
+from inferix_tpu_torch.models.magi.vae import (ViTVAE, ViTVAEConfig, init_vitvae_params,
+                                               vitvae_rope_tables)
 from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
@@ -304,9 +354,12 @@ from inferix_tpu_torch.ops.halo_conv import (
 from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
+from inferix_tpu_torch.pipeline.magi import MagiPipeline, MagiVideoPipeline, magi_config_from_json
+from inferix_tpu_torch.pipeline.magi_media import encode_prefix_latents, process_image
 from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
 from inferix_tpu_torch.pipeline.self_forcing_cfg import CausalDiffusionPipeline
 from inferix_tpu_torch.pipeline.semi_ar import SemiARGenerator
+from inferix_tpu_torch.profiling.profiler import InferixProfiler, ProfilingConfig
 from inferix_tpu_torch.quant.api import (magi_distill_quant_to_int8, magi_quantize_params_int8,
                                          memory_bytes, quantize_params, to_kernel_layout)
 from inferix_tpu_torch.quant.kernels import (
@@ -315,7 +368,8 @@ from inferix_tpu_torch.quant.kernels import (
     quantize_weight_int8)
 from inferix_tpu_torch.utils.checkpoint import (
     convert_causal_wan_state_dict, convert_magi_state_dict, convert_wan_vae_state_dict,
-    load_self_forcing_checkpoint, load_sharded_safetensors, load_torch_state_dict, load_wan_vae)
+    load_magi_vae, load_self_forcing_checkpoint, load_sharded_safetensors, load_torch_state_dict,
+    load_wan_vae)
 from inferix_tpu_torch.utils.params import init_block_params, init_params, init_vae_params
 from inferix_tpu_torch.utils.state_checkpoint import (load_generation_state,
                                                       save_generation_state)
@@ -2889,7 +2943,7 @@ class ByteTokenizer:
     with 0 to max_length, with the attention mask."""
 
     def __call__(self, prompts, padding="max_length", truncation=True, max_length=512,
-                 return_tensors="np"):
+                 return_tensors="np", **kw):
         import numpy as np
         ids = np.zeros((len(prompts), max_length), np.int64)
         mask = np.zeros((len(prompts), max_length), np.int64)
@@ -4732,22 +4786,787 @@ def magi_24b_phase(dev: torch.device, smi: str) -> dict:
     del params
     torch.cuda.empty_cache()
     phase("magi-24B", t0)
-    return launches
+    return launches, resident
 
 
 def magi_phases(dev: torch.device, smi: str) -> dict:
-    """Phases 26-29; returns the launches of the MAGI main paths (27-29)."""
+    """Phases 26-34, 30-32 between 27 and 28 (they take phase 27's bf16
+    tree, which phase 28 quantizes); returns the launches of the MAGI main
+    paths (27-34)."""
     t0 = time.perf_counter()
     worst = magi_kernel_phase(dev)
     print(f"magi kernels: worst max_abs by kernel {worst}", flush=True)
     phase("magi kernels", t0)
     params, walk, inputs, launches = magi_4p5b_phase(dev, smi)
+    vae = vitvae_phase(dev, smi)
+    pipe, cap, mask = magi_pipeline_phase(dev, smi, params, vae)
+    add_counts(launches, pipe)
+    add_counts(launches, magi_distill_phase(dev, smi, params, cap, mask))
     add_counts(launches, magi_w8a8_phase(dev, smi, params, walk, inputs))
     del params, walk
     torch.cuda.empty_cache()
-    add_counts(launches, magi_24b_phase(dev, smi))
-    print(f"launches on the MAGI paths (phases 27-29): {launches}", flush=True)
+    l24, resident = magi_24b_phase(dev, smi)
+    add_counts(launches, l24)
+    add_counts(launches, magi_24b_pipeline_phase(dev, smi, vae, cap, mask, resident))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_magi_cli_") as tmp:
+        add_counts(launches, magi_cli_phase(dev, smi, vae, tmp))
+    del vae
+    torch.cuda.empty_cache()
+    print(f"launches on the MAGI paths (phases 27-34): {launches}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 30-34: MAGI-1's ViT-VAE, pipelines, text tower and magi command
+# ---------------------------------------------------------------------------
+
+VIT_ROWS = 1024          # query rows a slice of the ViT-VAE attention gate
+# One ViT-VAE block in bf16 against the same block in float32 on the same
+# input, its update (output less input): bf16 roundings of q/k/v, the
+# probabilities, the attention output and the MLP, ~2^-9 relative each,
+# through ~10 roundings (LAYER_RTOL's reasoning), plus the rounding of the
+# block's output x + update to bf16, which the update's norm does not scale
+# (the decoder's tokens are ~10x its update). That rounding is at most half
+# an ulp of each element (2^-9 to 2^-8 relative by where the mantissa lies);
+# in norm, uniform within the half ulp over log-uniform mantissas, it comes
+# to ~1.7e-3 ||y||, under VIT_OUT_ROUND = 2^-9 ||y||:
+#     ||u_bf16 - u_f32|| <= VIT_BLOCK_RTOL ||u_f32|| + VIT_OUT_ROUND ||y_f32||
+VIT_BLOCK_RTOL = LAYER_RTOL
+VIT_OUT_ROUND = 2.0 ** -9
+MAGI_PIPE_STEPS = 4      # magi_4p5b.json takes 64 (a cut for the wall, as phase 27)
+# The distill-quant config's 64 steps cut to 8: 4 steps' t values (0,
+# 0.0217, 0.1, 0.3, 1) never pass the nearly-clean threshold 0.3.
+MAGI_DISTILL_STEPS = 8
+MAGI_T5_LAYERS = 2       # of 24: t5-v1_1-xxl width, depth cut (phase 16 ran the tower's depth)
+MAGI_RESUME_AFTER = 3    # windows of the walk before the resume's break
+MAGI_CLI_LAYERS = 2      # the magi command's .pt: MAGI-4.5B widths at 2 of 34 layers
+MAGI_PROMPT = "a red fox runs through snow at dawn"
+MAGI_FP8_LINEARS = ("q", "qx", "k", "v", "proj", "fc1", "fc2")  # the distill layout's e4m3 linears
+MAGI_FP8_PER_CHANNEL = ("proj", "fc2")                           # with smooth_scale
+
+
+@contextlib.contextmanager
+def capture_first(module, name: str, store: dict):
+    """module.name wrapped: its first call's (args, kwargs) kept in store[name]."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        store.setdefault(name, (args, kwargs))
+        return real(*args, **kwargs)
+
+    with mock.patch.object(module, name, spy):
+        yield
+
+
+def peak_since(dev, base: int) -> int:
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def vitvae_phase(dev: torch.device, smi: str):
+    """Phase 30: the MAGI ViT-VAE at full width (ViTVAEConfig(): 768 wide, 12
+    blocks, 16 heads of 48, patch 4x8x8, z 16), seeded float32 weights, bf16
+    compute: decode a 6-latent-frame chunk at 90x90 (48601 tokens) to
+    [1, 24, 720, 720, 3]; the decoder's first attention call against the
+    plain float32 version on two slices of query rows; its first block in
+    bf16 against float32; the pos-embed resize and the rope tables against
+    the CPU path; encode a 1-frame image and a 24-frame prefix at 720x720;
+    decode a 24B chunk at 90x160 (86401 tokens). Seconds and peak device
+    bytes of each. Returns the VAE."""
+    t0 = time.perf_counter()
+    cfg = ViTVAEConfig()
+    g = torch.Generator(device=dev).manual_seed(30)
+    vae = ViTVAE(cfg, params=init_vitvae_params(cfg, g, dev), device=dev)
+    print(f"vitvae: embed {cfg.embed_dim}, depth {cfg.depth}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, patch {cfg.patch_length}x{cfg.patch_size}x{cfg.patch_size}, z "
+          f"{cfg.z_chans}; {memory_bytes(vae.params) / 1e9:.3f} GB of float32 weights; "
+          f"attention: SDPA pinned to the flash backend", flush=True)
+    hw = tuple(cfg.patch_size * n for n in MAGI_720)        # 720 x 720 pixels
+    frames = 6 * cfg.patch_length                            # a chunk's 24 pixel frames
+    z = torch.randn(1, 6, *MAGI_720, cfg.z_chans, generator=g, device=dev).to(torch.bfloat16)
+    seen = {}
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with capture_first(vitvae_mod, "vit_attention", seen), \
+            capture_first(vitvae_mod, "_vit_block", seen):
+        px, first_s = timed(lambda: vae.decode(z))
+    peak = peak_since(dev, base)
+    gate(tuple(px.shape) == (1, frames, *hw, 3) and px.dtype == torch.bfloat16
+         and torch.isfinite(px).all().item() and px.abs().max().item() <= 1.0,
+         "vitvae decode shape / finite / range")
+    px, dec_s = timed(lambda: vae.decode(z))
+    print(f"vitvae decode {list(z.shape)} -> {list(px.shape)}: {dec_s:.3f} s a chunk "
+          f"(first call {first_s:.3f} s), peak {peak / 1e9:.3f} GB above the resident "
+          f"{base / 1e9:.3f}; {smi}", flush=True)
+    del px
+
+    # the decoder's first attention call: SDPA (flash) against the plain
+    # float32 version, rows at both ends of the 48601 tokens
+    (q, k, v), _ = seen.pop("vit_attention")
+    s = q.shape[1]
+    gate(s == 6 * MAGI_720[0] * MAGI_720[1] + 1 and q.dtype == torch.bfloat16,
+         "vitvae attention operands")
+    out = vitvae_mod.vit_attention(q, k, v)
+    for r0 in (0, s - VIT_ROWS):
+        ref = vitvae_mod.vit_attention_reference(q[:, r0:r0 + VIT_ROWS].float(), k.float(),
+                                                 v.float())
+        ok, _ = check_out_case(f"vitvae attention (SDPA flash) rows [{r0}, {r0 + VIT_ROWS}) "
+                               f"of {s} against the plain float32 version",
+                               out[:, r0:r0 + VIT_ROWS], ref)
+        gate(ok, "vitvae attention against its plain version")
+        del ref
+    nh, hd = q.shape[2], q.shape[3]
+    ms = time_ms(lambda: vitvae_mod.vit_attention(q, k, v), iters=5, warmup=1)
+    flops = 4.0 * s * s * nh * hd
+    bnd, by = bound_of(flops / PEAK_BF16_FLOPS * 1e3, 4 * q.numel() * 2 / PEAK_BYTES_PER_S * 1e3)
+    print(f"vitvae attention {s} x {s}, {nh} heads of {hd}: {ms:.3f} ms a block, bound "
+          f"{bnd:.3f} ms ({by}), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    expect_raise("vit_attention on a head dim the flash backend does not take (512)",
+                 RuntimeError, lambda: vitvae_mod.vit_attention(
+                     *(torch.zeros(1, 8, 1, 512, dtype=torch.bfloat16, device=dev),) * 3))
+    del q, k, v, out
+
+    # the first block in bf16 against float32 on the same input; the rope
+    # tables it got and the pos-embed resize against the CPU path
+    (p, x, _, sin, cos), _ = seen.pop("_vit_block")
+    y16 = vitvae_mod._vit_block(p, x, cfg, sin, cos)
+    y32 = vitvae_mod._vit_block(p, x.float(), cfg, sin, cos)
+    u32 = y32 - x.float()
+    diff = (y16.float() - x.float() - u32).norm().item()
+    bound = VIT_BLOCK_RTOL * u32.norm().item() + VIT_OUT_ROUND * y32.norm().item()
+    print(f"vitvae block 0 in bf16 against float32, its update: rel err "
+          f"{diff / u32.norm().item():.3e}, |diff| {diff:.4g} against the bound {bound:.4g} "
+          f"(VIT_BLOCK_RTOL {VIT_BLOCK_RTOL:g} |u| + 2^-9 |y|; |u| / |y| "
+          f"{u32.norm().item() / y32.norm().item():.3f})", flush=True)
+    gate(diff <= bound, "vitvae block bf16 against float32")
+    del y16, y32, x
+    grid = (6, *MAGI_720)
+    sin_np, cos_np = vitvae_rope_tables(grid, cfg.head_dim, cfg.rope_ref_feat_shape)
+    pos = vae.params["decoder"]["pos_embed"]
+    card = vitvae_mod._pos_embed_for(cfg, pos, grid).cpu()
+    host = vitvae_mod._pos_embed_for(cfg, pos.cpu(), grid)
+    diff = (card - host).abs().max().item()
+    print(f"vitvae rope tables equal to the host's {np.array_equal(sin.cpu().numpy(), sin_np) and np.array_equal(cos.cpu().numpy(), cos_np)}; "
+          f"pos-embed resize {(cfg.latent_length, cfg.latent_size, cfg.latent_size)} -> {grid} "
+          f"on the card against the CPU: "
+          f"max |diff| {diff:.3e}", flush=True)
+    gate(np.array_equal(sin.cpu().numpy(), sin_np) and np.array_equal(cos.cpu().numpy(), cos_np)
+         and diff <= 1e-6, "vitvae rope tables / pos-embed resize against the CPU path")
+    del sin, cos, p
+
+    # encode: a 1-frame image and a 24-frame prefix at 720x720
+    img = (torch.rand(1, 1, *hw, 3, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    vid = (torch.rand(1, frames, *hw, 3, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    for name, video, want in (("1-frame image", img, (1, 1, *MAGI_720, cfg.z_chans)),
+                              (f"{frames}-frame prefix", vid, (1, 6, *MAGI_720, cfg.z_chans))):
+        vae.encode(video)
+        torch.cuda.reset_peak_memory_stats(dev)
+        lat, secs = timed(lambda: vae.encode(video))
+        gate(tuple(lat.shape) == want and torch.isfinite(lat).all().item(),
+             f"vitvae encode {name}")
+        print(f"vitvae encode {name} {list(video.shape)} -> {list(lat.shape)}: {secs:.3f} s, "
+              f"peak {peak_since(dev, base) / 1e9:.3f} GB above the resident", flush=True)
+    del img, vid, lat
+
+    # a MAGI-24B chunk at 720x1280: 86401 tokens
+    z = torch.randn(1, 6, *MAGI_720x1280, cfg.z_chans, generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    px, first_s = timed(lambda: vae.decode(z))
+    peak = peak_since(dev, base)
+    gate(tuple(px.shape) == (1, frames, *(cfg.patch_size * n for n in MAGI_720x1280), 3)
+         and torch.isfinite(px).all().item(), "vitvae 24B decode")
+    _, dec24_s = timed(lambda: vae.decode(z))
+    print(f"vitvae decode {list(z.shape)} -> {list(px.shape)}: {dec24_s:.3f} s a chunk "
+          f"(first call {first_s:.3f} s), peak {peak / 1e9:.3f} GB above the resident", flush=True)
+    del px, z
+    torch.cuda.empty_cache()
+    phase("vitvae", t0)
+    return vae
+
+
+class TimedDecode:
+    """A ViT-VAE whose decode is timed (the device synced around it) and
+    whose latents are kept, for the pipeline phases' gates."""
+
+    def __init__(self, vae):
+        self.vae, self.cfg, self.secs, self.latents = vae, vae.cfg, [], []
+
+    def decode(self, z):
+        self.latents.append(z.clone())
+        px, secs = timed(lambda: self.vae.decode(z))
+        self.secs.append(secs)
+        return px
+
+
+def magi_t5_caption(dev: torch.device, g, cfg: MagiModelConfig):
+    """MagiT5Embedder at t5-v1_1-xxl width, MAGI_T5_LAYERS layers, bf16,
+    the byte stand-in tokenizer: its features bit-equal to umt5_encode on
+    the same ids, then padded to caption_max_length, as the CLI does.
+    Returns (caption [1, 800, 4096] float32, its prefix mask int32)."""
+    t5 = dataclasses.replace(t5_v1_1_xxl_config(), num_layers=MAGI_T5_LAYERS)
+    emb = MagiT5Embedder(t5, tokenizer=ByteTokenizer(), device=dev, generator=g)
+    (feats, mask), secs = timed(lambda: emb.get_text_embeddings([MAGI_PROMPT]))
+    ids = ByteTokenizer()([text_preprocessing(MAGI_PROMPT)], max_length=120)["input_ids"]
+    ref = umt5_encode(emb.params, t5, torch.as_tensor(ids, device=dev), mask).to(torch.bfloat16)
+    n = int(mask.sum())
+    print(f"magi t5 (t5-v1_1-xxl width, {MAGI_T5_LAYERS} of 24 layers, bf16): features "
+          f"{list(feats.shape)} {feats.dtype}, {n} tokens, bit-equal to umt5_encode "
+          f"{torch.equal(feats, ref)}; {secs:.3f} s", flush=True)
+    gate(torch.equal(feats, ref) and tuple(feats.shape) == (1, 120, t5.dim)
+         and mask.dtype == torch.int32, "MagiT5Embedder against umt5_encode")
+    del emb, ref
+    pad = cfg.caption_max_length - feats.shape[1]
+    return F.pad(feats.float(), (0, 0, 0, pad)), F.pad(mask, (0, pad))
+
+
+def walk_forwards(sched_cfg: MagiScheduleConfig, rt, max_tokens: int, ct: int,
+                  prefix: int = 0) -> tuple:
+    """(chunk forwards, uncond calls, nearly-clean re-mixes) the pipeline's
+    code implies for a walk: each window's chunks, the clean one included,
+    one forward each under per-chunk dispatch; the 3-CFG uncond forward a
+    denoising chunk (one call when the window has one); the distilled
+    re-mix's extra chunk when the oldest denoising chunk's t passes the
+    threshold and its slot fits; each prefix chunk's extraction forward."""
+    sched = ChunkSchedule(sched_cfg)
+    fwd, unc, remix = prefix, 0, 0
+    for step in range(sched.total_forward_steps):
+        c0, c1, _, _ = sched.window(step)
+        extra = sched.fwd_extra_1st_chunk(step)
+        w0 = c0 - extra
+        n = c1 - w0
+        if rt.cfg_number == 1 and rt.distill:
+            t_first = float(sched.timesteps(step)[0])
+            if t_first > rt.distill_nearly_clean_chunk_threshold and \
+                    (w0 + n + 1) * ct <= max_tokens:
+                remix += 1
+        if rt.cfg_number == 3:
+            unc += c1 - c0
+        fwd += n
+    return fwd + remix, unc, remix
+
+
+def cfg3_hand_walk(params, statics, noise, cap, mask, rt, chunk_num: int) -> list:
+    """The pipeline's 3-CFG walk restated through the model's calls (phase
+    27's walk at B=2 plus the 3-CFG combination): each window one
+    `magi_forward` a chunk, row 0 with the caption, row 1 the null caption
+    with the adaln dropout token, the window's span synced from row 1 once
+    after it; a prefix-free `magi_forward_uncond` a denoising chunk; the
+    per-chunk combination (1 - s_p) v_unc + (s_p - s_t) v_pre + s_t v_text
+    in float32, the scales searchsorted from cfg_t_range; Euler steps.
+    Returns the clean chunks in order."""
+    geo, dev = statics.geo, noise.device
+    cw, ct = geo.chunk_width, geo.chunk_tokens
+    sched = ChunkSchedule(MagiScheduleConfig(
+        chunk_num=chunk_num, chunk_width=cw, window_size=rt.window_size,
+        num_steps=rt.num_steps, t_schedule=rt.t_schedule, t_shift=rt.t_shift,
+        noise2clean_kvrange=rt.noise2clean_kvrange,
+        clean_chunk_kvrange=rt.clean_chunk_kvrange, clean_t=rt.clean_t))
+    cache = init_kv_cache(statics.spec, dev)
+    table = params["y_embedder"]["null_caption_embedding"]
+    null = table[None, :cap.shape[1]].float()
+    null_mask = torch.zeros(1, cap.shape[1], device=dev)
+    null_mask[:, :50] = 1.0
+    drop = torch.tensor([False, True], device=dev)
+    x = noise.expand(2, *noise.shape[1:]).clone()
+    edges = np.asarray(rt.cfg_t_range, np.float64) - 1e-7
+    clean_chunks = []
+    for step in range(sched.total_forward_steps):
+        c0, c1, _, _ = sched.window(step)
+        extra = sched.fwd_extra_1st_chunk(step)
+        w0 = c0 - extra
+        n = c1 - w0
+        t_vals = sched.timesteps(step)
+        if extra:
+            t_vals = np.concatenate([[rt.clean_t], t_vals])
+        kvr = sched.kv_ranges(step, include_clean=extra)
+        t = torch.as_tensor(np.asarray(t_vals, np.float32), device=dev)[None].expand(2, n)
+        clean = [extra] + [False] * (n - 1)
+        caps = torch.cat([torch.stack([null[0] if c else cap[0].float() for c in clean])[None],
+                          null[:, None].expand(1, n, *null.shape[1:])]).to(torch.bfloat16)
+        masks = torch.cat([torch.stack([null_mask[0] if c else mask[0].float()
+                                        for c in clean])[None],
+                           null_mask[:, None].expand(1, n, null.shape[1])])
+        vels = []
+        for i in range(n):
+            v, cache = magi_forward(params, statics, None, x[:, (w0 + i) * cw:(w0 + i + 1) * cw],
+                                    t[:, i:i + 1], caps[:, i:i + 1], masks[:, i:i + 1], cache,
+                                    w0 + i, kvr[i:i + 1], caption_dropout=drop)
+            vels.append(v)
+        vel = torch.cat(vels, dim=1)
+        sync_cache_rows(statics.spec, cache, w0 * ct, n * ct)
+        n_den = c1 - c0
+        t_den = np.asarray(t_vals)[extra:]
+        idx = np.searchsorted(edges, t_den) - 1
+        s_p = torch.as_tensor(np.asarray(rt.prev_chunk_scales, np.float32)[idx], device=dev)
+        s_t = torch.as_tensor(np.asarray(rt.text_scales, np.float32)[idx], device=dev)
+        x_den = x[0, c0 * cw:c1 * cw].reshape(n_den, cw, *x.shape[2:])
+        t_u = torch.as_tensor(np.asarray(t_den, np.float32), device=dev).reshape(n_den, 1)
+        v_t = vel[0, extra * cw:].reshape(n_den, cw, *vel.shape[2:])
+        v_p = vel[1, extra * cw:].reshape(n_den, cw, *vel.shape[2:])
+        comb = []
+        for i in range(n_den):
+            v_u = magi_forward_uncond(params, statics, x_den[i:i + 1], t_u[i:i + 1],
+                                      null[:, None].to(torch.bfloat16), null_mask[:, None])
+            w_u = (1.0 - s_p[i:i + 1]).reshape(-1, 1, 1, 1, 1)
+            w_p = (s_p[i:i + 1] - s_t[i:i + 1]).reshape(-1, 1, 1, 1, 1)
+            w_t = s_t[i:i + 1].reshape(-1, 1, 1, 1, 1)
+            comb.append(w_u * v_u.float() + w_p * v_p[i:i + 1].float()
+                        + w_t * v_t[i:i + 1].float())
+        v = torch.cat(comb).reshape(1, n_den, cw, *vel.shape[2:])
+        d = torch.as_tensor(sched.integrate_deltas(step), dtype=v.dtype,
+                            device=dev).reshape(1, -1, 1, 1, 1, 1)
+        x_d = x[:, c0 * cw:c1 * cw].reshape(2, n_den, cw, *x.shape[2:])
+        x[:, c0 * cw:c1 * cw] = (x_d + v * d).reshape(2, n_den * cw, *x.shape[2:]).to(x.dtype)
+        done = sched.mark_integrated(step)
+        if done is not None:
+            clean_chunks.append(x[:1, done * cw:(done + 1) * cw].clone())
+    return clean_chunks
+
+
+def row_sync_checker(sched_cfg: MagiScheduleConfig, ct: int, results: list, keep: dict,
+                     keep_after: int = None):
+    """A state_callback: after each window, whether every cache field's row
+    0 equals row 1 over the window's span; after window keep_after, the
+    state cloned into keep."""
+    sched = ChunkSchedule(sched_cfg)
+
+    def on_state(state, step):
+        c0, c1, _, _ = sched.window(step)
+        span = slice((c0 - sched.fwd_extra_1st_chunk(step)) * ct, c1 * ct)
+        results.append(all(torch.equal(f[:, 0, span], f[:, 1, span])
+                           for f in state["cache"].values()))
+        if keep_after is not None and step == keep_after - 1:
+            keep.update(x=state["x"].clone(), step=state["step"],
+                        cache={k: f.clone() for k, f in state["cache"].items()},
+                        chunk_denoise_count=state["chunk_denoise_count"].copy())
+
+    return on_state
+
+
+def magi_pipeline_phase(dev: torch.device, smi: str, params: dict, vae) -> tuple:
+    """Phase 31: MagiVideoPipeline on magi_4p5b.json at full width and depth
+    (phase 27's bf16 tree), 3-CFG (B=2 + the uncond forward), 720x720, 4
+    chunks, MAGI_PIPE_STEPS steps, per-chunk dispatch, the caption from
+    MagiT5Embedder, each chunk decoded by phase 30's VAE: launches against
+    the code's count, the rows' spans synced after each window, the chunks
+    bit-equal to a hand walk; "scan" bit-equal to "per_chunk" on one window;
+    an I2V run from a seeded 720x720 image; a resume after window
+    MAGI_RESUME_AFTER bit-equal. Returns (launches, caption, mask)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(31)
+    mcfg, rt = magi_config_from_json(os.path.join(REPO, "examples", "configs",
+                                                  "magi_4p5b.json"))
+    rt.num_steps = MAGI_PIPE_STEPS
+    cap, mask = magi_t5_caption(dev, g, mcfg)
+    chunk_num = MAGI_WALK["chunk_num"]
+    prof = InferixProfiler(ProfilingConfig(enabled=True))
+    tvae = TimedDecode(vae)
+    pipe = MagiVideoPipeline(mcfg, rt, params=params, latent_h=MAGI_720[0],
+                             latent_w=MAGI_720[1], max_chunks=chunk_num, profiler=prof,
+                             device=dev, vae=tvae)
+    ct, cw = pipe.statics.geo.chunk_tokens, pipe.statics.geo.chunk_width
+    hw = tuple(vae.cfg.patch_size * n for n in MAGI_720)    # 720 x 720 pixels
+    fpc = cw * vae.cfg.patch_length                         # pixel frames a chunk
+    sched_cfg = MagiScheduleConfig(chunk_num=chunk_num, chunk_width=cw,
+                                   window_size=rt.window_size, num_steps=rt.num_steps,
+                                   noise2clean_kvrange=rt.noise2clean_kvrange,
+                                   clean_chunk_kvrange=rt.clean_chunk_kvrange)
+    synced, keep, first = [], {}, []
+    pipe.generate_chunks = functools.partial(
+        pipe.generate_chunks, state_callback=row_sync_checker(sched_cfg, ct, synced, keep,
+                                                              MAGI_RESUME_AFTER))
+    launches = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    def on_chunk(px, idx):
+        gate(torch.isfinite(px).all().item() and tuple(px.shape) == (1, fpc, *hw, 3),
+             f"pipeline chunk {idx} pixels")
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t1)
+
+    video = pipe.generate_video(cap, mask, chunk_num,
+                                generator=torch.Generator(device=dev).manual_seed(rt.seed),
+                                chunk_callback=on_chunk)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t1
+    del pipe.generate_chunks   # the later runs without the checker (and no reference cycle)
+    got = since_reset()
+    add_counts(launches, got)
+    fwd, unc, _ = walk_forwards(sched_cfg, rt, pipe.statics.spec.max_tokens, ct)
+    want = {"flash_attention_prefix": 2 * mcfg.num_layers * (fwd + unc)}
+    print(f"magi-4.5B MagiVideoPipeline (3-CFG, {chunk_num} chunks, {rt.num_steps} steps): "
+          f"launches {got} (the code implies {want}: {fwd} chunk forwards at B=2 and {unc} "
+          f"uncond forwards, {2 * mcfg.num_layers} B1 each); {total_s:.3f} s in all, the first "
+          f"chunk's pixels after {first[0]:.3f} s; {smi}", flush=True)
+    gate(got == want, "MAGI-4.5B pipeline launches")
+    gate(tuple(video.shape) == (1, fpc * chunk_num, *hw, 3), "pipeline video shape")
+    gate(len(synced) == len(prof.diffusion_steps) and all(synced),
+         "the rows' spans synced after each window")
+    sched = ChunkSchedule(sched_cfg)
+    for rec in prof.diffusion_steps:
+        c0, c1, _, _ = sched.window(rec["step"])
+        n = c1 - c0 + sched.fwd_extra_1st_chunk(rec["step"])
+        print(f"magi-4.5B pipeline window {rec['step']}: {n} chunks at B=2 + {c1 - c0} uncond "
+              f"rows: {rec['time_ms'] / 1e3:.3f} s", flush=True)
+    print(f"magi-4.5B pipeline decode a chunk (phase 30's VAE, bf16): "
+          f"{['%.3f' % s for s in tvae.secs]} s; chunks (the profiler) "
+          f"{['%.3f' % (b['time_ms'] / 1e3) for b in prof.blocks]} s", flush=True)
+    latents = tvae.latents
+    del video
+    torch.cuda.empty_cache()
+
+    # the hand walk from the same draw
+    noise = torch.randn(1, chunk_num * cw, *MAGI_720, mcfg.latent_channels,
+                        generator=torch.Generator(device=dev).manual_seed(rt.seed),
+                        device=dev).to(torch.bfloat16)
+    hand, hand_s = timed(lambda: cfg3_hand_walk(params, pipe.statics, noise, cap, mask, rt,
+                                                chunk_num))
+    equal = len(hand) == len(latents) and all(torch.equal(a, b) for a, b in zip(hand, latents))
+    print(f"magi-4.5B pipeline chunks bit-equal to the hand walk ({hand_s:.3f} s): {equal}; "
+          f"max |diff| by chunk {['%.3e' % (a.float() - b.float()).abs().max().item() for a, b in zip(hand, latents)]}",
+          flush=True)
+    gate(equal, "pipeline chunks against the hand walk")
+    del hand, noise
+    torch.cuda.empty_cache()
+
+    # resume from the state kept after window MAGI_RESUME_AFTER
+    gate(keep.get("step") == MAGI_RESUME_AFTER, "resume state kept")
+    rest, res_s = timed(lambda: list(pipe.generate_chunks(cap, mask, chunk_num,
+                                                          resume_state=keep)))
+    equal = [i for i, _ in rest] == list(range(chunk_num)) and all(
+        torch.equal(c, latents[i]) for i, c in rest)
+    print(f"magi-4.5B pipeline resumed after window {MAGI_RESUME_AFTER} ({res_s:.3f} s): "
+          f"chunks {[i for i, _ in rest]} bit-equal to the walk without the break: {equal}",
+          flush=True)
+    gate(equal, "resumed walk bit-equal")
+    del rest, keep, latents
+    torch.cuda.empty_cache()
+
+    # "scan" against "per_chunk" on one window of 2 chunks, fresh caches
+    outs = {}
+    xw = torch.randn(1, 2 * cw, *MAGI_720, mcfg.latent_channels, generator=g,
+                     device=dev).to(torch.bfloat16).expand(2, -1, -1, -1, -1)
+    for disp in ("per_chunk", "scan"):
+        p2 = MagiPipeline(mcfg, dataclasses.replace(rt, window_dispatch=disp), params=params,
+                          latent_h=MAGI_720[0], latent_w=MAGI_720[1], max_chunks=2, device=dev)
+        reset_counts()
+        outs[disp] = p2._forward_window(xw, np.array([0.3, 0.1]), cap.to(dev), mask.to(dev),
+                                        init_kv_cache(p2.statics.spec, dev), 0, [[0, 1], [0, 2]])
+        add_counts(launches, since_reset())
+        del p2
+    (va, ca), (vb, cb) = outs["per_chunk"], outs["scan"]
+    equal = torch.equal(va, vb) and all(torch.equal(a, b) for a, b in zip(ca, cb)
+                                        if a is not None)
+    print(f"magi-4.5B window of 2 chunks: \"scan\" bit-equal to \"per_chunk\" (velocity and "
+          f"cache): {equal}", flush=True)
+    gate(equal, "scan against per_chunk")
+    del outs, va, vb, ca, cb, xw
+    torch.cuda.empty_cache()
+
+    # I2V: one prefix chunk from a seeded 720x720 image, one chunk generated
+    img = np.random.default_rng(31).integers(0, 256, (*hw, 3)).astype(np.uint8)
+    prefix, enc_s = timed(lambda: encode_prefix_latents(
+        vae, process_image(img, *hw), chunk_width=cw).to(torch.bfloat16))
+    gate(tuple(prefix.shape) == (1, cw, *MAGI_720, mcfg.latent_channels), "I2V prefix latents")
+    tvae.secs.clear()
+    reset_counts()
+    px, i2v_s = timed(lambda: pipe.generate_video(cap, mask, 2, prefix_latents=prefix))
+    got = since_reset()
+    add_counts(launches, got)
+    i2v_cfg = dataclasses.replace(sched_cfg, chunk_num=2, chunk_offset=1)
+    fwd, unc, _ = walk_forwards(i2v_cfg, rt, pipe.statics.spec.max_tokens, ct, prefix=1)
+    want = {"flash_attention_prefix": 2 * mcfg.num_layers * (fwd + unc)}
+    print(f"magi-4.5B I2V (a 720x720 image encoded in {enc_s:.3f} s to {list(prefix.shape)}, "
+          f"one chunk generated): {i2v_s:.3f} s, pixels {list(px.shape)}; launches {got} "
+          f"(the code implies {want}: 1 prefix-extraction forward, {fwd - 1} chunk forwards, "
+          f"{unc} uncond)", flush=True)
+    gate(got == want and tuple(px.shape) == (1, fpc, *hw, 3)
+         and torch.isfinite(px).all().item(), "I2V run")
+    del px, prefix, pipe
+    torch.cuda.empty_cache()
+    phase("magi-4.5B pipeline", t0)
+    return launches, cap, mask
+
+
+def magi_e4m3_tree(params: dict, cfg: MagiModelConfig, g) -> dict:
+    """The fp8 distill-quant layout of a bf16 MAGI tree at full depth:
+    `blocks_first` / `blocks_last` its layers 0 and L-1, `blocks_mid` the
+    other layers with MAGI_FP8_LINEARS as e4m3 codes and one weight scale a
+    layer (absmax / 448); q, qx, k, v, fc1 per-tensor (act_scale 0.02),
+    proj and fc2 per-channel (smooth_scale U(0.75, 1.25), input_scale 1)."""
+    blocks, L = params["blocks"], cfg.num_layers
+    mid = tree_map(lambda a: a[1:L - 1], blocks)
+    for name in MAGI_FP8_LINEARS:
+        w = blocks[name]["w"][1:L - 1]
+        w_q = torch.empty(w.shape, dtype=FP8, device=w.device)
+        ws = torch.empty(L - 2, device=w.device)
+        for i in range(L - 2):
+            ws[i] = w[i].float().abs().max() / 448.0
+            w_q[i] = (w[i].float() / ws[i]).to(FP8)
+        d = {"w_q": w_q, "weight_scale": ws}
+        if name in MAGI_FP8_PER_CHANNEL:
+            d["smooth_scale"] = torch.rand(L - 2, w.shape[1], generator=g, device=w.device) \
+                * 0.5 + 0.75
+            d["input_scale"] = torch.ones(L - 2, device=w.device)
+        else:
+            d["act_scale"] = torch.full((L - 2, w.shape[1]), 0.02, device=w.device)
+        mid[name] = d
+    tree = {k: v for k, v in params.items() if k != "blocks"}
+    tree.update(blocks_first=layer_params(blocks, 0), blocks_mid=mid,
+                blocks_last=layer_params(blocks, L - 1))
+    return tree
+
+
+def magi_fold_bf16(tree: dict) -> dict:
+    """The e4m3 tree's linear maps in bf16 without the activation
+    quantization: each e4m3 linear as {"w": w_q * weight_scale, rows scaled
+    by input_scale / smooth_scale for the per-channel ones}, the fold of
+    `magi_distill_quant_to_int8`, a layer at a time."""
+    mid = dict(tree["blocks_mid"])
+    for name in MAGI_FP8_LINEARS:
+        d = mid[name]
+        w = torch.empty(d["w_q"].shape, dtype=torch.bfloat16, device=d["w_q"].device)
+        for i in range(w.shape[0]):
+            wf = d["w_q"][i].float() * d["weight_scale"][i]
+            if "smooth_scale" in d:
+                wf = wf * (d["input_scale"][i] / d["smooth_scale"][i])[:, None]
+            w[i] = wf.to(torch.bfloat16)
+        mid[name] = {"w": w}
+    return {**tree, "blocks_mid": mid}
+
+
+def magi_distill_phase(dev: torch.device, smi: str, params: dict, cap, mask) -> dict:
+    """Phase 32: magi_4p5b_distill_quant.json (cfg_number 1, distill,
+    shortcut_mode "8,16,16", quantize_kv) at full width and depth: phase
+    27's tree in the fp8 distill layout, requantized by
+    `magi_distill_quant_to_int8` to W8A8 over the int8 window cache (B2,
+    B3, B4, B1 cross): a walk of 4 chunks, MAGI_DISTILL_STEPS steps, its
+    launches against the code's count with the nearly-clean re-mix's extra
+    chunks; each window's velocity against the same walk in bf16 (the e4m3
+    tree's folded linears, a bf16 cache), distill_dt_factor in both.
+    Returns the W8A8 walk's launches."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(32)
+    mcfg, rt = magi_config_from_json(os.path.join(REPO, "examples", "configs",
+                                                  "magi_4p5b_distill_quant.json"))
+    rt.num_steps = MAGI_DISTILL_STEPS
+    chunk_num = MAGI_WALK["chunk_num"]
+    e4m3 = magi_e4m3_tree(params, mcfg, g)
+    trees = {"w8a8": magi_distill_quant_to_int8(e4m3), "bf16": magi_fold_bf16(e4m3)}
+    del e4m3
+    torch.cuda.empty_cache()
+    gate(trees["w8a8"]["blocks_mid"]["q"]["w_q"].dtype == torch.int8, "requantized to int8")
+    int8_linears = sum(1 for b in (trees["w8a8"]["blocks_first"], trees["w8a8"]["blocks_last"])
+                       for v in b.values() if isinstance(v, dict) and "w_q" in v) \
+        + len(MAGI_FP8_LINEARS) * (mcfg.num_layers - 2)
+    print(f"magi-4.5B distill-quant: the e4m3 layout (layers 1-{mcfg.num_layers - 2}) "
+          f"requantized to W8A8, {memory_bytes(trees['w8a8']['blocks_mid']) / 1e9:.3f} GB of "
+          f"middle blocks; {int8_linears} int8 linears a forward", flush=True)
+    vels, launches = {}, {}
+    for name in ("w8a8", "bf16"):
+        pipe = MagiPipeline(mcfg, dataclasses.replace(rt, quantize_kv=name == "w8a8"),
+                            params=trees[name], latent_h=MAGI_720[0], latent_w=MAGI_720[1],
+                            max_chunks=chunk_num + 1, device=dev)
+        ct, cw = pipe.statics.geo.chunk_tokens, pipe.statics.geo.chunk_width
+        rec = vels[name] = []
+        fwd_window = pipe._forward_window
+
+        def recorded(*args, _f=fwd_window, _r=rec, **kwargs):
+            v, c = _f(*args, **kwargs)
+            _r.append(v.float().cpu())
+            return v, c
+
+        pipe._forward_window = recorded
+        reset_counts()
+        chunks, secs = timed(lambda: list(pipe.generate_chunks(
+            cap, mask, chunk_num, generator=torch.Generator(device=dev).manual_seed(rt.seed))))
+        got = since_reset()
+        sched_cfg = MagiScheduleConfig(
+            chunk_num=chunk_num, chunk_width=cw, window_size=rt.window_size,
+            num_steps=rt.num_steps, shortcut_mode=rt.shortcut_mode,
+            noise2clean_kvrange=rt.noise2clean_kvrange,
+            clean_chunk_kvrange=rt.clean_chunk_kvrange)
+        fwd, _, remix = walk_forwards(sched_cfg, rt, pipe.statics.spec.max_tokens, ct)
+        L = mcfg.num_layers
+        if name == "w8a8":
+            want = {"flash_attention_prefix": L * fwd, "flash_attention_prefix_quant": L * fwd,
+                    "int8_matmul": int8_linears * fwd,
+                    "quantize_rows_int8": (int8_linears + 2 * L) * fwd}
+            add_counts(launches, got)
+        else:
+            want = {"flash_attention_prefix": 2 * L * fwd}
+        print(f"magi-4.5B distill-quant walk, {name} ({chunk_num} chunks, {rt.num_steps} steps, "
+              f"distill_dt_factor {pipe._distill_dt_factor(1.0):g}): {secs:.3f} s, "
+              f"{len(rec)} windows; launches {got} (the code implies {want}: {fwd} chunk "
+              f"forwards, {remix} of them the nearly-clean re-mix's extra chunk)", flush=True)
+        gate(got == want and remix > 0, f"distill-quant {name} launches and re-mix")
+        gate(len(chunks) == chunk_num and all(torch.isfinite(c).all().item() for _, c in chunks),
+             f"distill-quant {name} chunks")
+        del pipe._forward_window, pipe, chunks   # the recorder refers to the pipeline
+        torch.cuda.empty_cache()
+    errs = step_errors(vels["w8a8"], vels["bf16"])
+    print(f"magi-4.5B distill-quant W8A8 + int8 cache against the bf16 walk: velocity rel err "
+          f"by window {['%.3e' % e for e in errs]} (tol {MAGI_W8A8_RTOL:g})", flush=True)
+    gate(max(errs) <= MAGI_W8A8_RTOL, "distill-quant W8A8 against bf16")
+    del trees, vels
+    torch.cuda.empty_cache()
+    phase("magi-4.5B distill-quant", t0)
+    return launches
+
+
+def magi_24b_pipeline_phase(dev: torch.device, smi: str, vae, cap, mask,
+                            full_bytes: int) -> dict:
+    """Phase 33: MagiVideoPipeline on magi_24b.json's widths at
+    MAGI_24B_LAYERS of 48 layers: W8A8, the int8 window cache, 3-CFG,
+    per-chunk dispatch, 720x1280, 2 chunks, the 16-channel latents decoded
+    by phase 30's z-16 VAE: finite pixels, the rows synced after each
+    window, launches against the code's count, peak device bytes beside
+    phase 29's worked-out full depth. Returns the launches."""
+    t0 = time.perf_counter()
+    full, rt = magi_config_from_json(os.path.join(REPO, "examples", "configs", "magi_24b.json"))
+    cfg = dataclasses.replace(full, num_layers=MAGI_24B_LAYERS)
+    rt.num_steps = MAGI_PIPE_STEPS
+    g = torch.Generator(device=dev).manual_seed(33)
+    params = magi_quantize_params_int8(init_magi_params(cfg, g, dev))
+    torch.cuda.empty_cache()
+    rt.quantize_kv = True
+    pipe = MagiVideoPipeline(cfg, rt, params=params, latent_h=MAGI_720x1280[0],
+                             latent_w=MAGI_720x1280[1], max_chunks=2, device=dev, vae=vae)
+    ct, cw = pipe.statics.geo.chunk_tokens, pipe.statics.geo.chunk_width
+    sched_cfg = MagiScheduleConfig(chunk_num=2, chunk_width=cw, window_size=rt.window_size,
+                                   num_steps=rt.num_steps,
+                                   noise2clean_kvrange=rt.noise2clean_kvrange,
+                                   clean_chunk_kvrange=rt.clean_chunk_kvrange)
+    synced = []
+    pipe.generate_chunks = functools.partial(
+        pipe.generate_chunks, state_callback=row_sync_checker(sched_cfg, ct, synced, {}))
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    video, secs = timed(lambda: pipe.generate_video(cap, mask, 2))
+    got = since_reset()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fwd, unc, _ = walk_forwards(sched_cfg, rt, pipe.statics.spec.max_tokens, ct)
+    L = cfg.num_layers
+    want = {"flash_attention_prefix_quant": L * fwd, "flash_attention_prefix": L * (fwd + 2 * unc),
+            "int8_matmul": 8 * L * (fwd + unc), "quantize_rows_int8": 8 * L * (fwd + unc) + 2 * L * fwd}
+    print(f"magi-24B widths ({MAGI_24B_LAYERS} of {full.num_layers} layers) MagiVideoPipeline, "
+          f"W8A8 + int8 cache, 3-CFG, 2 chunks at 720x1280, {rt.num_steps} steps: {secs:.3f} s, "
+          f"pixels {list(video.shape)}; launches {got} (the code implies {want}: {fwd} chunk "
+          f"forwards at B=2, {unc} uncond); peak device bytes {peak / 1e9:.3f} GB "
+          f"({(peak - base) / 1e9:.3f} above the resident {base / 1e9:.3f}); phase 29's full "
+          f"depth worked out: {full_bytes / 1e9:.3f} GB resident", flush=True)
+    hw = tuple(vae.cfg.patch_size * n for n in MAGI_720x1280)
+    gate(tuple(video.shape) == (1, 2 * cw * vae.cfg.patch_length, *hw, 3)
+         and torch.isfinite(video).all().item()
+         and len(synced) > 0 and all(synced) and got == want,
+         "24B pipeline: finite pixels, rows synced, launches")
+    del video, pipe.generate_chunks, pipe, params   # the checker's partial refers to the pipeline
+    torch.cuda.empty_cache()
+    phase("magi-24B pipeline", t0)
+    return got
+
+
+def reference_vitvae_sd(params: dict, cfg: ViTVAEConfig) -> dict:
+    """This script's inverse of `convert_magi_vae_state_dict`: the ViT-VAE
+    tree as a reference `ViTVAE` state dict on the host."""
+    sd = {}
+
+    def lin(name, p, i=None):
+        sd[f"{name}.weight"] = host_copy((p["w"] if i is None else p["w"][i]).t())
+        if "b" in p:
+            sd[f"{name}.bias"] = host_copy(p["b"] if i is None else p["b"][i])
+
+    def ln(name, p, i=None):
+        for k, n in (("w", "weight"), ("b", "bias")):
+            sd[f"{name}.{n}"] = host_copy(p[k] if i is None else p[k][i])
+
+    for side in ("encoder", "decoder"):
+        t = params[side]
+        sd[f"{side}.pos_embed"] = host_copy(t["pos_embed"][None])
+        sd[f"{side}.cls_token"] = host_copy(t["cls_token"].reshape(1, 1, -1))
+        b = t["blocks"]
+        for i in range(cfg.depth):
+            pre = f"{side}.blocks.{i}"
+            lin(f"{pre}.attn.qkv", b["qkv"], i)
+            lin(f"{pre}.attn.proj", b["proj"], i)
+            ln(f"{pre}.norm2", b["norm2"], i)
+            lin(f"{pre}.mlp.fc1", b["fc1"], i)
+            lin(f"{pre}.mlp.fc2", b["fc2"], i)
+        ln(f"{side}.norm", t["norm"])
+    enc, dec = params["encoder"], params["decoder"]
+    d = cfg.embed_dim
+    sd["encoder.patch_embed.proj.weight"] = host_copy(enc["patch"]["w"].t().reshape(
+        d, cfg.in_chans, cfg.patch_length, cfg.patch_size, cfg.patch_size))
+    sd["encoder.patch_embed.proj.bias"] = host_copy(enc["patch"]["b"])
+    lin("encoder.last_layer", enc["last"])
+    lin("decoder.proj_in", dec["proj_in"])
+    lin("decoder.final_proj", dec["final_proj"])
+    ln("decoder.final_norm", dec["final_norm"])
+    sd["decoder.last_layer.weight"] = host_copy(dec["last_conv"]["w"].permute(4, 3, 0, 1, 2))
+    sd["decoder.last_layer.bias"] = host_copy(dec["last_conv"]["b"])
+    return sd
+
+
+def magi_cli_phase(dev: torch.device, smi: str, vae, out_dir: str) -> dict:
+    """Phase 34: `python -m inferix_tpu_torch.cli magi` in a subprocess from
+    files this phase writes: magi_4p5b.json cut to MAGI_CLI_LAYERS layers,
+    a seeded reference-format .pt at that depth, and phase 30's VAE as a
+    config.json + safetensors directory (this script's writer); 2 chunks, 4
+    steps. Exit 0, and frames [48, 720, 720, 3] uint8 equal to the same run
+    in this process (the walk from the converted .pt, the VAE from
+    `load_magi_vae`). Returns the in-process run's launches."""
+    t0 = time.perf_counter()
+    with open(os.path.join(REPO, "examples", "configs", "magi_4p5b.json")) as f:
+        conf = json.load(f)
+    conf["model"]["num_layers"] = MAGI_CLI_LAYERS
+    cfg_path = os.path.join(out_dir, "magi_cli.json")
+    with open(cfg_path, "w") as f:
+        json.dump(conf, f)
+    mcfg = MagiModelConfig(**conf["model"])
+    g = torch.Generator(device=dev).manual_seed(34)
+    pt = os.path.join(out_dir, "magi_cli.pt")
+    torch.save(magi_reference_sd(init_magi_params(mcfg, g, dev), mcfg), pt)
+    vae_dir = os.path.join(out_dir, "magi_vae")
+    os.makedirs(vae_dir)
+    vcfg = vae.cfg
+    with open(os.path.join(vae_dir, "config.json"), "w") as f:
+        json.dump({"ddconfig": {k: getattr(vcfg, k) for k in (
+            "video_size", "video_length", "patch_size", "patch_length", "z_chans",
+            "embed_dim", "depth", "num_heads")}}, f)
+    nbytes = write_safetensors(os.path.join(vae_dir, "diffusion_pytorch_model.safetensors"),
+                               reference_vitvae_sd(vae.params, vcfg))
+    out = os.path.join(out_dir, "magi.npz")
+    frames, wall = cli(["magi", "--config", cfg_path, "--load", pt, "--vae", vae_dir,
+                        "--chunks", "2", "--num-steps", "4", "--output", out])
+    reset_counts()
+    with torch_defaults():
+        m2, rt = magi_config_from_json(cfg_path)
+        rt.num_steps, rt.seed = 4, 42
+        tree = convert_magi_state_dict(load_torch_state_dict(pt), m2, torch.bfloat16, dev)
+        pipe = MagiPipeline(m2, rt, params=tree, latent_h=MAGI_720[0], latent_w=MAGI_720[1],
+                            max_chunks=4, device=dev)
+        vae2 = load_magi_vae(vae_dir, device=dev)
+        cap = torch.zeros(1, m2.caption_max_length, m2.caption_channels, device=dev)
+        cmask = torch.ones(1, m2.caption_max_length, dtype=torch.int32, device=dev)
+        px, inproc_s = timed(lambda: [vae2.decode(c) for _, c in pipe.generate_chunks(
+            cap, cmask, 2)])
+        want = latents_to_uint8((torch.cat(px, dim=1)[0] * 0.5 + 0.5).float().cpu().numpy())
+    got = since_reset()
+    n_px = 2 * m2.chunk_width * vae.cfg.patch_length
+    equal = frames.shape == want.shape == (n_px, *(vcfg.patch_size * n for n in MAGI_720), 3) \
+        and np.array_equal(frames, want)
+    print(f"cli: magi from files (a {MAGI_CLI_LAYERS}-layer .pt, the VAE's "
+          f"{nbytes / 1e9:.3f} GB safetensors): exit 0 in {wall:.3f} s, frames "
+          f"{frames.shape} {frames.dtype} equal to the in-process run ({inproc_s:.3f} s) "
+          f"{equal}; launches in process {got}; {smi}", flush=True)
+    gate(equal, "the magi command's frames differ from the in-process run's")
+    del pipe, tree, vae2, px
+    torch.cuda.empty_cache()
+    phase("magi cli", t0)
+    return got
 
 
 @contextlib.contextmanager

@@ -9,6 +9,7 @@ parent checkout's, on one card.
     python3 exp/kernel_ab.py --kernel gemm --parent DIR [--turns N]   # GEMMs
     python3 exp/kernel_ab.py --kernel act_quant --parent DIR [--turns N]
     python3 exp/kernel_ab.py --kernel qattn --parent DIR [--turns N]
+    python3 exp/kernel_ab.py --kernel sm90 --parent DIR [--turns N]   # B1, B1 e4m3, B2
 
 DIR holds a parent commit's files (`git archive <commit> | tar -x -C DIR`,
 into a directory that .gitignore lists). The parent's
@@ -73,6 +74,20 @@ it); this checkout's side is `flash_attention_prefix_quant_i8` /
 `_v2`, its operand pre-pass included. Shapes: B=1 at spans 4680, 14040 and
 32760 and B=2 at 32760 (kv group 2048), both modes. The outputs differ
 where a code sits at a rounding tie; the max |difference| is printed.
+
+--kernel sm90: the parent's `csrc/flash_attention_sm90.cu` (the wgmma kernel
+with the same C interface, entry `inferix_flash_attention_sm90`, from commit
+b99fa12 on) is built the same way, and both sides run through this
+checkout's wrappers (`flash_attention_prefix`, `_quant`, `flash_attention_gqa`,
+`_quant`), the parent's by swapping the library the wrappers load, so both
+get the same tail split and workspace. Shapes: the Wan full cache (4680 q
+rows over 4680 / 14040 / 32760 keys; B1 over bf16 and e4m3 K/V at B=1, B2
+at B=1 and 2) and MAGI-4.5B's self-attention through the GQA fold (12150
+rows, 24 q heads over 8, over 60750 keys: 2280 units, the tail in 3
+pieces). Per shape: both sides' times in turns, the max |difference| of
+their outputs, and for each side whether `--repeats` launches of it give
+the same bits (the merge of a split tail must not depend on which piece
+finishes last).
 """
 from __future__ import annotations
 
@@ -82,6 +97,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+from unittest import mock
 
 import torch
 
@@ -117,6 +133,7 @@ PARENT = {
 PARENT_LN = ("inferix_ln_quantize_rows_int8",
              [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+SM90_REPEATS = 8
 HALO_CLASSES = ("res 96 480x832", "res 192 240x416", "res 384 120x208", "res 384 60x104",
                 "up 192->96 480x832", "up 384->192 240x416", "head 96->3 480x832")
 
@@ -453,13 +470,80 @@ def qattn_ab(dev, parent_fn, turns: int) -> None:
                   flush=True)
 
 
+def sm90_ab(dev, parent: pathlib.Path, turns: int, repeats: int) -> None:
+    """B1 (bf16, e4m3) and B2 against the parent's wgmma kernel through this
+    checkout's wrappers; each side's bits over `repeats` launches."""
+    nvcc = _build.find_nvcc()
+    out = parent / "_ab_build"
+    out.mkdir(exist_ok=True)
+    so = out / "libflash_attention_sm90.so"
+    res = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", str(so),
+                          str(parent / "inferix_tpu_torch" / "csrc" / "flash_attention_sm90.cu")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent's flash_attention_sm90.cu:\n{res.stdout}"
+                           f"{res.stderr}")
+    parent_fn = ctypes.CDLL(str(so)).inferix_flash_attention_sm90
+    parent_fn.argtypes, parent_fn.restype = tfa._ARGTYPES_SM90, ctypes.c_int
+    this_fn = tfa._lib_sm90()
+
+    def side(fn, call):
+        def run():
+            with mock.patch.object(tfa, "_lib_sm90", lambda: fn):
+                return call()
+        return run
+
+    def same_bits(run) -> bool:
+        first = run().clone()
+        return all(torch.equal(run(), first) for _ in range(repeats - 1))
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cases = []
+    q, k, v = randn(2, cs.SQ, cs.H, cs.D), randn(2, cs.SKV, cs.H, cs.D), randn(2, cs.SKV, cs.H, cs.D)
+    k8, v8 = (x.float().clamp(-448, 448).to(tfa.FP8) for x in (k, v))
+    (kq, ks), (vq, vs) = quantize_kv_block(k), quantize_kv_block(v)
+    for span in cs.SPANS:
+        bnd = cs.attention_bound(1, cs.SQ, span)
+        cases.append((f"B1 bf16 B=1 span={span}", bnd,
+                      lambda span=span: tfa.flash_attention_prefix(q[:1], k[:1], v[:1], span)))
+        cases.append((f"B1 e4m3 B=1 span={span}", bnd,
+                      lambda span=span: tfa.flash_attention_prefix(q[:1], k8[:1], v8[:1], span)))
+        for b in (1, 2):
+            cases.append((f"B2 int8 B={b} span={span}", cs.attention_bound(b, cs.SQ, span),
+                          lambda span=span, b=b: tfa.flash_attention_prefix_quant(
+                              q[:b], kq[:b], vq[:b], ks[:b], vs[:b], span)))
+    ct, span = 12150, 5 * 12150
+    qm = randn(1, ct, 24, cs.D)
+    km, vm = randn(1, span, 8, cs.D), randn(1, span, 8, cs.D)
+    (kmq, kms), (vmq, vms) = quantize_kv_block(km), quantize_kv_block(vm)
+    kmb = cs.gqa_bound(ct, 24, 8, [span])
+    cases.append((f"B1 GQA rep 3, {ct} rows over {span} keys", kmb,
+                  lambda: tfa.flash_attention_gqa(qm, km, vm, kv_len=span)))
+    cases.append((f"B2 GQA rep 3, {ct} rows over {span} keys", cs.gqa_bound(ct, 24, 8, [span], 1 + 4 / cs.D),
+                  lambda: tfa.flash_attention_gqa_quant(qm, kmq, vmq, kms, vms, kv_len=span)))
+    for label, (bnd, by), call in cases:
+        old, new = side(parent_fn, call), side(this_fn, call)
+        diff = (new().float() - old().float()).abs().max().item()
+        det_old, det_new = same_bits(old), same_bits(new)
+        t_old, t_new = in_turns(old, new, turns)
+        print(f"sm90 {label}: parent {fmt(t_old)} ms, this {fmt(t_new)} ms, bound {bnd:.4f} "
+              f"({by}), max |out diff| {diff:.3e}; the same bits over {repeats} launches: "
+              f"parent {det_old}, this {det_new}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path,
                     help="directory holding the parent commit's files")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent per shape (default 1)")
-    ap.add_argument("--kernel", choices=("flash", "halo", "gemm", "act_quant", "qattn"),
+    ap.add_argument("--repeats", type=int, default=SM90_REPEATS,
+                    help="launches a side whose bits are compared (--kernel sm90)")
+    ap.add_argument("--kernel", choices=("flash", "halo", "gemm", "act_quant", "qattn", "sm90"),
                     default="flash",
                     help="which kernels to compare (default flash)")
     args = ap.parse_args()
@@ -482,6 +566,10 @@ def main() -> None:
     if args.kernel == "qattn":
         _build.build(["flash_attention_sm90"])
         qattn_ab(dev, build_parent(args.parent, ("qattn",))["qattn"], args.turns)
+        return
+    if args.kernel == "sm90":
+        _build.build(["flash_attention_sm90"])
+        sm90_ab(dev, args.parent, args.turns, args.repeats)
         return
     if args.kernel == "halo":
         _build.build(["halo_conv"])

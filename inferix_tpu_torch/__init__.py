@@ -30,6 +30,8 @@ _LAZY = {
     "CausalDiffusionPipeline": "inferix_tpu_torch.pipeline.self_forcing_cfg",
     "ContinuousBatcher": "inferix_tpu_torch.pipeline.continuous",
     "SemiARGenerator": "inferix_tpu_torch.pipeline.semi_ar",
+    "MagiPipeline": "inferix_tpu_torch.pipeline.magi",
+    "MagiVideoPipeline": "inferix_tpu_torch.pipeline.magi",
     "KVCacheManager": "inferix_tpu_torch.kvcache.manager",
     "KVCacheRequest": "inferix_tpu_torch.kvcache.manager",
     "CausalVAE": "inferix_tpu_torch.models.wan.vae",

@@ -1,17 +1,20 @@
-"""Command-line entry points of the port: the Wan commands of
-`inferix_tpu/cli.py` (self-forcing, causvid, stream).
+"""Command-line entry points of the port: the commands of
+`inferix_tpu/cli.py` but `vde` (self-forcing, causvid, stream, magi).
 
     python -m inferix_tpu_torch.cli self-forcing --model-path DIR --quant int8
     python -m inferix_tpu_torch.cli stream --backend file --segments 3
     python -m inferix_tpu_torch.cli causvid --rollouts 3
+    python -m inferix_tpu_torch.cli magi --config examples/configs/magi_4p5b.json \
+        --load DIT.pt --vae VAE_DIR --output out.mp4
 
 or the console scripts `inferix-tpu-torch-self-forcing`,
-`inferix-tpu-torch-causvid` and `inferix-tpu-torch-stream`. Every command
-runs on the card, and fails when there is none; `--cpu` runs the plain
-PyTorch path on the CPU instead. `--tiny` runs the tiny test config in
-float32, the full config runs in bf16. The `magi` and `vde` commands are not
-ported yet: asked for, they exit with an error that names their roadmap
-item. Nothing heavy is imported before a command runs.
+`inferix-tpu-torch-causvid`, `inferix-tpu-torch-stream` and
+`inferix-tpu-torch-magi`. Every command runs on the card, and fails when
+there is none; `--cpu` runs the plain PyTorch path on the CPU instead.
+`--tiny` runs the tiny test config in float32, the full config runs in
+bf16. The `vde` command is not ported yet: asked for, it exits with an
+error that names its roadmap item. Nothing heavy is imported before a
+command runs.
 """
 from __future__ import annotations
 
@@ -25,8 +28,7 @@ import numpy as np
 
 # Commands of the JAX CLI that the port does not have yet, and where they
 # stand in ROADMAP.md.
-NOT_PORTED = {"magi": "ROADMAP.md A12b (MAGI's VAE, pipelines and text tower)",
-              "vde": "ROADMAP.md A14b (eval/ and the vde command)"}
+NOT_PORTED = {"vde": "ROADMAP.md A14b (eval/ and the vde command)"}
 
 
 def _common_parser(desc: str) -> argparse.ArgumentParser:
@@ -160,6 +162,145 @@ def main_causvid(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
+def main_magi(argv: Optional[List[str]] = None) -> int:
+    p = _common_parser("MAGI-1 chunked generation")
+    p.add_argument("--chunks", type=int, default=4)
+    p.add_argument("--num-steps", type=int, default=None,
+                   help="default: the config's value, else 8")
+    p.add_argument("--window-size", type=int, default=4)
+    # the common --config is the MAGI json here (examples/configs/magi_*)
+    p.add_argument("--load", help="DiT checkpoint: sharded-safetensors dir "
+                   "or .pt (reference MAGI layout)")
+    p.add_argument("--vae", help="MAGI ViT-VAE checkpoint dir "
+                   "(config.json + weights); enables pixel decode")
+    p.add_argument("--t5", help="t5-v1_1-xxl dir (HF layout); encodes "
+                   "--prompt instead of the zero caption")
+    p.add_argument("--int8", action="store_true",
+                   help="requantize a distill-quant (fp8) checkpoint to "
+                   "W8A8 int8 at load")
+    p.add_argument("--image", help="I2V: condition on this image")
+    p.add_argument("--video", help="V2V: condition on this video's tail")
+    p.add_argument("--aspect-policy", default="fit",
+                   choices=("fit", "crop", "pad"))
+    p.add_argument("--fps", type=int, default=16)
+    args = p.parse_args(argv)
+    import os
+
+    import torch
+
+    from .models.magi.dit import MagiModelConfig, tiny_magi_config
+    from .pipeline.magi import MagiPipeline, MagiRuntimeConfig, magi_config_from_json
+
+    dev, dtype = _device(args), _dtype(args)
+    if args.config:
+        mcfg, rt = magi_config_from_json(args.config)
+        if args.num_steps is not None:
+            rt.num_steps = args.num_steps
+        rt.seed = args.seed
+    else:
+        mcfg = tiny_magi_config() if args.tiny else MagiModelConfig()
+        rt = MagiRuntimeConfig(num_steps=args.num_steps or 8,
+                               window_size=args.window_size, seed=args.seed,
+                               chunk_width=2 if args.tiny else 6)
+
+    params = None
+    if args.load:
+        from .utils.checkpoint import (convert_magi_state_dict, load_sharded_safetensors,
+                                       load_torch_state_dict)
+
+        sd = (load_sharded_safetensors(args.load) if os.path.isdir(args.load)
+              else load_torch_state_dict(args.load))
+        params = convert_magi_state_dict(sd, mcfg, dtype, dev)
+        del sd
+        if args.int8:
+            from .quant.api import magi_distill_quant_to_int8
+
+            params = magi_distill_quant_to_int8(params)
+
+    lat = 8 if args.tiny else 90
+    pipe = MagiPipeline(mcfg, rt, params=params, latent_h=lat, latent_w=lat,
+                        max_chunks=args.chunks + 2, dtype=dtype, device=dev)
+
+    vae = None
+    if args.vae:
+        from .utils.checkpoint import load_magi_vae
+
+        vae = load_magi_vae(args.vae, device=dev)
+    prefix = None
+    if args.image or args.video:
+        # I2V / V2V prefix conditioning (reference run_magi.py modes 2 / 3)
+        from .pipeline.magi_media import (encode_prefix_latents, load_media, process_image,
+                                          process_prefix_video)
+
+        if vae is None:
+            import dataclasses
+
+            from .models.magi.vae import ViTVAE, ViTVAEConfig, tiny_vitvae_config
+
+            vcfg = tiny_vitvae_config() if args.tiny else ViTVAEConfig()
+            # the VAE's latent channels must match the DiT's latents
+            vae = ViTVAE(dataclasses.replace(vcfg, z_chans=mcfg.latent_channels), device=dev)
+        h = w = lat * vae.cfg.patch_size
+        if args.image:
+            frames = process_image(load_media(args.image)[0], h, w, args.aspect_policy)
+        else:
+            frames = process_prefix_video(load_media(args.video), args.fps, h, w,
+                                          aspect_policy=args.aspect_policy)
+        prefix = encode_prefix_latents(vae, frames, chunk_width=rt.chunk_width).to(dtype)
+
+    if args.t5 and args.prompt:
+        import glob
+
+        from transformers import AutoTokenizer
+
+        from .models.text.umt5 import (MagiT5Embedder, convert_t5_encoder_state_dict,
+                                       t5_v1_1_xxl_config)
+        from .pipeline.magi import magi_text_embeddings
+        from .utils.checkpoint import load_sharded_safetensors, load_torch_state_dict
+
+        # a tokenizer-only dir (no weight files) takes a random tower, with
+        # a note; a dir with weight files must load them or fail
+        t5_params = None
+        bins = sorted(glob.glob(os.path.join(args.t5, "*.bin")))
+        sts = glob.glob(os.path.join(args.t5, "*.safetensors"))
+        if not bins and not sts:
+            print(f"[t5] no weight files in {args.t5}; using random tower")
+        else:
+            sd = {}
+            for b in bins:
+                sd.update(load_torch_state_dict(b))
+            if sts:
+                sd.update(load_sharded_safetensors(args.t5))
+            t5_params = convert_t5_encoder_state_dict(sd, t5_v1_1_xxl_config(), device=dev)
+        emb = MagiT5Embedder(params=t5_params, device=dev,
+                             tokenizer=AutoTokenizer.from_pretrained(args.t5))
+        cap, cmask = magi_text_embeddings(args.prompt, embedder=emb)
+        del emb
+        cap = cap.float()
+        # pad the 120-token embedding to the model's caption_max_length
+        pad = mcfg.caption_max_length - cap.shape[1]
+        if pad > 0:
+            cap = torch.nn.functional.pad(cap, (0, 0, 0, pad))
+            cmask = torch.nn.functional.pad(cmask, (0, pad))
+    else:
+        cap = torch.zeros(1, mcfg.caption_max_length, mcfg.caption_channels, device=dev)
+        cmask = torch.ones(1, mcfg.caption_max_length, dtype=torch.int32, device=dev)
+
+    if args.output and vae is None:
+        print("note: --output needs --vae to decode; generating latents only")
+    pixels = []
+    for idx, chunk in pipe.generate_chunks(cap, cmask, chunk_num=args.chunks,
+                                           prefix_latents=prefix):
+        print(f"chunk {idx}: {tuple(chunk.shape)} "
+              f"finite={bool(torch.isfinite(chunk).all())}")
+        if vae is not None and args.output:
+            pixels.append(vae.decode(chunk))
+    if pixels and args.output:
+        # decode gives [-1, 1]; _save takes [0, 1]
+        _save(torch.cat(pixels, dim=1)[0] * 0.5 + 0.5, args.output)
+    return 0
+
+
 def main_stream(argv: Optional[List[str]] = None) -> int:
     p = _common_parser("Progressive / interactive streaming")
     p.add_argument("--segments", type=int, default=3)
@@ -202,7 +343,7 @@ def main_stream(argv: Optional[List[str]] = None) -> int:
 
 
 COMMANDS = {"self-forcing": main_self_forcing, "causvid": main_causvid,
-            "stream": main_stream}
+            "stream": main_stream, "magi": main_magi}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -215,8 +356,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"yet; see {NOT_PORTED[cmd]}")
     if cmd not in COMMANDS:
         raise SystemExit(f"inferix_tpu_torch.cli: unknown command {cmd!r}; the port "
-                         f"has {', '.join(COMMANDS)} (magi: {NOT_PORTED['magi']}; "
-                         f"vde: {NOT_PORTED['vde']})")
+                         f"has {', '.join(COMMANDS)} (vde: {NOT_PORTED['vde']})")
     return COMMANDS[cmd](argv[1:])
 
 

@@ -1,6 +1,6 @@
 """UMT5 / T5 text encoder in PyTorch (port of
-`inferix_tpu/models/text/umt5.py:1-357`; MAGI's `MagiT5Embedder` and its
-caption cleaning are not ported yet).
+`inferix_tpu/models/text/umt5.py`), with MAGI's `MagiT5Embedder` and its
+training-stage caption cleaning.
 
 Pre-norm T5 blocks with UNSCALED attention plus a relative position bias
 (one table per layer for UMT5, `shared_pos=False`; one table shared by all
@@ -236,6 +236,20 @@ def umt5_encode(params: Params, cfg: UMT5Config, ids: torch.Tensor,
     return _t5_norm({"w": params["norm"]["w"].to(dev)}, x)
 
 
+def _host_tower(params: Params, device: torch.device) -> Params:
+    """The tower's blocks, token embedding and shared bias table moved to
+    host memory (pinned when `device` is a card), for `stream_layers`."""
+    params = dict(params)
+    pin = device.type == "cuda"
+    for key in ("blocks", "token_embedding", "shared_pos_emb"):
+        if key in params:
+            params[key] = tree_map(
+                lambda a: a if a.device.type == "cpu" else
+                torch.empty(a.shape, dtype=a.dtype, pin_memory=pin).copy_(a),
+                params[key])
+    return params
+
+
 class WanTextEncoder:
     """Prompts -> padded text features [B, text_len, dim] (the reference's
     `WanTextEncoder`: tokenize, encode, zero the padded positions).
@@ -262,16 +276,7 @@ class WanTextEncoder:
             params = init_umt5_params(cfg, g, device=self.device, dtype=dtype)
         self.tokenizer = tokenizer
         self.stream_layers = stream_layers
-        if stream_layers:
-            params = dict(params)
-            pin = self.device.type == "cuda"
-            for key in ("blocks", "token_embedding", "shared_pos_emb"):
-                if key in params:
-                    params[key] = tree_map(
-                        lambda a: a if a.device.type == "cpu" else
-                        torch.empty(a.shape, dtype=a.dtype, pin_memory=pin).copy_(a),
-                        params[key])
-        self.params = params
+        self.params = _host_tower(params, self.device) if stream_layers else params
 
     def _tokenize(self, prompts):
         if self.tokenizer is None:
@@ -292,6 +297,185 @@ class WanTextEncoder:
         # zero the padded positions (the reference cuts at the sequence
         # lengths, then pads with zeros)
         return (feats * mask[..., None].to(feats.dtype)).to(self.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MAGI caption cleaning (reference magi/t5/t5_model.py:152-278)
+# ---------------------------------------------------------------------------
+
+_BAD_PUNCT_RE = None
+_URL_RES = None
+
+
+def _caption_res():
+    global _BAD_PUNCT_RE, _URL_RES
+    import re
+
+    if _BAD_PUNCT_RE is None:
+        _BAD_PUNCT_RE = re.compile(
+            r"[" + "#®•©™&@·º½¾¿¡§~" + r"\)" + r"\(" + r"\]" + r"\["
+            + r"\}" + r"\{" + r"\|" + "\\\\" + r"\/" + r"\*" + r"]{1,}")
+        _URL_RES = [
+            re.compile(
+                r"\b((?:https?:(?:\/{1,3}|[a-zA-Z0-9%])|[a-zA-Z0-9.\-]+[.]"
+                r"(?:com|co|ru|net|org|edu|gov|it)[\w/-]*\b\/?(?!@)))"),
+            re.compile(
+                r"\b((?:www:(?:\/{1,3}|[a-zA-Z0-9%])|[a-zA-Z0-9.\-]+[.]"
+                r"(?:com|co|ru|net|org|edu|gov|it)[\w/-]*\b\/?(?!@)))"),
+        ]
+    return _BAD_PUNCT_RE, _URL_RES
+
+
+def _basic_clean(text: str) -> str:
+    import html
+
+    try:
+        import ftfy
+
+        text = ftfy.fix_text(text)
+    except ImportError:
+        pass  # mojibake fixing is best-effort; the env may not ship ftfy
+    return html.unescape(html.unescape(text)).strip()
+
+
+def clean_caption(caption: str) -> str:
+    """The exact training-stage text cleaning (reference
+    `T5Embedder.clean_caption`, magi/t5/t5_model.py:167-278): url/nick/CJK
+    stripping, dash and quote normalization, id/filename removal,
+    punctuation squeezing."""
+    import re
+    import urllib.parse as ul
+
+    bad_punct, url_res = _caption_res()
+    caption = str(caption)
+    caption = ul.unquote_plus(caption)
+    caption = caption.strip().lower()
+    caption = re.sub("<person>", "person", caption)
+    for r in url_res:
+        caption = r.sub("", caption)
+    try:
+        from bs4 import BeautifulSoup
+
+        caption = BeautifulSoup(caption, features="html.parser").text
+    except ImportError:
+        caption = re.sub(r"<[^>]+>", "", caption)
+
+    caption = re.sub(r"@[\w\d]+\b", "", caption)
+    for rng in (r"[\u31c0-\u31ef]+", r"[\u31f0-\u31ff]+",
+                r"[\u3200-\u32ff]+", r"[\u3300-\u33ff]+",
+                r"[\u3400-\u4dbf]+", r"[\u4dc0-\u4dff]+",
+                r"[\u4e00-\u9fff]+"):
+        caption = re.sub(rng, "", caption)
+    caption = re.sub(
+        r"[\u002D\u058A\u05BE\u1400\u1806\u2010-\u2015\u2E17\u2E1A\u2E3A"
+        r"\u2E3B\u2E40\u301C\u3030\u30A0\uFE31\uFE32\uFE58\uFE63\uFF0D]+",
+        "-", caption)
+    caption = re.sub(r"[`´«»“”¨]", '"', caption)
+    caption = re.sub(r"[‘’]", "'", caption)
+    caption = re.sub(r"&quot;?", "", caption)
+    caption = re.sub(r"&amp", "", caption)
+    caption = re.sub(r"\d{1,3}\.\d{1,3}\.\d{1,3}\.\d{1,3}", " ", caption)
+    caption = re.sub(r"\d:\d\d\s+$", "", caption)
+    caption = re.sub(r"\\n", " ", caption)
+    caption = re.sub(r"#\d{1,3}\b", "", caption)
+    caption = re.sub(r"#\d{5,}\b", "", caption)
+    caption = re.sub(r"\b\d{6,}\b", "", caption)
+    caption = re.sub(
+        r"[\S]+\.(?:png|jpg|jpeg|bmp|webp|eps|pdf|apk|mp4)", "", caption)
+    caption = re.sub(r"[\"\']{2,}", r'"', caption)
+    caption = re.sub(r"[\.]{2,}", r" ", caption)
+    caption = bad_punct.sub(r" ", caption)
+    caption = re.sub(r"\s+\.\s+", r" ", caption)
+    regex2 = re.compile(r"(?:\-|\_)")
+    if len(regex2.findall(caption)) > 3:
+        caption = regex2.sub(" ", caption)
+    caption = _basic_clean(caption)
+    caption = re.sub(r"\b[a-zA-Z]{1,3}\d{3,15}\b", "", caption)
+    caption = re.sub(r"\b[a-zA-Z]+\d+[a-zA-Z]+\b", "", caption)
+    caption = re.sub(r"\b\d+[a-zA-Z]+\d+\b", "", caption)
+    caption = re.sub(r"(worldwide\s+)?(free\s+)?shipping", "", caption)
+    caption = re.sub(r"(free\s)?download(\sfree)?", "", caption)
+    caption = re.sub(r"\bclick\b\s(?:for|on)\s\w+", "", caption)
+    caption = re.sub(
+        r"\b(?:png|jpg|jpeg|bmp|webp|eps|pdf|apk|mp4)(\simage[s]?)?", "",
+        caption)
+    caption = re.sub(r"\bpage\s+\d+\b", "", caption)
+    caption = re.sub(
+        r"\b\d*[a-zA-Z]+\d+[a-zA-Z]+\d+[a-zA-Z\d]*\b", r" ", caption)
+    caption = re.sub(r"\b\d+\.?\d*[xх×]\d+\.?\d*\b", "", caption)
+    caption = re.sub(r"\b\s+\:\s+", r": ", caption)
+    caption = re.sub(r"(\D[,\./])\b", r"\1 ", caption)
+    caption = re.sub(r"\s+", " ", caption)
+    caption.strip()
+    caption = re.sub(r"^[\"\']([\w\W]+)[\"\']$", r"\1", caption)
+    caption = re.sub(r"^[\'\_,\-\:;]", r"", caption)
+    caption = re.sub(r"[\'\_,\-\:\-\+]$", r"", caption)
+    caption = re.sub(r"^\.\S+$", "", caption)
+    return caption.strip()
+
+
+def text_preprocessing(text: str, use_cleaning: bool = True) -> str:
+    """Cleaning applied TWICE like the training stage (t5_model.py:152-159);
+    without cleaning, lower+strip."""
+    if use_cleaning:
+        return clean_caption(clean_caption(text))
+    return text.lower().strip()
+
+
+class MagiT5Embedder:
+    """MAGI text tower: cleaned captions -> t5-v1_1-xxl encoder states
+    (reference `T5Embedder.get_text_embeddings`, magi/t5/t5_model.py:129-150:
+    max_length=120 padding + attention mask, embeddings from the encoder's
+    last hidden state).
+
+    tokenizer: a callable like a HF tokenizer (`tokenizer(texts,
+    max_length=, padding="max_length", truncation=True,
+    return_attention_mask=True, add_special_tokens=True,
+    return_tensors="np")` -> {"input_ids", "attention_mask"}); it runs on
+    the host. params None draws a tower from `generator` (default: a
+    generator on `device` seeded 0). stream_layers=True keeps the tower's
+    blocks in host memory and streams a layer at a time (`umt5_encode`)."""
+
+    def __init__(self, cfg: Optional[UMT5Config] = None,
+                 params: Optional[Params] = None, tokenizer=None,
+                 model_max_length: int = 120, dtype: torch.dtype = torch.bfloat16,
+                 use_text_preprocessing: bool = True,
+                 stream_layers: bool = False,
+                 device: str | torch.device = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        self.cfg = cfg if cfg is not None else t5_v1_1_xxl_config()
+        assert self.cfg.shared_pos, "MAGI uses t5-v1_1 (shared_pos=True)"
+        self.model_max_length = model_max_length
+        self.dtype = dtype
+        self.use_text_preprocessing = use_text_preprocessing
+        self.device = resolve_device(device)
+        if params is None:
+            g = generator or torch.Generator(device=self.device).manual_seed(0)
+            params = init_umt5_params(self.cfg, g, device=self.device, dtype=dtype)
+        self.tokenizer = tokenizer
+        self.stream_layers = stream_layers
+        self.params = _host_tower(params, self.device) if stream_layers else params
+
+    @torch.inference_mode()
+    def get_text_embeddings(self, texts):
+        """-> (embeddings [B, L, dim] in self.dtype, mask [B, L] int32), on
+        the device."""
+        texts = [text_preprocessing(t, self.use_text_preprocessing) for t in texts]
+        if self.tokenizer is None:
+            raise RuntimeError(
+                "no tokenizer configured — pass a HF tokenizer "
+                "(t5-v1_1-xxl spiece) or precomputed embeddings")
+        enc = self.tokenizer(
+            texts, max_length=self.model_max_length, padding="max_length",
+            truncation=True, return_attention_mask=True,
+            add_special_tokens=True, return_tensors="np")
+        ids = torch.as_tensor(np.asarray(enc["input_ids"]), dtype=torch.long,
+                              device=self.device)
+        mask = torch.as_tensor(np.asarray(enc["attention_mask"]), dtype=torch.int32,
+                               device=self.device)
+        embs = umt5_encode(self.params, self.cfg, ids, mask,
+                           stream_layers=self.stream_layers).to(self.dtype)
+        return embs, mask
 
 
 # ---------------------------------------------------------------------------

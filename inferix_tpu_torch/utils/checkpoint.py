@@ -1,6 +1,5 @@
 """Checkpoint loading: the reference's torch and safetensors files -> the
-port's parameter trees (port of the Wan half of
-`inferix_tpu/utils/checkpoint.py`, `:28-333`).
+port's parameter trees (port of `inferix_tpu/utils/checkpoint.py`).
 
 - `load_torch_state_dict`: a `.pt` / `.pth` file, memory-mapped, unwrapped
   from its `generator_ema` / `generator` / `model` / `state_dict` nest.
@@ -13,6 +12,9 @@ port's parameter trees (port of the Wan half of
   port's `CausalVAE`.
 - `convert_magi_state_dict` (`:334-451`): the reference MAGI `VideoDiTModel`
   state dict, bf16 or the fp8 distill-quant layout, -> the MAGI DiT tree.
+- `vitvae_config_from_ddconfig` / `convert_magi_vae_state_dict` /
+  `load_magi_vae` (`:452-569`): a MAGI ViT-VAE directory (`config.json` +
+  safetensors or `.bin`) -> the port's `ViTVAE`.
 
 Layouts converted: torch Linear [out, in] -> [in, out]; the patch Conv3d
 [dim, in, pt, ph, pw] -> [(pt ph pw in), dim]; VAE convs
@@ -418,3 +420,108 @@ def convert_magi_state_dict(sd: Dict[str, Any], cfg, dtype: torch.dtype = torch.
         params["blocks"] = tree_map(lambda *xs: _stack(list(xs)), *blocks)
     return tree_map(lambda x: x.to(dev, copy=True, memory_format=torch.contiguous_format),
                     params)
+
+
+# ---------------------------------------------------------------------------
+# MAGI ViT-VAE weights (learnable pos embeds + rotary)
+# ---------------------------------------------------------------------------
+
+_VITVAE_KEYS = ("video_size", "video_length", "patch_size", "patch_length", "in_chans",
+                "z_chans", "double_z", "embed_dim", "depth", "num_heads", "mlp_ratio",
+                "qkv_bias", "with_cls_token", "ln_in_attn", "use_rope", "use_final_proj",
+                "norm_code")
+
+
+def vitvae_config_from_ddconfig(dd: Dict[str, Any], **overrides):
+    """The reference checkpoint's `config.json` ddconfig -> ViTVAEConfig
+    (the ddconfig keys the reference `ViTVAE` reads; others are ignored)."""
+    from ..models.magi.vae import ViTVAEConfig
+
+    kwargs = {k: dd[k] for k in _VITVAE_KEYS if k in dd}
+    kwargs.update(overrides)
+    return ViTVAEConfig(**kwargs)
+
+
+def convert_magi_vae_state_dict(sd: Dict[str, Any], cfg,
+                                device: str | torch.device = "cuda") -> Params:
+    """The reference MAGI `ViTVAE` state dict -> the ViT-VAE tree
+    (`models.magi.vae`) on `device`, every leaf float32.
+
+    `pos_embed` [1, N+cls, D] and `cls_token` load verbatim (the rotary
+    tables have no parameters); the Conv3d patch embedding [D, C, pl, ps,
+    ps] flattens to the (C, pl, ph, pw)-ordered patch matmul [(C pl ph pw),
+    D]; the decoder's 3x3x3 `last_layer` Conv3d [O, I, kd, kh, kw]
+    transposes to channels-last DHWIO; linears [out, in] -> [in, out]; the
+    blocks are stacked on a leading [depth] axis. Converted on the host,
+    each leaf copied to the device once."""
+    dev = resolve_device(device)
+
+    def host(name) -> torch.Tensor:
+        return torch.as_tensor(sd[name]).detach().to("cpu", torch.float32)
+
+    def lin_t(name) -> Params:
+        p = {"w": host(f"{name}.weight").t()}
+        if f"{name}.bias" in sd:
+            p["b"] = host(f"{name}.bias")
+        return p
+
+    def ln_t(name) -> Params:
+        return {"w": host(f"{name}.weight"), "b": host(f"{name}.bias")}
+
+    def block_t(prefix) -> Params:
+        p = {"qkv": lin_t(f"{prefix}.attn.qkv"), "proj": lin_t(f"{prefix}.attn.proj"),
+             "norm2": ln_t(f"{prefix}.norm2"), "fc1": lin_t(f"{prefix}.mlp.fc1"),
+             "fc2": lin_t(f"{prefix}.mlp.fc2")}
+        if not cfg.ln_in_attn:
+            p["norm1"] = ln_t(f"{prefix}.norm1")
+        return p
+
+    def tower(side, first, last) -> Params:
+        blocks = [block_t(f"{side}.blocks.{i}") for i in range(cfg.depth)]
+        t = {**first, "pos_embed": host(f"{side}.pos_embed")[0],
+             "blocks": tree_map(lambda *xs: torch.stack(xs), *blocks),
+             "norm": ln_t(f"{side}.norm"), **last}
+        if cfg.with_cls_token:
+            t["cls_token"] = host(f"{side}.cls_token").reshape(-1)
+        return t
+
+    d = cfg.embed_dim
+    enc_patch = {"w": host("encoder.patch_embed.proj.weight").reshape(d, -1).t(),
+                 "b": host("encoder.patch_embed.proj.bias")}
+    enc = tower("encoder", {"patch": enc_patch}, {"last": lin_t("encoder.last_layer")})
+    dec_last = {"last_conv": {"w": host("decoder.last_layer.weight").permute(2, 3, 4, 1, 0),
+                              "b": host("decoder.last_layer.bias")}}
+    if cfg.use_final_proj:
+        dec_last["final_proj"] = lin_t("decoder.final_proj")
+        dec_last["final_norm"] = ln_t("decoder.final_norm")
+    dec = tower("decoder", {"proj_in": lin_t("decoder.proj_in")}, dec_last)
+    return tree_map(lambda x: x.to(dev, copy=True, memory_format=torch.contiguous_format),
+                    {"encoder": enc, "decoder": dec})
+
+
+def load_magi_vae(path: str, device: str | torch.device = "cuda", **config_overrides):
+    """A MAGI VAE checkpoint directory (diffusers layout: `config.json`,
+    its `ddconfig` or flat, and `diffusion_pytorch_model.safetensors` /
+    `model.safetensors`, read by `read_safetensors`, else
+    `diffusion_pytorch_model.bin` / `pytorch_model.bin`) -> a `ViTVAE` on
+    `device`."""
+    from ..models.magi.vae import ViTVAE
+
+    with open(os.path.join(path, "config.json")) as f:
+        conf = json.load(f)
+    cfg = vitvae_config_from_ddconfig(conf.get("ddconfig", conf), **config_overrides)
+    sd = None
+    for name in ("diffusion_pytorch_model.safetensors", "model.safetensors"):
+        p = os.path.join(path, name)
+        if os.path.exists(p):
+            sd = read_safetensors(p)
+            break
+    if sd is None:
+        for name in ("diffusion_pytorch_model.bin", "pytorch_model.bin"):
+            p = os.path.join(path, name)
+            if os.path.exists(p):
+                sd = load_torch_state_dict(p)
+                break
+    if sd is None:
+        raise FileNotFoundError(f"no weights found under {path}")
+    return ViTVAE(cfg, params=convert_magi_vae_state_dict(sd, cfg, device), device=device)

@@ -4,10 +4,16 @@ causvid and stream commands at `--tiny --cpu`, with and without
 writing an .npz whose frames equal, exactly, those of the port's pipeline
 run in this process with the same config and seed; each output's shape
 equal to the JAX CLI's for the same arguments (its values differ: the two
-packages draw other noise). `python -m inferix_tpu_torch.cli` dispatches
-like the JAX module; `magi` and `vde` exit with an error that names their
-roadmap item.
+packages draw other noise). The magi command at `--tiny --cpu` with a
+ViT-VAE directory written under tmp_path (config.json + safetensors): with
+the tiny defaults, with a `--config` JSON whose num_steps it keeps, as a
+module, and with `--image` on a PNG written here; its frames equal,
+exactly, those of a `MagiPipeline` walk decoded by the same VAE in this
+process. `python -m inferix_tpu_torch.cli` dispatches like the JAX module;
+`vde` and an unknown command exit with an error that names A14b.
 """
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -24,6 +30,7 @@ from inferix_tpu_torch.pipeline.causvid import CausVidPipeline
 from inferix_tpu_torch.pipeline.self_forcing import SelfForcingPipeline
 
 from test_checkpoint_and_text import _torch_causal_wan_sd
+from test_magi_vae_parity import TINY as TINY_VAE, make_vae_sd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT = "a scenic mountain valley"  # the CLI's default prompt
@@ -126,10 +133,109 @@ def test_module_dispatch(tmp_path, checkpoint):
                                   _in_process("self-forcing", checkpoint))
 
 
-@pytest.mark.parametrize("cmd,item", [("magi", "A12b"), ("vde", "A14b"), ("bogus", "A12b")])
+@pytest.mark.parametrize("cmd,item", [("vde", "A14b"), ("bogus", "A14b")])
 def test_commands_not_ported_name_the_roadmap(cmd, item):
     res = _module(cmd, "--tiny", "--cpu")
     assert res.returncode != 0 and res.stdout == ""
     assert "ROADMAP.md" in res.stderr and item in res.stderr, res.stderr
     with pytest.raises(SystemExit, match=item):
         cli.main([cmd])
+
+
+MAGI_ARGS = ["--chunks", "2", "--num-steps", "4", "--window-size", "2"]
+MAGI_CONFIG = {"model": {"num_layers": 2, "hidden_size": 128, "ffn_hidden_size": 256,
+                         "num_attention_heads": 4, "num_query_groups": 2, "kv_channels": 32,
+                         "caption_channels": 64, "caption_max_length": 8, "chunk_width": 2,
+                         "rope_max_seq_len": 64},
+               "runtime": {"cfg_number": 3, "num_steps": 4, "window_size": 2,
+                           "chunk_width": 2, "seed": 7}}
+
+
+@pytest.fixture(scope="module")
+def magi_vae_dir(tmp_path_factory):
+    """A tiny ViT-VAE (z 16, the tiny DiT's latent channels) as a reference
+    directory: config.json (ddconfig) + diffusion_pytorch_model.safetensors."""
+    from safetensors.torch import save_file
+
+    path = tmp_path_factory.mktemp("magi_vae")
+    cfg = dataclasses.replace(TINY_VAE, z_chans=16)
+    dd = {k: getattr(cfg, k) for k in ("video_size", "video_length", "patch_size",
+                                       "patch_length", "z_chans", "embed_dim", "depth",
+                                       "num_heads")}
+    (path / "config.json").write_text(json.dumps({"ddconfig": dd}))
+    save_file({k: v.contiguous() for k, v in make_vae_sd(cfg).items()},
+              str(path / "diffusion_pytorch_model.safetensors"))
+    return str(path)
+
+
+def _magi_in_process(vae_dir, config=None, image=None):
+    """The frames the magi command should write: the walk and the decode in
+    this process, with the command's config, seed and caption."""
+    from inferix_tpu_torch.models.magi.dit import tiny_magi_config
+    from inferix_tpu_torch.pipeline.magi import (MagiPipeline, MagiRuntimeConfig,
+                                                 magi_config_from_json)
+    from inferix_tpu_torch.pipeline.magi_media import (encode_prefix_latents, load_media,
+                                                       process_image)
+    from inferix_tpu_torch.utils.checkpoint import load_magi_vae
+
+    if config:
+        mcfg, rt = magi_config_from_json(config)
+        rt.seed = 42
+    else:
+        mcfg = tiny_magi_config()
+        rt = MagiRuntimeConfig(num_steps=4, window_size=2, seed=42, chunk_width=2)
+    pipe = MagiPipeline(mcfg, rt, latent_h=8, latent_w=8, max_chunks=4, dtype=torch.float32,
+                        device="cpu")
+    vae = load_magi_vae(vae_dir, device="cpu")
+    prefix = None
+    if image:
+        frames = process_image(load_media(image)[0], 32, 32, "fit")
+        prefix = encode_prefix_latents(vae, frames, chunk_width=rt.chunk_width)
+    cap = torch.zeros(1, mcfg.caption_max_length, mcfg.caption_channels)
+    cmask = torch.ones(1, mcfg.caption_max_length, dtype=torch.int32)
+    px = [vae.decode(c) for _, c in pipe.generate_chunks(cap, cmask, 2, prefix_latents=prefix)]
+    return latents_to_uint8((torch.cat(px, dim=1)[0] * 0.5 + 0.5).numpy())
+
+
+@pytest.mark.parametrize("with_config", [False, True], ids=["tiny", "config"])
+def test_magi_command_writes_the_pipeline_frames(tmp_path, magi_vae_dir, with_config):
+    """`magi --tiny --cpu --vae DIR`: the tiny defaults, or a --config JSON
+    (cfg 3, num_steps 4 kept: no --num-steps given)."""
+    path = str(tmp_path / "magi.npz")
+    argv = ["magi", "--tiny", "--cpu", "--vae", magi_vae_dir, "--output", path, "--chunks", "2"]
+    config = None
+    if with_config:
+        config = str(tmp_path / "magi_tiny.json")
+        with open(config, "w") as f:
+            json.dump(MAGI_CONFIG, f)
+        argv += ["--config", config]
+    else:
+        argv += MAGI_ARGS[2:]
+    assert cli.main(argv) == 0
+    got = np.load(path)["frames"]
+    # 2 chunks of 2 latent frames, 2 pixel frames each, at 8 x 4 = 32 pixels
+    assert got.dtype == np.uint8 and got.shape == (8, 32, 32, 3)
+    np.testing.assert_array_equal(got, _magi_in_process(magi_vae_dir, config))
+
+
+def test_magi_module_dispatch(tmp_path, magi_vae_dir):
+    res = _module("magi", "--tiny", "--cpu", "--vae", magi_vae_dir, *MAGI_ARGS,
+                  "--output", str(tmp_path / "magi.npz"))
+    assert res.returncode == 0, res.stderr
+    assert "chunk 1: (1, 2, 8, 8, 16) finite=True" in res.stdout
+    np.testing.assert_array_equal(np.load(tmp_path / "magi.npz")["frames"],
+                                  _magi_in_process(magi_vae_dir))
+
+
+def test_magi_image_prefix(tmp_path, magi_vae_dir):
+    """`--image` on a PNG written with imageio: the image encoded as one
+    prefix chunk, one chunk generated after it."""
+    imageio = pytest.importorskip("imageio")
+    png = str(tmp_path / "prefix.png")
+    imageio.imwrite(png, np.random.default_rng(3).integers(0, 256, (20, 24, 3)).astype(np.uint8))
+    path = str(tmp_path / "magi.npz")
+    assert cli.main(["magi", "--tiny", "--cpu", "--vae", magi_vae_dir, "--image", png,
+                     *MAGI_ARGS, "--output", path]) == 0
+    got = np.load(path)["frames"]
+    assert got.shape == (4, 32, 32, 3)
+    np.testing.assert_array_equal(got, _magi_in_process(magi_vae_dir, image=png))
