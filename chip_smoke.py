@@ -277,8 +277,27 @@ Phases, each timed on a line of its own:
                 seeded .pt, phase 30's VAE as config.json + safetensors), 2
                 chunks: exit 0, frames [48, 720, 720, 3] equal to the same run
                 in process.
+ 35. eval       - the evaluation path over the port's own clips, after phase
+                25: the self-forcing command again from phase 22's checkpoint
+                with --quant none and --quant fp8 (exit 0, frames [21, 480,
+                832, 3] uint8); `vde` of phase 25's W8A8 clip (--chunks 7)
+                equal to the in-process evaluate_video, every value finite;
+                `vde --compare` of the W8A8 and the fp8 clip against the
+                bf16 one equal to the in-process quality_delta (the deltas
+                printed, not gated: the weights are seeded); RAFTDynamicDegree
+                and AMTMotionSmoothness from seeded weight files in the
+                official layouts on the card (their default device) against
+                the same classes on the CPU over all 21 frames at 480x832,
+                float32 with TF32 off (RAFT_RTOL on each pair's score, the
+                moving fraction equal unless a pair is that near the
+                threshold, AMT_CODE_TOL on the interpolated codes), the TF32
+                gap printed, seconds and peak device bytes of each; the
+                native frame pipe built by g++ (21 frames into a ring of 8:
+                13 dropped, FIFO bit-equal), rgb_to_i420 bit-equal and
+                laplacian_var within LAPLACIAN_RTOL of their numpy
+                references, timed.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 after
-phase 27.)
+phase 27, phase 35 after phase 25.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -299,6 +318,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -310,11 +330,17 @@ import inferix_tpu_torch.models.wan.vae as vae_mod
 import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
+from inferix_tpu_torch import native as native_mod
 from inferix_tpu_torch.core.config import EngineConfig
 from inferix_tpu_torch.core.interactive import InteractiveSession
 from inferix_tpu_torch.core.media.streaming_backend import latents_to_uint8
 from inferix_tpu_torch.core.memory import tree_map
 from inferix_tpu_torch.core.types import DecodeMode, StreamingMode
+from inferix_tpu_torch.eval.amt import AMTS, smoothness_score
+from inferix_tpu_torch.eval.flow_metrics import register_flow_metrics
+from inferix_tpu_torch.eval.raft import RAFT
+from inferix_tpu_torch.eval.vbench_real import AMTMotionSmoothness, RAFTDynamicDegree
+from inferix_tpu_torch.eval.vde import evaluate_video, quality_delta
 from inferix_tpu_torch.kvcache.manager import KVCacheRequest
 from inferix_tpu_torch.models.text.clip_vision import (
     CLIPVisionConfig, clip_vision_encode, init_clip_vision_params)
@@ -5640,6 +5666,249 @@ def cli_phase(dev: torch.device, smi: str, ckpt_dir: str, out_dir: str) -> dict:
     return path
 
 
+EVAL_CHUNKS = 7          # phase 35: vde chunks of a 21-frame clip, 3 frames each
+EVAL_SEED = 35           # phase 35: the seeded RAFT and AMT-S weights
+EVAL_CPU_THREADS = 6     # phase 35: CPU threads of the reference scoring, beside the commands
+# Phase 35's card-against-CPU gates, float32 with TF32 off on both sides. A
+# 1e-7 relative perturbation of the inputs moved a pair's RAFT score by at
+# most 9e-8 relative on the CPU (480x832, 20 iterations, seeded weights) and
+# flipped 1.3e-5 of AMT-S's uint8 codes; the card's convolutions sum in other
+# orders, so the gates leave two to three orders of room over that noise.
+RAFT_RTOL = 1e-3         # each pair's mean top-5% flow magnitude, relative
+AMT_CODE_TOL = 1e-2      # mean |code difference| of the interpolated frames, in codes
+PIPE_CAPACITY = 8        # the frame pipe's ring, for the 21 frames of the clip
+LAPLACIAN_RTOL = 1e-9    # native laplacian_var against the numpy reference
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 in cuBLAS and cuDNN (PyTorch's defaults allow it in cuDNN), for
+    the gap printed beside the gated TF32-off run."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def write_eval_weights(out_dir: str) -> tuple:
+    """Seeded RAFT and AMT-S checkpoints in the official layouts: RAFT's keys
+    under DataParallel's `module.` prefix (raft-things.pth), AMT-S's under
+    "state_dict" (amt-s.pth)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(EVAL_SEED)
+        raft_sd, amt_sd = RAFT().state_dict(), AMTS().state_dict()
+    raft_path, amt_path = (os.path.join(out_dir, n) for n in ("raft-things.pth", "amt-s.pth"))
+    torch.save({f"module.{k}": v for k, v in raft_sd.items()}, raft_path)
+    torch.save({"state_dict": amt_sd}, amt_path)
+    return raft_path, amt_path
+
+
+def cpu_eval_scores(raft_path: str, amt_path: str, video: np.ndarray) -> dict:
+    """RAFT's pair scores and AMT-S's interpolations of `video` on the CPU,
+    from the same files through the same classes."""
+    torch.set_num_threads(EVAL_CPU_THREADS)
+    raft = RAFTDynamicDegree(raft_path, device="cpu")
+    amt = AMTMotionSmoothness(amt_path, device="cpu")
+    t1 = time.perf_counter()
+    scores, thres = raft.pair_scores(video)
+    t2 = time.perf_counter()
+    actual, interp = amt.motion.interpolate(video)
+    return {"scores": scores, "thres": thres, "actual": actual, "interp": interp,
+            "raft_s": t2 - t1, "amt_s": time.perf_counter() - t2}
+
+
+def vde_start(args: list) -> tuple:
+    """`python -m inferix_tpu_torch.cli vde <args>` started in a subprocess."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.Popen([sys.executable, "-m", "inferix_tpu_torch.cli", "vde", *args],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), args
+
+
+def vde_wait(job: tuple) -> tuple:
+    """(the JSON the vde command wrote, its wall seconds); exit 0 gated."""
+    proc, t1, args = job
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t1
+    print(f"cli: vde {' '.join(args)}: exit {proc.returncode} in {wall:.3f} s", flush=True)
+    if proc.returncode != 0:
+        print(err[-4000:], flush=True)
+    gate(proc.returncode == 0, f"the vde command exited {proc.returncode}: {args}")
+    with open(args[args.index("--output") + 1]) as f:
+        return json.load(f), wall
+
+
+def unit_frames(path: str) -> np.ndarray:
+    return np.load(path)["frames"].astype(np.float32) / 255.0
+
+
+def eval_phase(dev: torch.device, smi: str, ckpt_dir: str, out_dir: str) -> None:
+    """Phase 35: the evaluation path. The vde command over phase 25's W8A8
+    clip (sf.npz, 21 frames at 480x832) equal to the in-process
+    evaluate_video; the self-forcing command again in bf16 and with fp8
+    weights (phase 22's checkpoint, the same seed and CLI_FRAMES), and
+    `vde --compare` of the W8A8 and the fp8 clip against the bf16 one equal
+    to the in-process quality_delta; RAFTDynamicDegree and
+    AMTMotionSmoothness from seeded weight files on the card (their
+    default device) against the same classes on the CPU, timed, with peak
+    device bytes; the native frame pipe. Host work runs beside the card's:
+    the first vde command beside the card's scoring, the CPU scoring in a
+    thread beside the commands, the in-process references in threads beside
+    the compare commands."""
+    t0 = time.perf_counter()
+    sf = os.path.join(out_dir, "sf.npz")
+    clip = np.load(sf)["frames"]
+    video = clip.astype(np.float32) / 255.0
+    jobs, threads = [], torch.get_num_threads()
+    pool = ThreadPoolExecutor(max_workers=4)
+    try:
+        jobs.append(vde_start([sf, "--chunks", str(EVAL_CHUNKS), "--output",
+                               os.path.join(out_dir, "vde.json")]))
+        raft_path, amt_path = write_eval_weights(out_dir)
+        raft, amt = RAFTDynamicDegree(raft_path), AMTMotionSmoothness(amt_path)
+        gate(all(p.is_cuda for p in raft.model.parameters())
+             and all(p.is_cuda for p in amt.motion.model.parameters()),
+             "the metric classes' default device is not the card")
+        raft.pair_scores(video[:2])  # warm-up: cuDNN handles, lazy modules
+        amt.motion.interpolate(video[:3])
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (scores, thres), raft_s = timed(lambda: raft.pair_scores(video))
+        raft_peak = peak_since(dev, base)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (actual, interp), amt_s = timed(lambda: amt.motion.interpolate(video))
+        amt_peak = peak_since(dev, base)
+        with tf32_on():
+            scores_tf32, _ = raft.pair_scores(video)
+            _, interp_tf32 = amt.motion.interpolate(video)
+        del raft, amt
+        torch.cuda.empty_cache()
+        n_pairs, n_interp = len(scores), len(interp)
+        print(f"eval: RAFT (20 iterations) on the card {raft_s:.3f} s a clip of {n_pairs} pairs, "
+              f"{raft_s / n_pairs * 1e3:.3f} ms a pair, peak {raft_peak / 1e9:.3f} GB above the "
+              f"resident; AMT-S {amt_s:.3f} s for {n_interp} interpolations, "
+              f"{amt_s / n_interp * 1e3:.3f} ms each, peak {amt_peak / 1e9:.3f} GB; {smi}",
+              flush=True)
+        finite = all(np.isfinite(s) for s in scores + scores_tf32)
+        print(f"eval: RAFT's flow finite with the seeded weights: {finite}", flush=True)
+        gate(finite, "RAFT's flow is not finite with the seeded weights")
+        cpu = pool.submit(cpu_eval_scores, raft_path, amt_path, video)
+
+        clips = {"w8a8": sf}
+        for quant in ("none", "fp8"):
+            clips[quant] = os.path.join(out_dir, f"sf_{quant}.npz")
+            frames, _ = cli(["self-forcing", "--model-path", ckpt_dir, "--quant", quant,
+                             "--frames", str(CLI_FRAMES), "--output", clips[quant]])
+            gate(frames.dtype == np.uint8 and frames.shape == clip.shape,
+                 f"the --quant {quant} clip is {frames.shape} {frames.dtype}, not {clip.shape}")
+        drift, vde_s = vde_wait(jobs.pop(0))
+
+        register_flow_metrics()
+        units = {q: unit_frames(p) for q, p in clips.items()}
+        inproc = {"drift": pool.submit(evaluate_video, units["w8a8"], n_chunks=EVAL_CHUNKS)}
+        cmp_jobs = {}
+        for q in ("w8a8", "fp8"):
+            cmp_jobs[q] = vde_start([clips[q], "--compare", clips["none"], "--chunks",
+                                     str(EVAL_CHUNKS), "--output",
+                                     os.path.join(out_dir, f"delta_{q}.json")])
+            jobs.append(cmp_jobs[q])
+            inproc[q] = pool.submit(quality_delta, units[q], units["none"], n_chunks=EVAL_CHUNKS)
+        want = {k: f.result() for k, f in inproc.items()}
+        deltas = {}
+        for q, job in cmp_jobs.items():
+            deltas[q], _ = vde_wait(job)
+            jobs.remove(job)
+        ref = cpu.result()
+    finally:
+        for proc, _, _ in jobs:
+            proc.kill()
+            proc.wait()
+        pool.shutdown(wait=True)
+        torch.set_num_threads(threads)
+
+    print(f"eval: vde --chunks {EVAL_CHUNKS} of the W8A8 clip ({vde_s:.3f} s of wall, beside "
+          f"the card's scoring): {json.dumps(drift[sf])}", flush=True)
+    gate(all(np.isfinite(v) for v in drift[sf].values()), "a vde drift is not finite")
+    gate(drift == {sf: want["drift"]},
+         "the vde command's JSON differs from the in-process evaluate_video")
+    for q in ("w8a8", "fp8"):
+        print(f"eval: quality delta of the {q} clip against the bf16 clip (seeded random "
+              f"weights): {json.dumps(deltas[q][clips[q]])}", flush=True)
+        gate(deltas[q] == {clips[q]: want[q]},
+             f"vde --compare of the {q} clip differs from the in-process quality_delta")
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(scores, ref["scores"])]
+    rel_tf32 = [abs(a - b) / abs(b) for a, b in zip(scores_tf32, ref["scores"])]
+    moving = sum(s > thres for s in scores) / n_pairs
+    moving_cpu = sum(s > ref["thres"] for s in ref["scores"]) / n_pairs
+    near = [i for i, s in enumerate(ref["scores"]) if abs(s - thres) <= RAFT_RTOL * thres]
+    print(f"eval: RAFT pair scores (mean top-5% flow, px) card {min(scores):.4f} to "
+          f"{max(scores):.4f}, threshold {thres:.4f}, moving {moving:.4f} (CPU {moving_cpu:.4f}, "
+          f"{ref['raft_s']:.3f} s on {EVAL_CPU_THREADS} threads); card against CPU max rel "
+          f"{max(rel):.3e} (tol {RAFT_RTOL:g}), with TF32 {max(rel_tf32):.3e} (not gated); "
+          f"pairs within the tolerance of the threshold: {near}", flush=True)
+    gate(max(rel) <= RAFT_RTOL and ref["thres"] == thres,
+         "RAFT's pair scores on the card differ from the CPU's")
+    gate(moving == moving_cpu or bool(near), "RAFT's moving fraction differs from the CPU's")
+    diff = np.abs(interp.astype(np.int16) - ref["interp"].astype(np.int16))
+    diff_tf32 = np.abs(interp_tf32.astype(np.int16) - ref["interp"].astype(np.int16))
+    smooth, smooth_cpu = smoothness_score(actual, interp), smoothness_score(ref["actual"],
+                                                                              ref["interp"])
+    print(f"eval: AMT-S motion smoothness card {smooth:.9f}, CPU {smooth_cpu:.9f} "
+          f"({ref['amt_s']:.3f} s); interpolated codes differing {float((diff > 0).mean()):.3e} "
+          f"of them, max {int(diff.max())}, mean {float(diff.mean()):.3e} codes "
+          f"(tol {AMT_CODE_TOL:g}); with TF32 {float((diff_tf32 > 0).mean()):.3e} differing, "
+          f"mean {float(diff_tf32.mean()):.3e} (not gated)", flush=True)
+    gate(np.array_equal(actual, ref["actual"]) and float(diff.mean()) <= AMT_CODE_TOL
+         and abs(smooth - smooth_cpu) <= AMT_CODE_TOL / 255.0,
+         "AMT-S's interpolations on the card differ from the CPU's")
+
+    t1 = time.perf_counter()
+    native_mod.get_lib()
+    build_s = time.perf_counter() - t1
+    pipe = native_mod.FramePipe(PIPE_CAPACITY, *clip.shape[1:])
+    t1 = time.perf_counter()
+    pushed = [pipe.push(f) for f in clip]
+    push_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    popped = [pipe.pop() for _ in range(PIPE_CAPACITY + 1)]
+    pop_s = time.perf_counter() - t1
+    fifo = popped[-1] is None and all(np.array_equal(p, f)
+                                      for p, f in zip(popped[:PIPE_CAPACITY], clip))
+    gate(pushed == [True] * PIPE_CAPACITY + [False] * (len(clip) - PIPE_CAPACITY)
+         and pipe.dropped == len(clip) - PIPE_CAPACITY and fifo and len(pipe) == 0,
+         "the frame pipe's FIFO order or drop count is wrong")
+    (i420, i420_s), (i420_ref, i420_ref_s) = (
+        timed_host(lambda fn=fn: [fn(f) for f in clip])
+        for fn in (native_mod.rgb_to_i420, native_mod.rgb_to_i420_reference))
+    (lap, lap_s), (lap_ref, lap_ref_s) = (
+        timed_host(lambda fn=fn: [fn(f) for f in clip])
+        for fn in (native_mod.laplacian_var, native_mod.laplacian_var_reference))
+    i420_equal = all(np.array_equal(a, b) for fa, fb in zip(i420, i420_ref)
+                     for a, b in zip(fa, fb))
+    lap_rel = max(abs(a - b) / abs(b) for a, b in zip(lap, lap_ref))
+    print(f"eval: frame pipe built in {build_s:.3f} s; {len(clip)} frames pushed into a ring of "
+          f"{PIPE_CAPACITY}: {pipe.dropped} dropped, FIFO {fifo}, {push_s / len(clip) * 1e3:.3f} "
+          f"ms a push, {pop_s / (PIPE_CAPACITY + 1) * 1e3:.3f} ms a pop; rgb_to_i420 "
+          f"{i420_s / len(clip) * 1e3:.3f} ms a frame (numpy {i420_ref_s / len(clip) * 1e3:.3f}), "
+          f"bit-equal {i420_equal}; laplacian_var {lap_s / len(clip) * 1e3:.3f} ms (numpy "
+          f"{lap_ref_s / len(clip) * 1e3:.3f}), max rel {lap_rel:.3e} (tol {LAPLACIAN_RTOL:g}); "
+          f"{smi}", flush=True)
+    gate(i420_equal and lap_rel <= LAPLACIAN_RTOL,
+         "the native rgb_to_i420 / laplacian_var differ from their references")
+    phase("eval", t0)
+
+
+def timed_host(fn):
+    """(fn(), seconds) on the host clock."""
+    t1 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t1
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=2,
@@ -5732,6 +6001,7 @@ def main() -> None:
         del seeded
         p24 = resume_phase(dev, smi, out_dir)
         p25 = cli_phase(dev, smi, ckpt_dir, out_dir)
+        eval_phase(dev, smi, ckpt_dir, out_dir)
     print(f"launches on phases 16-25: umt5 pipeline {p17}; cfg {p18}; causvid {p19}; "
           f"continuous {p20}; i2v-14B {p21}; files {p22}; wholeclip {p23}; resume {p24}; "
           f"cli (in-process) {p25}", flush=True)

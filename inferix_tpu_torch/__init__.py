@@ -42,6 +42,9 @@ _LAZY = {
     "FlowUniPCMultistep": "inferix_tpu_torch.models.schedulers.fm_solvers",
     "FlowDPMSolverMultistep": "inferix_tpu_torch.models.schedulers.fm_solvers",
     "DiffusionAnalyzer": "inferix_tpu_torch.profiling.diffusion_analyzer",
+    "register_flow_metrics": "inferix_tpu_torch.eval.flow_metrics",
+    "evaluate_video": "inferix_tpu_torch.eval.vde",
+    "quality_delta": "inferix_tpu_torch.eval.vde",
 }
 
 __all__ = sorted(_LAZY)

@@ -1,19 +1,21 @@
 """Command-line entry points of the port: the commands of
-`inferix_tpu/cli.py` but `vde` (self-forcing, causvid, stream, magi).
+`inferix_tpu/cli.py` (self-forcing, causvid, stream, magi, vde).
 
     python -m inferix_tpu_torch.cli self-forcing --model-path DIR --quant int8
     python -m inferix_tpu_torch.cli stream --backend file --segments 3
     python -m inferix_tpu_torch.cli causvid --rollouts 3
     python -m inferix_tpu_torch.cli magi --config examples/configs/magi_4p5b.json \
         --load DIT.pt --vae VAE_DIR --output out.mp4
+    python -m inferix_tpu_torch.cli vde out.npz --chunks 7 --output vde.json
+    python -m inferix_tpu_torch.cli vde w8a8.npz --compare bf16.npz --chunks 7
 
 or the console scripts `inferix-tpu-torch-self-forcing`,
-`inferix-tpu-torch-causvid`, `inferix-tpu-torch-stream` and
-`inferix-tpu-torch-magi`. Every command runs on the card, and fails when
-there is none; `--cpu` runs the plain PyTorch path on the CPU instead.
-`--tiny` runs the tiny test config in float32, the full config runs in
-bf16. The `vde` command is not ported yet: asked for, it exits with an
-error that names its roadmap item. Nothing heavy is imported before a
+`inferix-tpu-torch-causvid`, `inferix-tpu-torch-stream`,
+`inferix-tpu-torch-magi` and `inferix-tpu-torch-vde`. Every generating
+command runs on the card, and fails when there is none; `--cpu` runs the
+plain PyTorch path on the CPU instead. `--tiny` runs the tiny test config in
+float32, the full config runs in bf16. `vde` scores videos on the host
+(numpy metrics) and needs no card. Nothing heavy is imported before a
 command runs.
 """
 from __future__ import annotations
@@ -25,10 +27,6 @@ import time
 from typing import List, Optional
 
 import numpy as np
-
-# Commands of the JAX CLI that the port does not have yet, and where they
-# stand in ROADMAP.md.
-NOT_PORTED = {"vde": "ROADMAP.md A14b (eval/ and the vde command)"}
 
 
 def _common_parser(desc: str) -> argparse.ArgumentParser:
@@ -342,8 +340,59 @@ def main_stream(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
+def _load_unit_video(path: str) -> np.ndarray:
+    """A video file's frames as float32, uint8 codes scaled to [0, 1]."""
+    from .core.media.video_utils import load_video
+
+    video = load_video(path).astype("float32")
+    return video / 255.0 if video.max() > 1.5 else video
+
+
+def main_vde(argv: Optional[List[str]] = None) -> int:
+    """LV-Bench VDE evaluation (reference `LV-Bench/vde.py` entry): score
+    videos with the metric factory (with the optical-flow and MUSIQ-style
+    plug-ins) and report each metric's drift, or with --compare each
+    metric's quality delta against a second video."""
+    p = argparse.ArgumentParser(
+        description="Video-Drift-Error evaluation (LV-Bench parity)")
+    p.add_argument("videos", nargs="+", help="video files (.mp4/.npz)")
+    p.add_argument("--chunks", type=int, default=10)
+    p.add_argument("--metrics", type=str, default=None,
+                   help="comma-separated metric names (default: all)")
+    p.add_argument("--weight-type", choices=["linear", "log"],
+                   default="linear")
+    p.add_argument("--compare", type=str, default=None,
+                   help="second video: report per-metric quality delta "
+                        "instead of drift")
+    p.add_argument("--output", type=str, default=None, help="JSON out path")
+    args = p.parse_args(argv)
+
+    from .eval.flow_metrics import register_flow_metrics
+    from .eval.vde import evaluate_video, quality_delta
+
+    register_flow_metrics()
+    metrics = args.metrics.split(",") if args.metrics else None
+    other = _load_unit_video(args.compare) if args.compare else None
+    results = {}
+    for path in args.videos:
+        video = _load_unit_video(path)
+        if other is not None:
+            results[path] = quality_delta(video, other, n_chunks=args.chunks,
+                                          metrics=metrics)
+        else:
+            results[path] = evaluate_video(video, n_chunks=args.chunks,
+                                           metrics=metrics,
+                                           weight_type=args.weight_type)
+    out = json.dumps(results, indent=1)
+    print(out)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(out)
+    return 0
+
+
 COMMANDS = {"self-forcing": main_self_forcing, "causvid": main_causvid,
-            "stream": main_stream, "magi": main_magi}
+            "stream": main_stream, "magi": main_magi, "vde": main_vde}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -351,12 +400,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     defaults to self-forcing."""
     argv = sys.argv[1:] if argv is None else list(argv)
     cmd = argv[0] if argv else "self-forcing"
-    if cmd in NOT_PORTED:
-        raise SystemExit(f"inferix_tpu_torch.cli: the {cmd!r} command is not ported "
-                         f"yet; see {NOT_PORTED[cmd]}")
     if cmd not in COMMANDS:
-        raise SystemExit(f"inferix_tpu_torch.cli: unknown command {cmd!r}; the port "
-                         f"has {', '.join(COMMANDS)} (vde: {NOT_PORTED['vde']})")
+        raise SystemExit(f"inferix_tpu_torch.cli: unknown command {cmd!r}; the "
+                         f"commands are {', '.join(COMMANDS)}")
     return COMMANDS[cmd](argv[1:])
 
 

@@ -121,7 +121,8 @@ class RuntimeConfig:
 
 
 # JAX keys with no counterpart here, dropped by from_dict: the TPU cache
-# layouts and grids (span_grid, kv_head_major, kv_alloc_pad), the rope's MXU
+# layouts and grids (span_grid; kv_head_major and kv_alloc_pad, which
+# ROADMAP.md A14c would port and move out of this list), the rope's MXU
 # formulation (rope_mxu), the unrolled XLA layer loop (unroll_layers), the
 # fused act-quant switch (the port always takes the fused chain), and
 # first_last_layer_excluded (read by neither package).

@@ -37,7 +37,7 @@ bf16 rate; float operands elsewhere (the CPU tests) take a float32 matmul.
 
 Not ported here: the mesh / sequence-parallel branches (`sp_mode` "cso" /
 "ulysses") and `magi_forward_pp` (ROADMAP.md A13), the head-major and
-padded cache layouts (A14b). `make_magi_statics` refuses them by name.
+padded cache layouts (A14c). `make_magi_statics` refuses them by name.
 Where the JAX package threads an immutable cache, the port writes the
 cache's buffers in place and returns the same tensors.
 """
@@ -154,7 +154,7 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
     overrides the cache's storage dtype (torch.float8_e4m3fn: scale-free
     e4m3); quantize_kv=True selects the int8 cache with per-(token, head)
     scales. The mesh and `sp_mode` "cso" / "ulysses" (ROADMAP.md A13) and
-    the TPU cache layouts `kv_head_major` / `kv_alloc_multiple` (A14b) are
+    the TPU cache layouts `kv_head_major` / `kv_alloc_multiple` (A14c) are
     refused, never dropped."""
     if sp_mode not in ("none", "cso", "ulysses"):
         raise ValueError(f"MAGI sp_mode must be 'none', 'cso' or 'ulysses', "
@@ -166,7 +166,7 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
     if kv_head_major or kv_alloc_multiple:
         raise NotImplementedError(
             "kv_head_major / kv_alloc_multiple: the head-major and padded "
-            "cache layouts are not ported (ROADMAP.md A14b)")
+            "cache layouts are not ported (ROADMAP.md A14c)")
     geo = MagiGeometry(latent_h, latent_w, cfg.chunk_width, cfg.patch_size)
     spec = KVCacheSpec(
         num_layers=cfg.num_layers, batch=batch,

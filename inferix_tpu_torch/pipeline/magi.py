@@ -86,7 +86,7 @@ class MagiRuntimeConfig:
     # the TPU's span-sized kernel grids: no effect here, the CUDA kernels
     # walk only each chunk's span
     span_grid: bool = True
-    # the TPU's head-major and padded cache layouts: True is refused (A14b)
+    # the TPU's head-major and padded cache layouts: True is refused (A14c)
     kv_head_major: bool = False
     kv_alloc_pad: bool = False
     # the TPU's switch for the fused act-quant chain: no effect here, the

@@ -9,8 +9,13 @@ ViT-VAE directory written under tmp_path (config.json + safetensors): with
 the tiny defaults, with a `--config` JSON whose num_steps it keeps, as a
 module, and with `--image` on a PNG written here; its frames equal,
 exactly, those of a `MagiPipeline` walk decoded by the same VAE in this
-process. `python -m inferix_tpu_torch.cli` dispatches like the JAX module;
-`vde` and an unknown command exit with an error that names A14b.
+process. The vde command on an .npz written under tmp_path (uint8 frames, and
+float frames in [0, 1]): its JSON equal, exactly, to the JAX `main_vde`'s on
+the same file, with the default metrics, `--metrics`, `--weight-type log`
+and `--compare` (both are host numpy; a fixture restores both packages'
+metric registries, which the commands write). `python -m inferix_tpu_torch.cli`
+dispatches like the JAX module; an unknown command exits with an error that
+names the commands.
 """
 import dataclasses
 import json
@@ -133,13 +138,71 @@ def test_module_dispatch(tmp_path, checkpoint):
                                   _in_process("self-forcing", checkpoint))
 
 
-@pytest.mark.parametrize("cmd,item", [("vde", "A14b"), ("bogus", "A14b")])
-def test_commands_not_ported_name_the_roadmap(cmd, item):
-    res = _module(cmd, "--tiny", "--cpu")
+def test_unknown_command_names_the_commands():
+    res = _module("bogus", "--tiny", "--cpu")
     assert res.returncode != 0 and res.stdout == ""
-    assert "ROADMAP.md" in res.stderr and item in res.stderr, res.stderr
-    with pytest.raises(SystemExit, match=item):
-        cli.main([cmd])
+    assert "unknown command 'bogus'" in res.stderr, res.stderr
+    assert "self-forcing, causvid, stream, magi, vde" in res.stderr, res.stderr
+    with pytest.raises(SystemExit, match="commands are .*vde"):
+        cli.main(["bogus"])
+
+
+@pytest.fixture
+def vde_files(tmp_path):
+    """Two 12-frame clips: uint8 codes, and float32 frames in [0, 1]; both
+    packages' metric registries restored after the test."""
+    from inferix_tpu.eval import vde as jvde
+    from inferix_tpu_torch.eval import vde as tvde
+
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 256, (40, 48, 3)).astype(np.float32)
+    a = np.stack([np.roll(base, 2 * i, axis=1)[:32] for i in range(12)]).astype(np.uint8)
+    b = np.clip(a / 255.0 + 0.05 * rng.standard_normal(a.shape), 0, 1).astype(np.float32)
+    np.savez(tmp_path / "a.npz", frames=a)
+    np.savez(tmp_path / "b.npz", frames=b)
+    saved = [(reg, dict(reg)) for reg in (tvde.BUILTIN_METRICS, jvde.BUILTIN_METRICS)]
+    yield str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    for reg, old in saved:
+        reg.clear()
+        reg.update(old)
+
+
+@pytest.mark.parametrize("flags", [[], ["--metrics", "brightness,clarity,motion_flow"],
+                                   ["--weight-type", "log"], ["--compare"]],
+                         ids=["default", "metrics", "log", "compare"])
+def test_vde_matches_jax_main_vde(tmp_path, vde_files, flags, capsys):
+    from inferix_tpu import cli as jcli
+
+    a, b = vde_files
+    flags = flags + [b] if flags == ["--compare"] else flags
+    results = []
+    for main, out in ((lambda argv: cli.main(["vde", *argv]), "port.json"),
+                      (jcli.main_vde, "jax.json")):
+        assert main([a, b, "--chunks", "3", *flags, "--output", str(tmp_path / out)]) == 0
+        results.append(json.loads((tmp_path / out).read_text()))
+    assert results[0] == results[1]
+    assert list(results[0]) == [a, b]
+    assert json.loads(capsys.readouterr().out.split("\n}\n")[0] + "\n}") == results[0]
+    names = ({"brightness", "clarity", "motion_flow"} if "--metrics" in flags else
+             {"brightness", "clarity", "motion", "aesthetic", "dynamic", "subject_consistency",
+              "background_consistency", "clarity_musiq", "motion_flow", "dynamic_flow"})
+    for scores in results[0].values():
+        assert set(scores) == names
+        assert all(np.isfinite(v) for v in scores.values())
+    if "--compare" in flags:
+        assert all(v == 0.0 for v in results[0][b].values())
+
+
+def test_vde_module_dispatch(tmp_path, vde_files):
+    a, _ = vde_files
+    res = _module("vde", a, "--chunks", "4", "--metrics", "brightness,clarity",
+                  "--output", str(tmp_path / "vde.json"))
+    assert res.returncode == 0, res.stderr
+    from inferix_tpu_torch.eval.vde import evaluate_video
+
+    frames = np.load(a)["frames"].astype(np.float32) / 255.0
+    want = {a: evaluate_video(frames, n_chunks=4, metrics=["brightness", "clarity"])}
+    assert json.loads((tmp_path / "vde.json").read_text()) == json.loads(res.stdout) == want
 
 
 MAGI_ARGS = ["--chunks", "2", "--num-steps", "4", "--window-size", "2"]

@@ -239,8 +239,8 @@ def test_gqa_fold_rep1_and_layout():
     (dict(sp_mode="cso"), NotImplementedError, "A13"),
     (dict(sp_mode="ulysses"), NotImplementedError, "A13"),
     (dict(sp_mode="ring"), ValueError, "sp_mode"),
-    (dict(kv_head_major=True), NotImplementedError, "A14b"),
-    (dict(kv_alloc_multiple=2048), NotImplementedError, "A14b"),
+    (dict(kv_head_major=True), NotImplementedError, "A14c"),
+    (dict(kv_alloc_multiple=2048), NotImplementedError, "A14c"),
 ])
 def test_make_magi_statics_refusals(kw, exc, match):
     _, tcfg = _cfgs("tiny")

@@ -275,8 +275,8 @@ def test_magi_config_from_json(name):
     (dict(mesh=object()), {}, "A13"),
     ({}, dict(cp_strategy="cso"), "A13"),
     ({}, dict(cp_strategy="ulysses"), "A13"),
-    ({}, dict(kv_head_major=True), "A14b"),
-    ({}, dict(kv_alloc_pad=True), "A14b"),
+    ({}, dict(kv_head_major=True), "A14c"),
+    ({}, dict(kv_alloc_pad=True), "A14c"),
     (dict(tile=True), {}, "A13"),
     (dict(decode_devices=["cuda:1"]), {}, "A13"),
 ])

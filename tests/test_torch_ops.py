@@ -200,3 +200,12 @@ def test_default_entry_points_raise_without_a_card():
                  lambda: build_rope_tables(32), lambda: FlowMatchSchedule.create()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the evaluation models: the loaders and the metric classes, before any file is read
+    from inferix_tpu_torch.eval.amt import load_amt_s
+    from inferix_tpu_torch.eval.raft import load_raft
+    from inferix_tpu_torch.eval.vbench_real import AMTMotionSmoothness, RAFTDynamicDegree
+    for call in (lambda: load_raft("raft-things.pth"), lambda: load_amt_s("amt-s.pth"),
+                 lambda: RAFTDynamicDegree("raft-things.pth"),
+                 lambda: AMTMotionSmoothness("amt-s.pth")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
