@@ -296,8 +296,27 @@ Phases, each timed on a line of its own:
                 13 dropped, FIFO bit-equal), rgb_to_i420 bit-equal and
                 laplacian_var within LAPLACIAN_RTOL of their numpy
                 references, timed.
-(Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 after
-phase 27, phase 35 after phase 25.)
+ 36. sp         - the cache's layouts and sequence parallelism: B1 (bf16,
+                e4m3) and B2 over a head-major layer read as its
+                token-major view, bit-equal to the token-major call (out
+                and lse; full cache and B=2 rows) and timed beside it; B1 /
+                B2 with return_lse where a row has kv_len 0 (out 0, lse the
+                plain version's); Wan2.1-1.3B at full width and depth, 2
+                blocks, bf16 and int8 caches, kv_head_major + kv_alloc_pad
+                bit-equal to the switches off (latents and cache); a
+                MAGI-4.5B window forward on phase 27's tree with both
+                layouts bit-equal to the token-major one (run right after
+                phase 27); then two gloo ranks on this card (RankPool, every
+                exchange staged through host tensors) each generating the
+                same 2 blocks at sp 2 in ulysses, ring_pass_q and
+                ring_pass_kv over the bf16 cache and ring_pass_q over the
+                head-major padded int8 cache: the ranks' latents bit-equal
+                to each other and within SP_RTOL of the single-rank run, the
+                launches a block per rank equal to what the island's code
+                implies, seconds a block, sp_comm_bytes_per_layer and the
+                bytes each rank sent and staged.
+(Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 and
+36's MAGI forward after phase 27, phase 35 after phase 25.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -331,7 +350,7 @@ import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
 from inferix_tpu_torch import _build
 from inferix_tpu_torch import native as native_mod
-from inferix_tpu_torch.core.config import EngineConfig
+from inferix_tpu_torch.core.config import EngineConfig, ParallelConfig
 from inferix_tpu_torch.core.interactive import InteractiveSession
 from inferix_tpu_torch.core.media.streaming_backend import latents_to_uint8
 from inferix_tpu_torch.core.memory import tree_map
@@ -355,7 +374,7 @@ from inferix_tpu_torch.models.wan.causal_dit import (
     dit_forward_teacher_forcing, fuse_qkv_params, layer_params, block_forward, patch_embed,
     precompute_crossattn_cache, time_embeddings)
 from inferix_tpu_torch.kvcache.cache import (FP8_MAX, KVCache, KVCacheSpec, init_kv_cache,
-                                             quantize_kv_block, valid_mask)
+                                             quantize_kv_block, token_major, valid_mask)
 from inferix_tpu_torch.models.magi.dit import (
     MagiModelConfig, init_magi_params, magi_forward, magi_forward_uncond,
     magi_forward_window_scan, make_magi_statics, split_gated_fc1, sync_cache_rows)
@@ -378,6 +397,7 @@ from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
+from inferix_tpu_torch.parallel.launch import RankPool
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.magi import MagiPipeline, MagiVideoPipeline, magi_config_from_json
@@ -645,16 +665,18 @@ def main_path_config(blocks: int, w8a8: bool = False) -> EngineConfig:
     return cfg
 
 
-def main_path_setup(dev: torch.device, cfg: EngineConfig):
+def main_path_setup(dev: torch.device, cfg: EngineConfig, mesh=None, w8a8=None):
     """Random weights, text K/V and initial noise from seed 0 (the same
-    weights for bf16 and W8A8: a W8A8 config quantizes them). Returns
+    weights for bf16 and W8A8: a W8A8 config quantizes them; w8a8=False
+    keeps them bf16 under a quant section that only asks for the int8
+    cache), on this rank of `mesh` when one is given. Returns
     (SemiARGenerator, text K/V, noise [1, F, H, W, C], torch.Generator)."""
     m, r = cfg.model, cfg.runtime
     g = torch.Generator(device=dev).manual_seed(0)
     params = init_params(m, g, device=dev, dtype=torch.bfloat16)
-    if cfg.quant.enabled:
+    if cfg.quant.enabled if w8a8 is None else w8a8:
         params = quantize_params(params, cfg.quant)
-    gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev)
+    gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev, mesh=mesh)
     context = torch.randn(1, m.text_len, m.text_dim, generator=g,
                           device=dev).to(torch.bfloat16)
     xattn = gen.encode_text_context(context)
@@ -4824,6 +4846,7 @@ def magi_phases(dev: torch.device, smi: str) -> dict:
     print(f"magi kernels: worst max_abs by kernel {worst}", flush=True)
     phase("magi kernels", t0)
     params, walk, inputs, launches = magi_4p5b_phase(dev, smi)
+    add_counts(launches, magi_layout_check(dev, params, inputs))
     vae = vitvae_phase(dev, smi)
     pipe, cap, mask = magi_pipeline_phase(dev, smi, params, vae)
     add_counts(launches, pipe)
@@ -5902,6 +5925,281 @@ def eval_phase(dev: torch.device, smi: str, ckpt_dir: str, out_dir: str) -> None
     phase("eval", t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the cache's head-major and padded layouts (A14c) and Wan
+# sequence parallel over two ranks of the one card (A13a)
+# ---------------------------------------------------------------------------
+
+SP_BLOCKS = 2            # phase 36: blocks of each sequence-parallel run
+SP_SIZE = 2              # ranks, two processes on the one card over gloo
+SP_RUNS = (("ulysses", "bf16"), ("ring_pass_q", "bf16"), ("ring_pass_kv", "bf16"),
+           ("ring_pass_q", "int8"))  # the int8 run head-major and padded
+# Each rank's latents against the single-rank port's, in norm. The ranks run
+# the linears over half the block's rows, B1 / B2 over half the heads
+# (ulysses) or over each slot slice with a log-sum-exp merge (the ring
+# modes): other GEMM tilings, other tail splits, other bf16 roundings,
+# carried through 2 blocks x 5 forwards x 30 layers; the continuous phase's
+# stream-against-itself gate (STREAM_RTOL) is the same kind of gap.
+SP_RTOL = 5e-2
+SP_THREADS = 2           # CPU threads of a rank
+SP_TIMEOUT = 900         # seconds a rank may take for one run
+
+
+def layout_kernel_case(dev: torch.device) -> list:
+    """B1 (bf16, e4m3) and B2 over a head-major layer [B, H, S, D] read as
+    its token-major view, bit-equal to the token-major call (out and lse)
+    at the full cache and at B=2 rows; both timed beside the token-major
+    call. Then the kv_len 0 gate: B1 / B2 with return_lse where a row has
+    no live token. Returns the printed lines' results."""
+    g = torch.Generator(device=dev).manual_seed(36)
+    q = torch.randn(2, SQ, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, SKV, H, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(2, SKV, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv_block(k)
+    vq, vs = quantize_kv_block(v)
+    kinds = {"bf16": (k, v, None, None), "e4m3": (k.to(FP8), v.to(FP8), None, None),
+             "int8": (kq, vq, ks, vs)}
+    before = all_counts()
+    results = []
+    for name, (kk, vv, kss, vss) in kinds.items():
+        def call(kt, vt, kst, vst, n, b=1):
+            if kst is None:
+                return flash_attention_prefix(q[:b], kt[:b], vt[:b], n, return_lse=True)
+            return flash_attention_prefix_quant(q[:b], kt[:b], vt[:b], kst[:b], vst[:b], n,
+                                                return_lse=True)
+        hm = [x.transpose(1, 2).contiguous() if x is not None else None
+              for x in (kk, vv, kss, vss)]
+        views = [x.transpose(1, 2) if x is not None else None for x in hm]
+        rows = torch.tensor([SKV, 14040], device=dev)
+        same = True
+        for n, b in ((SKV, 1), (rows, 2)):
+            o1, l1 = call(kk, vv, kss, vss, n, b)
+            o2, l2 = call(*views, n, b)
+            same = same and torch.equal(o1, o2) and torch.equal(l1, l2)
+        ms_tm = time_ms(lambda: call(kk, vv, kss, vss, SKV))
+        ms_hm = time_ms(lambda: call(*views, SKV))
+        # kv_len 0: a B=2 call whose row 0 has no live token, and a B=1 call
+        zero = torch.tensor([0, SQ], device=dev)
+        o0, l0 = call(kk, vv, kss, vss, zero, 2)
+        o1, l1 = call(kk, vv, kss, vss, 0)
+        torch.cuda.synchronize()
+        ref_fn = (flash_attention_prefix_reference if kss is None else
+                  functools.partial(flash_attention_prefix_quant_reference,
+                                    k_scale=kss[:2], v_scale=vss[:2]))
+        r0, rl0 = ref_fn(q[:2], kk[:2], vv[:2], kv_len=zero, return_lse=True)
+        live_ok, _ = check_attention_case(f"phase 36 {name} kv_len [0, {SQ}] live row",
+                                          o0[1:], l0[1:], r0[1:], rl0[1:])
+        dead_ok = (not o0[0].any().item() and not o1.any().item()
+                   and (l0[0] - rl0[0]).abs().max().item() <= LSE_ATOL
+                   and (l1[0] - rl0[0]).abs().max().item() <= LSE_ATOL)
+        print(f"phase 36 {name}: head-major view bit-equal to token-major (out, lse; full "
+              f"cache and B=2 rows [{SKV}, 14040]): {same}; full cache {ms_tm:.4f} ms "
+              f"token-major, {ms_hm:.4f} ms head-major; kv_len 0: out 0 "
+              f"{not o0[0].any().item() and not o1.any().item()}, lse "
+              f"{l0[0].min().item():.4f}..{l0[0].max().item():.4f} (plain "
+              f"{rl0[0].min().item():.4f}; the islands skip such a launch and take -inf)",
+              flush=True)
+        gate(same and live_ok and dead_ok, f"phase 36 {name} head-major / kv_len 0 gates")
+        results.append((name, ms_tm, ms_hm))
+    restore_counts(before)
+    return results
+
+
+def layout_config(kv: str, on: bool) -> EngineConfig:
+    cfg = main_path_config(SP_BLOCKS)
+    cfg.runtime.kv_head_major = cfg.runtime.kv_alloc_pad = on
+    if kv == "int8":
+        cfg.quant.enabled = cfg.quant.quantize_kv_cache = True
+    return cfg
+
+
+def sp_config(mode: str, kv: str) -> EngineConfig:
+    cfg = layout_config(kv, kv == "int8")
+    cfg.parallel = ParallelConfig(sp=SP_SIZE, sp_mode=mode)
+    return cfg
+
+
+def run_blocks(dev, cfg: EngineConfig, mesh=None) -> dict:
+    """main_path_setup's seed-0 weights, text and noise through `generate`
+    (on this rank of `mesh`): the latents on the host, and per block the
+    seconds and the launches."""
+    gen, xattn, noise, g = main_path_setup(dev, cfg, mesh=mesh, w8a8=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {"secs": [], "launches": [], "sent": [], "staged": []}
+    marks = [time.perf_counter()]
+
+    def on_block(x0, bi):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        out["secs"].append(marks[-1] - marks[-2])
+        out["launches"].append(since_reset())
+        reset_counts()
+        if mesh is not None:
+            out["sent"].append(mesh.sent_bytes)
+            out["staged"].append(mesh.staged_bytes)
+
+    latents, cache = gen.generate(noise, xattn, generator=g, block_callback=on_block)
+    torch.cuda.synchronize()
+    out["latents"] = latents.float().cpu().numpy()
+    out["comm_layer"] = gen.sp_comm_bytes
+    return out, cache, gen
+
+
+def sp_rank_run(mesh, mode: str, kv: str) -> dict:
+    """One phase-36 run on a rank: SP_BLOCKS blocks of the seed-0 1.3B over
+    the mesh (the rank's own processes' counters and clocks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.sent_bytes = mesh.staged_bytes = 0
+    out, cache, gen = run_blocks(mesh.device, sp_config(mode, kv), mesh)
+    out["cache_bytes"] = sum(f.numel() * f.element_size() for f in cache if f is not None)
+    out["shard"] = dataclasses.astuple(gen.statics.shard)
+    del cache, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_expected(mode: str, kv: str, spec, rank: int, forwards: int, layers: int) -> list:
+    """The launches a block that the island's code implies for `rank`:
+    ulysses one B1 / B2 a layer-forward; pass-q one a hop while the rank's
+    own slot slice has a live token; pass-kv one for each rank's slice that
+    has one; the int8 cache's K and V quantized (B4) on each rank's rows."""
+    per = spec.slots // SP_SIZE
+    attn = "flash_attention_prefix_quant" if kv == "int8" else "flash_attention_prefix"
+    want = []
+    for bi in range(SP_BLOCKS):
+        live = min((bi + 1) * SQ, spec.max_tokens)
+        lives = [max(0, min(live - o * per, per)) for o in range(SP_SIZE)]
+        if mode == "ulysses":
+            n = 1
+        elif mode == "ring_pass_q":
+            n = SP_SIZE if lives[rank] else 0
+        else:
+            n = sum(1 for x in lives if x)
+        w = {attn: n * forwards * layers} if n else {}
+        if kv == "int8":
+            w["quantize_rows_int8"] = 2 * forwards * layers
+        want.append(w)
+    return want
+
+
+def magi_layout_check(dev: torch.device, params: dict, inputs: tuple) -> dict:
+    """Phase 36's MAGI part, on phase 27's tree: one 4-chunk window forward
+    (the schedule's step MAGI_WHOLE_AT, a fresh cache) with the head-major
+    and padded layouts, velocity and cache bit-equal to the token-major
+    forward. Returns its launches."""
+    cfg = magi_config("4p5b")
+    x0, caps = inputs
+    cap, mask = caps[0], caps[1]
+    sched = ChunkSchedule(MagiScheduleConfig(**MAGI_WALK))
+    t_vals = torch.tensor(np.asarray(sched.timesteps(MAGI_WHOLE_AT), np.float32),
+                          device=dev)[None]
+    n = t_vals.shape[1]
+    outs = []
+    reset_counts()
+    for on in (False, True):
+        statics = make_magi_statics(cfg, 1, *MAGI_720, MAGI_WALK["chunk_num"],
+                                    kv_head_major=on, kv_alloc_multiple=2048 if on else 0)
+        cache = init_kv_cache(statics.spec, dev)
+        cw = statics.geo.chunk_width
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v, cache = magi_forward(params, statics, None, x0[:, :n * cw], t_vals,
+                                cap[0].expand(n, -1, -1)[None], mask[0].expand(n, -1)[None],
+                                cache, 0, sched.kv_ranges(MAGI_WHOLE_AT, False))
+        torch.cuda.synchronize()
+        outs.append((v, cache, statics.spec, time.perf_counter() - t1))
+    launches = since_reset()
+    (v0, c0, s0, t0), (v1, c1, s1, t1) = outs
+    live = s0.max_tokens
+    same_v = torch.equal(v0, v1)
+    same_c = all(torch.equal(a, token_major(b, True, axis=2)[:, :, :live])
+                 and not token_major(b, True, axis=2)[:, :, live:].any()
+                 for a, b in zip(c0, c1) if a is not None)
+    print(f"phase 36 magi-4.5B window forward of {n} chunks, head-major cache of "
+          f"{s1.slots} slots ({live} live) vs token-major: velocity bit-equal {same_v}, "
+          f"cache bit-equal {same_c}; {t0:.3f} s token-major, {t1:.3f} s head-major; "
+          f"launches {launches}", flush=True)
+    gate(same_v and same_c, "phase 36 MAGI layouts")
+    del outs, c0, c1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sp_phase(dev: torch.device, smi: str, tmp: str) -> dict:
+    """Phase 36: the layouts' kernel gates, Wan with the layouts on against
+    off (bf16 and int8 caches), and the four sequence-parallel runs on two
+    gloo ranks of this card against the single-rank runs. Returns the
+    launches of its paths, the ranks' included."""
+    t0 = time.perf_counter()
+    layout_kernel_case(dev)
+    print(f"phase 36 layout kernels: {time.perf_counter() - t0:.3f} s", flush=True)
+    total, refs = {}, {}
+    for kv in ("bf16", "int8"):
+        runs = {}
+        for on in (False, True):
+            out, cache, gen = run_blocks(dev, layout_config(kv, on))
+            runs[on] = (out, [f for f in cache if f is not None], gen.statics.spec)
+            for c in out["launches"]:
+                add_counts(total, c)
+            del cache, gen
+        (off, c_off, s_off), (on_, c_on, s_on) = runs[False], runs[True]
+        live = s_off.max_tokens
+        same_lat = np.array_equal(off["latents"], on_["latents"])
+        same_c = all(torch.equal(a, token_major(b, True, axis=2)[:, :, :live])
+                     and not token_major(b, True, axis=2)[:, :, live:].any()
+                     for a, b in zip(c_off, c_on))
+        print(f"phase 36 wan-1.3B {kv} cache, {SP_BLOCKS} blocks, kv_head_major + "
+              f"kv_alloc_pad ({s_on.slots} slots) vs off: latents bit-equal {same_lat}, cache "
+              f"bit-equal {same_c}; s a block off {[round(s, 3) for s in off['secs']]}, on "
+              f"{[round(s, 3) for s in on_['secs']]}; launches a block on "
+              f"{on_['launches']}", flush=True)
+        gate(same_lat and same_c and off["launches"] == on_["launches"],
+             f"phase 36 wan layouts ({kv})")
+        refs[kv] = (on_["latents"], s_on)
+        del runs, c_off, c_on
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    base = layout_config("bf16", False)
+    m, forwards = base.model, len(base.runtime.denoising_step_list) + 1
+    first = {}
+    with RankPool(SP_SIZE, "gloo", f"file://{os.path.join(tmp, 'sp_store')}",
+                  device=str(dev), threads=SP_THREADS, timeout=SP_TIMEOUT) as pool:
+        print(f"phase 36 {SP_SIZE} gloo ranks on {dev}: {time.perf_counter() - t1:.3f} s to "
+              f"start; every exchange is staged through host tensors (gloo takes no CUDA "
+              f"tensor)", flush=True)
+        for mode, kv in SP_RUNS:
+            t2 = time.perf_counter()
+            res = pool.run(sp_rank_run, mode, kv)
+            wall = time.perf_counter() - t2
+            ref, spec = refs[kv]
+            lats = [torch.from_numpy(r["latents"]) for r in res]
+            errs = [rel_err(x, torch.from_numpy(ref)) for x in lats]
+            same = torch.equal(lats[0], lats[1])
+            ok = same and all(e <= SP_RTOL for e in errs) and all(
+                torch.isfinite(x).all().item() for x in lats)
+            for rank, r in enumerate(res):
+                want = sp_expected(mode, kv, spec, rank, forwards, m.num_layers)
+                ok = ok and r["launches"] == want
+                for c in r["launches"]:
+                    add_counts(total, c)
+                print(f"phase 36 sp {mode} {kv} rank {rank} (shard {r['shard']}, "
+                      f"{r['cache_bytes'] / 1e9:.3f} GB of cache): s a block "
+                      f"{[round(s, 3) for s in r['secs']]}; launches a block {r['launches']} "
+                      f"(the code implies {want}); bytes sent by the end of each block "
+                      f"{r['sent']}, host-staged {r['staged']}", flush=True)
+            other = first.setdefault(kv, (mode, lats[0]))
+            print(f"phase 36 sp {mode} {kv}: sp_comm_bytes_per_layer {res[0]['comm_layer']} "
+                  f"(the JAX formula, one layer a forward); ranks' latents bit-equal {same}; "
+                  f"rel err to the single-rank port {[f'{e:.3e}' for e in errs]} (tol "
+                  f"{SP_RTOL:g}); bit-equal to the {other[0]} run "
+                  f"{torch.equal(lats[0], other[1])}; {wall:.3f} s for the run", flush=True)
+            gate(ok, f"phase 36 sp {mode} {kv}")
+    phase("sp (36)", t0)
+    return total
+
+
 def timed_host(fn):
     """(fn(), seconds) on the host clock."""
     t1 = time.perf_counter()
@@ -6010,6 +6308,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     magi = magi_phases(dev, smi)
     add_counts(pipe, {k: v for k, v in magi.items() if k != "flash_attention_prefix_fp8"})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        p36 = sp_phase(dev, smi, tmp)
+    print(f"launches on phase 36 (the parent's and both ranks'): {p36}", flush=True)
+    add_counts(pipe, p36)
     kv_entries[1]["launches"] += magi.get("flash_attention_prefix_fp8", 0)
     fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]

@@ -1,16 +1,17 @@
 """The port's own copy of the engine configuration.
 
-Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `QuantConfig`,
-`RuntimeConfig`, `EngineConfig`, `tiny_test_config`) with the same names and
-defaults, cut to the fields this port reads. It is a copy, not an import: the port never
-imports the JAX package.
+Mirrors `inferix_tpu/core/config.py` (`ModelConfig`, `ParallelConfig`,
+`QuantConfig`, `RuntimeConfig`, `EngineConfig`, `tiny_test_config`) with the
+same names and defaults, cut to the fields this port reads. It is a copy,
+not an import: the port never imports the JAX package.
 
 `EngineConfig.from_dict` loads what the JAX package's `EngineConfig.to_dict`
-writes. The JAX keys that name a TPU layout or an XLA switch the port does
+writes. The JAX keys that name a TPU grid or an XLA switch the port does
 not have (`IGNORED_KEYS`) are taken by name and dropped; keys whose value the
-port hard-wires (`FIXED_KEYS`) must hold that value; the `parallel` section
-must describe one device (the port is single-device). Any other unknown key
-raises KeyError, as in the JAX package.
+port hard-wires (`FIXED_KEYS`) must hold that value. The `parallel` section
+takes sequence parallelism (`sp` > 1 with an `sp_mode`); `tp`, `dp` and `pp`
+above 1 are refused by name. Any other unknown key raises KeyError, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -57,6 +58,39 @@ class ModelConfig:
         if self.local_attn_size == -1:
             return self.max_attention_frames
         return self.local_attn_size
+
+
+SP_MODES = ("ulysses", "ring", "ring_pass_q", "ring_pass_kv", "auto")
+
+
+@dataclasses.dataclass
+class ParallelConfig:
+    """The parallel layout; a copy of `inferix_tpu/core/config.py:ParallelConfig`.
+
+    The port runs sequence parallelism (`parallel/`): `sp` ranks, one
+    process each, with `sp_mode` "ulysses", "ring" / "ring_pass_q" or
+    "ring_pass_kv" choosing the attention island; "auto" (or any mode at
+    sp = 1) runs no island, as in the JAX generator. Tensor, data and
+    pipeline parallelism are not ported: `tp`, `dp` or `pp` above 1 raises
+    NotImplementedError naming the ROADMAP.md item that ports it."""
+
+    dp: int = 1
+    sp: int = 1
+    tp: int = 1
+    pp: int = 1
+    sp_mode: str = "ulysses"
+
+    def __post_init__(self):
+        for axis, item in (("tp", "A13b"), ("dp", "A13b"), ("pp", "A13c")):
+            if getattr(self, axis) != 1:
+                raise NotImplementedError(
+                    f"parallel.{axis} = {getattr(self, axis)}: the port runs sequence "
+                    f"parallelism only ({axis} is ROADMAP.md {item})")
+        if self.sp < 1:
+            raise ValueError(f"parallel.sp must be >= 1, got {self.sp}")
+        if self.sp_mode not in SP_MODES:
+            raise ValueError(f"parallel.sp_mode must be one of {SP_MODES}, got "
+                             f"{self.sp_mode!r}")
 
 
 @dataclasses.dataclass
@@ -118,18 +152,21 @@ class RuntimeConfig:
     latent_height: int = 60
     latent_width: int = 104
     batch_size: int = 1
+    # the cache's layouts (`kvcache/cache.py`): [L, B, H, S, D] storage, and
+    # the slots padded to a multiple of 2048 (never written or attended)
+    kv_head_major: bool = False
+    kv_alloc_pad: bool = False
 
 
-# JAX keys with no counterpart here, dropped by from_dict: the TPU cache
-# layouts and grids (span_grid; kv_head_major and kv_alloc_pad, which
-# ROADMAP.md A14c would port and move out of this list), the rope's MXU
-# formulation (rope_mxu), the unrolled XLA layer loop (unroll_layers), the
-# fused act-quant switch (the port always takes the fused chain), and
-# first_last_layer_excluded (read by neither package).
+# JAX keys with no counterpart here, dropped by from_dict: the TPU's span
+# grid (span_grid), the rope's MXU formulation (rope_mxu), the unrolled XLA
+# layer loop (unroll_layers), the fused act-quant switch (the port always
+# takes the fused chain), and first_last_layer_excluded (read by neither
+# package).
 IGNORED_KEYS = {
     "model": ("unroll_layers",),
     "quant": ("fused_act_quant", "first_last_layer_excluded"),
-    "runtime": ("span_grid", "kv_head_major", "kv_alloc_pad", "rope_mxu"),
+    "runtime": ("span_grid", "rope_mxu"),
 }
 # JAX keys whose value the port hard-wires: any other value raises.
 FIXED_KEYS = {"model": {"qk_norm": True, "independent_first_frame": False}}
@@ -159,31 +196,19 @@ def _build(klass, section: str, sub: Optional[Dict[str, Any]]):
     return klass(**kwargs)
 
 
-def _check_single_device(parallel: Optional[Dict[str, Any]]) -> None:
-    """The JAX `parallel` section is dropped when it describes one device;
-    a mesh of more raises (the parallel layer is not ported)."""
-    for k, v in (parallel or {}).items():
-        if k in ("dp", "sp", "tp", "pp"):
-            if v != 1:
-                raise NotImplementedError(
-                    f"parallel.{k} = {v}: the port runs on one device (the "
-                    "parallel layer is not ported)")
-        elif k != "sp_mode":
-            raise KeyError(f"Unknown config key {k!r} for ParallelConfig")
-
-
 @dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     model_path: Optional[str] = None
     profile: bool = False
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
-        _check_single_device(d.get("parallel"))
         return cls(
+            parallel=_build(ParallelConfig, "parallel", d.get("parallel")),
             model=_build(ModelConfig, "model", d.get("model")),
             quant=_build(QuantConfig, "quant", d.get("quant")),
             runtime=_build(RuntimeConfig, "runtime", d.get("runtime")),

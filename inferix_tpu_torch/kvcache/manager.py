@@ -138,7 +138,7 @@ class KVCacheManager:
             x[layer_idx].zero_()
 
     def _check_token_axis_api(self, name: str) -> None:
-        if getattr(self.spec, "head_major", False):
+        if self.spec.head_major:
             raise NotImplementedError(
                 f"KVCacheManager.{name} indexes the token axis at position "
                 "2; head-major caches are an engine-forward layout — use "

@@ -1,6 +1,6 @@
 """MAGI-1 VideoDiT in PyTorch (port of `inferix_tpu/models/magi/dit.py`,
 the single-device branches: bf16 / fp8-distill / W8A8 weights over a bf16,
-e4m3 or int8 window cache).
+e4m3 or int8 window cache, token-major or head-major, padded or not).
 
 The layer is the reference's PARALLEL attention design:
 
@@ -36,8 +36,10 @@ is exact and the sums are float32, the JAX float32 dot's arithmetic, at the
 bf16 rate; float operands elsewhere (the CPU tests) take a float32 matmul.
 
 Not ported here: the mesh / sequence-parallel branches (`sp_mode` "cso" /
-"ulysses") and `magi_forward_pp` (ROADMAP.md A13), the head-major and
-padded cache layouts (A14c). `make_magi_statics` refuses them by name.
+"ulysses", ROADMAP.md A13b) and `magi_forward_pp` (A13c).
+`make_magi_statics` refuses them by name. A head-major window cache is read
+through its token-major views (`kvcache.cache.token_major`), by the
+kernels through their strides.
 Where the JAX package threads an immutable cache, the port writes the
 cache's buffers in place and returns the same tensors.
 """
@@ -51,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.device import resolve_device
-from ...kvcache.cache import KVCache, KVCacheSpec, write_block
+from ...kvcache.cache import KVCache, KVCacheSpec, padded_tokens, token_major, write_block
 from ...ops.act_quant import quantize_rows_int8
 from ...ops.flash_attention import flash_attention_gqa, flash_attention_gqa_quant
 from ...ops.norms import layer_norm
@@ -153,27 +155,26 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
     """The window cache of `max_chunks` chunks and the geometry. kv_dtype
     overrides the cache's storage dtype (torch.float8_e4m3fn: scale-free
     e4m3); quantize_kv=True selects the int8 cache with per-(token, head)
-    scales. The mesh and `sp_mode` "cso" / "ulysses" (ROADMAP.md A13) and
-    the TPU cache layouts `kv_head_major` / `kv_alloc_multiple` (A14c) are
-    refused, never dropped."""
+    scales; kv_head_major stores it [L, B, Hkv, S, D]; kv_alloc_multiple
+    pads its slots up to a multiple (0: not padded). The mesh and `sp_mode`
+    "cso" / "ulysses" (ROADMAP.md A13b) are refused, never dropped."""
     if sp_mode not in ("none", "cso", "ulysses"):
         raise ValueError(f"MAGI sp_mode must be 'none', 'cso' or 'ulysses', "
                          f"got {sp_mode!r}")
     if mesh is not None or sp_mode != "none":
         raise NotImplementedError(
-            f"mesh / sp_mode={sp_mode!r}: the parallel layer is not ported "
-            f"(ROADMAP.md A13)")
-    if kv_head_major or kv_alloc_multiple:
-        raise NotImplementedError(
-            "kv_head_major / kv_alloc_multiple: the head-major and padded "
-            "cache layouts are not ported (ROADMAP.md A14c)")
+            f"mesh / sp_mode={sp_mode!r}: MAGI's context parallelism is not ported "
+            f"(ROADMAP.md A13b)")
+    if kv_alloc_multiple < 0:
+        raise ValueError(f"kv_alloc_multiple must be >= 0, got {kv_alloc_multiple}")
     geo = MagiGeometry(latent_h, latent_w, cfg.chunk_width, cfg.patch_size)
+    max_tokens = max_chunks * geo.chunk_tokens
     spec = KVCacheSpec(
-        num_layers=cfg.num_layers, batch=batch,
-        max_tokens=max_chunks * geo.chunk_tokens,
+        num_layers=cfg.num_layers, batch=batch, max_tokens=max_tokens,
         num_kv_heads=cfg.num_query_groups, head_dim=cfg.kv_channels,
         dtype=kv_dtype if kv_dtype is not None else dtype,
-        quantized=quantize_kv)
+        quantized=quantize_kv, head_major=kv_head_major,
+        alloc_tokens=padded_tokens(max_tokens, kv_alloc_multiple))
     return MagiStatics(cfg=cfg, spec=spec, geo=geo)
 
 
@@ -514,6 +515,7 @@ def _magi_layer(
     else:
         fields = write_block(spec, layer_cache[0], layer_cache[1], k, v,
                              current_start, *(layer_cache[2:] if spec.quantized else ()))
+        fields = tuple(token_major(f, spec.head_major) for f in fields)
         outs = []
         for ci in range(n_chunks):
             qi = q[:, ci * ct:(ci + 1) * ct]
@@ -675,6 +677,7 @@ def sync_cache_rows(spec: KVCacheSpec, cache: KVCache, start: int, length: int,
     the cond_pre row's KV persists). Returns the same cache."""
     for f in cache:
         if f is not None:
+            f = token_major(f, spec.head_major, axis=2)
             f[:, dst_row, start:start + length].copy_(f[:, src_row, start:start + length])
     return cache
 

@@ -1,7 +1,8 @@
 """Block-causal Wan DiT in PyTorch (port of
-`inferix_tpu/models/wan/causal_dit.py`, the single-device branches, t2v and
-i2v, bf16, W8A8 and fp8 weight-only, over a bf16, int8 or fp8 KV cache with a
-global or rolling window, one start for the batch or one a stream).
+`inferix_tpu/models/wan/causal_dit.py`: t2v and i2v, bf16, W8A8 and fp8
+weight-only, over a bf16, int8 or fp8 KV cache, token-major or head-major,
+padded or not, with a global or rolling window, one start for the batch or
+one a stream; on one device or, with a mesh, sequence parallel).
 
 Patch embedding, per-frame AdaLN time modulation, rope with a start-frame
 offset, self-attention over the KV cache, cached text cross-attention (plus
@@ -18,6 +19,13 @@ block linear through a quantized GEMM: with int8 weights the int8 GEMM, the
 three norm prologues and the other linears' inputs quantized by the fused
 act-quant kernels; with e4m3 weights the fp8-dequant GEMM on the bf16
 activations, after the plain norm chain.
+
+With a mesh of sp > 1 ranks and an `sp_mode` (`DiTStatics`), each rank runs
+the layers on its frame shard of the block's tokens (`parallel/mesh.py`),
+and self-attention writes and reads the rank's shard of the cache through
+the mode's island (`parallel/distributed_attention.py`); the output head's
+tokens are gathered, so every rank returns the whole flow. Tensor and
+pipeline parallelism are not ported (ROADMAP.md A13b / A13c).
 """
 from __future__ import annotations
 
@@ -29,10 +37,13 @@ import torch.nn.functional as F
 
 from ...core.config import ModelConfig
 from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
-                              init_kv_cache, valid_mask, write_block)
+                              init_kv_cache, padded_tokens, valid_mask, write_block)
 from ...ops.attention import cache_attention
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
+from ...parallel.distributed_attention import sp_cache_attention, sp_write_block
+from ...parallel.mesh import (CacheShard, SPMesh, frame_shard, gather_frame_shards,
+                              wan_kv_cache_shard)
 from ...quant.api import (adaln_quant, ln_quant, quantized_ffn,
                           quantized_linear, quantized_linear_prequant,
                           use_fused_prologue)
@@ -113,22 +124,24 @@ class DiTGeometry:
 
 def make_kv_spec(cfg: ModelConfig, batch: int, latent_h: int, latent_w: int,
                  dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
-                 kv_dtype: Optional[torch.dtype] = None) -> KVCacheSpec:
+                 kv_dtype: Optional[torch.dtype] = None, head_major: bool = False,
+                 alloc_multiple: int = 0) -> KVCacheSpec:
     """The self-attention cache of `cfg` (JAX `causal_dit.py:make_kv_spec`):
     a window of `attention_window_frames` frames, a ring with `sink_size`
     pinned frames when `local_attn_size != -1`, int8 K/V with scales when
-    quantized, else `kv_dtype` (e.g. float8_e4m3fn) or the model dtype.
-    Every pipeline write spans whole frames, so ring writes go granule by
-    granule, one frame a granule."""
+    quantized, else `kv_dtype` (e.g. float8_e4m3fn) or the model dtype;
+    stored head-major with head_major, its slots padded up to a multiple of
+    alloc_multiple (0: not padded)."""
     frame_seq = DiTGeometry(1, latent_h, latent_w, cfg.patch_size).frame_seq
+    max_tokens = cfg.attention_window_frames * frame_seq
     return KVCacheSpec(
-        num_layers=cfg.num_layers, batch=batch,
-        max_tokens=cfg.attention_window_frames * frame_seq,
+        num_layers=cfg.num_layers, batch=batch, max_tokens=max_tokens,
         num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim,
         sink_tokens=cfg.sink_size * frame_seq,
         ring=cfg.local_attn_size != -1,
         dtype=kv_dtype if kv_dtype is not None else dtype,
-        quantized=quantized, granule=frame_seq)
+        quantized=quantized, head_major=head_major,
+        alloc_tokens=padded_tokens(max_tokens, alloc_multiple))
 
 
 def patch_embed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -241,14 +254,17 @@ def block_forward(
     xattn_k: torch.Tensor,        # [B, text_len, H, D]
     xattn_v: torch.Tensor,
     current_start,                # token offset of this block (int or [B])
-    kv_mask: torch.Tensor,        # [Smax] or [B, Smax] bool: valid slots after the write
+    kv_mask: Optional[torch.Tensor],  # [Smax] or [B, Smax] bool: valid slots after the write
     xattn_img: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # i2v image K/V
+    sp: Optional["SPContext"] = None,  # sequence parallel: x is a frame shard
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
     place (quantizing it for an int8 cache, whose layer_cache then holds the
     scales too), then attends over the cache's live slots. With int8 weights,
     each norm prologue (LN + modulate, or the norm3 LN) is fused with its
-    linear's activation quantization."""
+    linear's activation quantization. With `sp`, x holds this rank's frame
+    shard of the tokens and layer_cache its shard of the cache: the write
+    and the attention go through the sp island (kv_mask unused)."""
     b, s, c = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     frames = e0.shape[1]
@@ -275,11 +291,18 @@ def block_forward(
     v = v_p.reshape(b, s, nh, hd)
     q = apply_rope(q.reshape(b, s, nh, hd), angles)
     k = apply_rope(k.reshape(b, s, nh, hd), angles)
-    new_cache = write_block(spec, *layer_cache[:2], k, v, current_start,
-                            *layer_cache[2:])
-    scales = dict(k_scale=new_cache[2], v_scale=new_cache[3]) if spec.quantized else {}
-    attn = cache_attention(q, new_cache[0], new_cache[1], kv_mask=kv_mask,
-                           logical_kv=spec.max_tokens, **scales)
+    if sp is not None:
+        new_cache = sp_write_block(sp.mesh, sp.mode, spec, sp.shard, layer_cache, k, v,
+                                   current_start, frames)
+        attn = sp_cache_attention(sp.mesh, sp.mode, spec, sp.shard, q, new_cache,
+                                  sp.current_end, frames)
+    else:
+        new_cache = write_block(spec, *layer_cache[:2], k, v, current_start,
+                                *layer_cache[2:])
+        scales = dict(k_scale=new_cache[2], v_scale=new_cache[3]) if spec.quantized else {}
+        attn = cache_attention(q, new_cache[0], new_cache[1], kv_mask=kv_mask,
+                               logical_kv=spec.max_tokens,
+                               kv_layout="bhsd" if spec.head_major else "bshd", **scales)
     x = x + _gate(linear(sa["o"], attn.reshape(b, s, c)), gate_msa, frames)
 
     # --- cross-attention over the cached text K/V ---
@@ -323,19 +346,43 @@ def head_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 class DiTStatics(NamedTuple):
+    """Host-side constants of the forward. With a mesh of sp > 1 and a mode
+    of `parallel.distributed_attention.MODES` the forward runs sequence
+    parallel, and `shard` is this rank's cache shard."""
+
     cfg: ModelConfig
     spec: KVCacheSpec
     geo: DiTGeometry
+    mesh: Optional[SPMesh] = None
+    sp_mode: str = "none"
+    shard: CacheShard = CacheShard("none", 0, 0)
+
+
+class SPContext(NamedTuple):
+    """What a layer's sp island reads besides the statics."""
+
+    mesh: SPMesh
+    mode: str
+    shard: CacheShard
+    current_end: Any      # the block's end position: int, or [B] CPU tensor
 
 
 def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
                  latent_w: int, dtype: torch.dtype = torch.bfloat16,
                  quantized_kv: bool = False,
-                 kv_dtype: Optional[torch.dtype] = None) -> DiTStatics:
-    return DiTStatics(cfg=cfg,
-                      spec=make_kv_spec(cfg, batch, latent_h, latent_w, dtype,
-                                        quantized_kv, kv_dtype),
-                      geo=DiTGeometry(frames, latent_h, latent_w, cfg.patch_size))
+                 kv_dtype: Optional[torch.dtype] = None, mesh: Optional[SPMesh] = None,
+                 sp_mode: str = "none", kv_head_major: bool = False,
+                 kv_alloc_multiple: int = 0) -> DiTStatics:
+    """sp_mode "none", or no mesh of sp > 1, runs the single-device forward."""
+    spec = make_kv_spec(cfg, batch, latent_h, latent_w, dtype, quantized_kv, kv_dtype,
+                        head_major=kv_head_major, alloc_multiple=kv_alloc_multiple)
+    geo = DiTGeometry(frames, latent_h, latent_w, cfg.patch_size)
+    if mesh is None or mesh.size == 1 or sp_mode == "none":
+        return DiTStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh)
+    if geo.frame_seq % mesh.size:
+        raise ValueError(f"{geo.frame_seq} tokens a frame do not split over sp {mesh.size}")
+    return DiTStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh, sp_mode=sp_mode,
+                      shard=wan_kv_cache_shard(sp_mode, spec, mesh))
 
 
 def dit_forward_inference(
@@ -377,7 +424,17 @@ def dit_forward_inference(
         current_start = int(current_start)
     angles = rope_angles(rope_tables, geo.frames, geo.grid_h, geo.grid_w,
                          current_start // geo.frame_seq)
-    kv_mask = valid_mask(spec, current_start + geo.tokens, device=x.device)
+    current_end = current_start + geo.tokens
+    sp = kv_mask = None
+    if statics.sp_mode != "none":
+        # this rank's frame shard of the tokens and of their rope angles
+        mesh = statics.mesh
+        tokens = frame_shard(mesh, tokens, geo.frames)
+        angles = frame_shard(mesh, angles, geo.frames, dim=angles.dim() - 2)
+        sp = SPContext(mesh, statics.sp_mode, statics.shard,
+                       current_end if isinstance(current_end, int) else current_end.cpu())
+    else:
+        kv_mask = valid_mask(spec, current_end, device=x.device)
     fields = [f for f in cache if f is not None]
     h = tokens
     for lid in range(cfg.num_layers):
@@ -386,10 +443,13 @@ def dit_forward_inference(
         h, _ = block_forward(
             layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
             tuple(f[lid] for f in fields), xattn.k[lid], xattn.v[lid],
-            current_start, kv_mask, xattn_img=img)
+            current_start, kv_mask, xattn_img=img, sp=sp)
     if not need_output:
         return None, cache
-    return unpatchify(head_forward(params, cfg, h, e), cfg, geo), cache
+    out = head_forward(params, cfg, h, e)
+    if sp is not None:
+        out = gather_frame_shards(sp.mesh, out, geo.frames)
+    return unpatchify(out, cfg, geo), cache
 
 
 def _clip_statics(cfg: ModelConfig, x: torch.Tensor, frames: int,

@@ -1,5 +1,6 @@
 """Attention ops (port of `inferix_tpu/ops/attention.py`): the plain masked
-reference, the chunked online-softmax version, and the `cache_attention`
+reference, the chunked online-softmax version, the log-sum-exp merge of
+partial results (`merge_attention_partials`), and the `cache_attention`
 dispatcher the model calls for both self-attention over the KV cache and
 cross-attention over the text keys.
 
@@ -84,12 +85,27 @@ def attention_chunked(
     return _bhqd(out).to(q.dtype), m_run + torch.log(denom)
 
 
+def merge_attention_partials(
+    outs: torch.Tensor, lses: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge N partial attention results with the log-sum-exp trick.
+    outs [N, B, Sq, H, D], lses [N, B, H, Sq] -> (out [B, Sq, H, D] in
+    outs.dtype, lse [B, H, Sq])."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m[None])
+    denom = w.sum(dim=0)
+    w_t = (w / denom[None]).transpose(2, 3)[..., None]      # [N, B, Sq, H, 1]
+    out = (outs.float() * w_t).sum(dim=0)
+    return out.to(outs.dtype), m + torch.log(denom)
+
+
 def cache_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
     logical_kv: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    kv_layout: str = "bshd",
 ) -> torch.Tensor:
     """Dispatcher: the hand-written CUDA flash kernels for self-attention
     over a long cache on the card, plain tensor ops otherwise.
@@ -105,7 +121,18 @@ def cache_attention(
     `kv_mask`. Smaller attention (cross-attention over the 512 text tokens)
     stays plain matmul + softmax, as the JAX package keeps it in fused XLA
     ops. On the CPU every call takes the plain path.
+
+    kv_layout "bhsd": k/v [B, H, Skv, D] and the scales [B, H, Skv] come
+    from a head-major cache layer; every path reads them through their
+    token-major views (`k.transpose(1, 2)`), the kernels by strides, with
+    no copy.
     """
+    if kv_layout not in ("bshd", "bhsd"):
+        raise ValueError(f"kv_layout must be 'bshd' or 'bhsd', got {kv_layout!r}")
+    if kv_layout == "bhsd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if k_scale is not None:
+            k_scale, v_scale = k_scale.transpose(1, 2), v_scale.transpose(1, 2)
     if k_scale is not None and q.is_cuda:
         return flash_attention_quant(q, k, v, k_scale, v_scale,
                                      kv_mask=kv_mask, scale=scale)

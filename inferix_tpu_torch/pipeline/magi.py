@@ -18,9 +18,13 @@ through the int8 GEMM and act-quant kernels. The window cache is written in
 place. Every random draw (the walk's noise) goes through `_draw_noise` from
 an explicit `torch.Generator`.
 
-Not ported here (ROADMAP.md A13): a mesh, `cp_strategy` "cso" /
-"ulysses", pipeline parallelism, and `MagiVideoPipeline`'s tile-parallel
-decode and `decode_devices`. Each is refused by name.
+The window cache takes the runtime's layouts (`kv_head_major`,
+`kv_alloc_pad`), and a resume state carries the cache in the layout of the
+run that saved it (a JAX head-major state too).
+
+Not ported here: a mesh and `cp_strategy` "cso" / "ulysses" (ROADMAP.md
+A13b), pipeline parallelism, and `MagiVideoPipeline`'s tile-parallel decode
+and `decode_devices` (A13c). Each is refused by name.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..kvcache.cache import KVCache, init_kv_cache
+from ..kvcache.cache import KVCache, cache_shape, init_kv_cache
 from ..models.magi.dit import (
     MagiModelConfig,
     Params,
@@ -79,14 +83,15 @@ class MagiRuntimeConfig:
     shortcut_mode: str = ""
     distill_nearly_clean_chunk_threshold: float = 0.3
     distill_prev_chunks_scale: float = 0.7  # reference env prev_chunks_scale
-    # in-forward context parallelism over a mesh: only "none" here (A13)
+    # in-forward context parallelism over a mesh: only "none" here (A13b)
     cp_strategy: str = "none"
     # the int8 window cache with per-(token, head) scales (B2's path)
     quantize_kv: bool = False
     # the TPU's span-sized kernel grids: no effect here, the CUDA kernels
     # walk only each chunk's span
     span_grid: bool = True
-    # the TPU's head-major and padded cache layouts: True is refused (A14c)
+    # the window cache's layouts: [L, B, Hkv, S, D] storage, and its slots
+    # padded to a multiple of 2048 (never written or attended)
     kv_head_major: bool = False
     kv_alloc_pad: bool = False
     # the TPU's switch for the fused act-quant chain: no effect here, the
@@ -130,8 +135,8 @@ class MagiPipeline:
     ):
         if mesh is not None or runtime.cp_strategy != "none":
             raise NotImplementedError(
-                f"mesh / cp_strategy={runtime.cp_strategy!r}: the parallel layer is not "
-                f"ported (ROADMAP.md A13)")
+                f"mesh / cp_strategy={runtime.cp_strategy!r}: MAGI's context parallelism "
+                f"is not ported (ROADMAP.md A13b)")
         if runtime.window_dispatch not in WINDOW_DISPATCHES:
             raise ValueError(f"window_dispatch must be one of {WINDOW_DISPATCHES}, got "
                              f"{runtime.window_dispatch!r}")
@@ -256,6 +261,13 @@ class MagiPipeline:
             c = resume_state["cache"]
             cache = KVCache(*(torch.as_tensor(c[f], device=dev) if f in c else None
                               for f in KVCache._fields))
+            spec = self.statics.spec
+            shape = cache_shape(spec)
+            want = (shape, shape) + ((shape[:-1],) * 2 if spec.quantized else (None, None))
+            got = tuple(None if f is None else tuple(f.shape) for f in cache)
+            if got != want:
+                raise ValueError(f"the resume state's cache fields are {got}; this "
+                                 f"runtime's cache layout wants {want}")
 
         # prefix feature extraction at clean_t fills the cache (the
         # reference's extract_prefix_video_feature, :400-404, with the null
@@ -518,13 +530,13 @@ class MagiVideoPipeline(MagiPipeline):
     """The MAGI pipeline with a per-chunk decode (reference
     post_chunk_process, `pipeline/magi/video_process.py:348-388`): each
     clean chunk is decoded by the ViT-VAE as it is yielded. The tile-parallel
-    decode and `decode_devices` are refused (ROADMAP.md A13)."""
+    decode and `decode_devices` are refused (ROADMAP.md A13c)."""
 
     def __init__(self, *args, vae=None, tile: bool = False, decode_devices=None, **kwargs):
         if tile or decode_devices:
             raise NotImplementedError(
                 "tile / decode_devices: the tile-parallel and disaggregated decode "
-                "are not ported (ROADMAP.md A13)")
+                "are not ported (ROADMAP.md A13c)")
         super().__init__(*args, **kwargs)
         self.vae = vae
 

@@ -70,7 +70,7 @@ class SelfForcingPipeline(AbstractInferencePipeline):
     def set_disaggregated_decode(self, devices, tiles=None, overlap: int = 2):
         raise NotImplementedError(
             "the disaggregated decode belongs to the parallel layer, which the "
-            "port does not have yet (ROADMAP A13)")
+            "port does not have yet (ROADMAP A13c)")
 
     # -- lifecycle ----------------------------------------------------------
 

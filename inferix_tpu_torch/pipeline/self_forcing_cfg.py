@@ -26,6 +26,7 @@ from ..kvcache.cache import CrossAttnCache, KVCache, init_kv_cache
 from ..models.schedulers.fm_solvers import FlowDPMSolverMultistep, FlowUniPCMultistep
 from ..models.wan.causal_dit import (Params, dit_forward_inference, make_statics,
                                      precompute_crossattn_cache)
+from ..ops.flash_attention import DEFAULT_KV_BLOCK
 from ..ops.rope import build_rope_tables
 from ..profiling.profiler import InferixProfiler
 from ..utils.params import init_params
@@ -69,7 +70,9 @@ class CausalDiffusionPipeline(AbstractInferencePipeline):
             self._params = init_params(m, g, device=self.device, dtype=self._dtype)
         # batch 2B: [0:B] the positive stream, [B:2B] the negative one
         self.statics = make_statics(m, 2 * r.batch_size, m.num_frame_per_block,
-                                    r.latent_height, r.latent_width, self._dtype)
+                                    r.latent_height, r.latent_width, self._dtype,
+                                    kv_head_major=r.kv_head_major,
+                                    kv_alloc_multiple=DEFAULT_KV_BLOCK if r.kv_alloc_pad else 0)
         self.rope_tables = build_rope_tables(m.head_dim, m.rope_max_seq_len,
                                              device=self.device)
         self.frame_seq = self.statics.geo.frame_seq

@@ -21,9 +21,19 @@ wraps around once the clip outgrows it.
 
 W8A8: a tree quantized by `quant.api.quantize_params` runs every block
 linear through the int8 GEMM kernel, each input quantized by the fused
-act-quant or LN+modulate+quant kernel. The generator is single-device, so
-the fused path is always taken (the JAX package turns it off on multi-device
-meshes, and on one device takes it only with `set_fused_act_quant(True)`).
+act-quant or LN+modulate+quant kernel. Each rank runs its own token rows
+through them, so the fused path is always taken (the JAX package turns it
+off on multi-device meshes, and on one device takes it only with
+`set_fused_act_quant(True)`).
+
+`runtime.kv_head_major` / `kv_alloc_pad` choose the cache's layouts
+(`kvcache/cache.py`). Sequence parallelism: pass a mesh
+(`parallel.mesh.make_mesh`) of sp > 1 ranks, one process each, every rank
+calling the generator with the same inputs; `parallel.sp_mode` "ulysses",
+"ring" / "ring_pass_q" or "ring_pass_kv" picks the attention island, and
+"auto" (or a mesh of one) runs none, as in the JAX generator. Each rank
+holds only its shard of the cache (`init_cache`) and returns the whole
+latents.
 """
 from __future__ import annotations
 
@@ -33,21 +43,26 @@ import torch
 
 from ..core.config import EngineConfig
 from ..core.device import resolve_device
-from ..kvcache.cache import CrossAttnCache, KVCache, init_kv_cache
+from ..kvcache.cache import CrossAttnCache, KVCache
 from ..models.schedulers.flow_match import FlowMatchSchedule, warp_denoising_steps
 from ..models.wan.causal_dit import (Params, dit_forward_inference,
                                      fuse_qkv_params, make_statics,
                                      precompute_crossattn_cache)
+from ..ops.flash_attention import DEFAULT_KV_BLOCK
 from ..ops.rope import build_rope_tables
+from ..parallel.distributed_attention import MODES, sp_comm_bytes_per_layer
+from ..parallel.mesh import SPMesh, init_kv_cache_shard
 from ..quant.api import to_kernel_layout
 
 
 class SemiARGenerator:
-    """Generates latents block by block over one KV cache, on one device."""
+    """Generates latents block by block over one KV cache, on one device or
+    on this rank of a sequence-parallel mesh."""
 
     def __init__(self, cfg: EngineConfig, params: Params,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[SPMesh] = None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -64,10 +79,23 @@ class SemiARGenerator:
         # int8 weights then held once, in the int8 GEMM's K-contiguous layout
         self.params = to_kernel_layout(fuse_qkv_params(params) if m.fuse_qkv
                                        else params)
+        # the sp island (JAX `semi_ar.py:118-131`): a listed mode on a mesh of
+        # sp > 1; "auto" and a mesh of one run none
+        sp_mode = "none"
+        if mesh is not None and mesh.size > 1 and cfg.parallel.sp_mode in MODES:
+            sp_mode = cfg.parallel.sp_mode
+        self.mesh, self.sp_mode = mesh, sp_mode
         self.statics = make_statics(
             m, r.batch_size, m.num_frame_per_block, r.latent_height,
             r.latent_width, dtype, quantized_kv=quant_kv and not fp8_kv,
-            kv_dtype=torch.float8_e4m3fn if fp8_kv else None)
+            kv_dtype=torch.float8_e4m3fn if fp8_kv else None, mesh=mesh, sp_mode=sp_mode,
+            kv_head_major=r.kv_head_major,
+            kv_alloc_multiple=DEFAULT_KV_BLOCK if r.kv_alloc_pad else 0)
+        # the JAX package's count of one layer's attention exchange a forward
+        self.sp_comm_bytes = sp_comm_bytes_per_layer(
+            sp_mode, mesh.size if mesh is not None else 1, 1, r.batch_size,
+            self.statics.geo.tokens, self.statics.spec.max_tokens, m.num_heads,
+            m.head_dim, itemsize=torch.empty((), dtype=dtype).element_size())
         self.rope_tables = build_rope_tables(m.head_dim, m.rope_max_seq_len,
                                              device=self.device)
         self.schedule = FlowMatchSchedule.create(shift=r.timestep_shift,
@@ -85,7 +113,8 @@ class SemiARGenerator:
         self.context_mode = r.context_mode
 
     def init_cache(self) -> KVCache:
-        return init_kv_cache(self.statics.spec, device=self.device)
+        """The cache, or under sp this rank's shard of it."""
+        return init_kv_cache_shard(self.statics.spec, self.statics.shard, self.device)
 
     def encode_text_context(self, context: torch.Tensor,
                             clip_features: Optional[torch.Tensor] = None) -> CrossAttnCache:

@@ -66,9 +66,11 @@ def test_write_past_the_window_raises():
 # --- the int8 and fp8 caches, the rolling window with sink, [B] starts ---
 
 def _ring_specs(sink, granule, quantized=False, dtype=(jnp.float32, torch.float32)):
+    """The JAX spec with its write granule; the port's writes go run by run
+    (`slot_runs`), with no granule."""
     kw = dict(num_layers=L, batch=B, max_tokens=S, num_kv_heads=H, head_dim=D,
-              sink_tokens=sink, ring=True, granule=granule, quantized=quantized)
-    return (jcache.KVCacheSpec(dtype=dtype[0], **kw),
+              sink_tokens=sink, ring=True, quantized=quantized)
+    return (jcache.KVCacheSpec(dtype=dtype[0], granule=granule, **kw),
             tcache.KVCacheSpec(dtype=dtype[1], **kw))
 
 
@@ -145,11 +147,12 @@ def test_quantized_write_and_read(kind):
 @pytest.mark.parametrize("n,granule", [(32, 16), (24, 16), (32, 0)])
 def test_ring_writes_wrap(sink, n, granule):
     """Successive blocks through a rolling window until it wraps more than
-    once: the granule-aligned writes (n a multiple of the granule, one copy
-    per granule, wrapping at a granule boundary), the unaligned ones (n =
-    24, the general scatter) and granule 0, with and without pinned sink
-    slots; float32 and int8 caches against the JAX cache after each write,
-    then the slot map and the mask."""
+    once, against the JAX cache's three write paths: granule-aligned writes
+    (n a multiple of the granule, wrapping at a granule boundary), unaligned
+    ones (n = 24, its scatter) and granule 0; the port writes each block
+    piece by piece (`slot_runs`) in every case. With and without pinned
+    sink slots; float32 and int8 caches after each write, then the slot map
+    and the mask."""
     for quantized in (False, True):
         jspec, tspec = _ring_specs(sink, granule, quantized)
         rng = np.random.default_rng(12 + n + sink)

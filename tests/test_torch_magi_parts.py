@@ -239,13 +239,25 @@ def test_gqa_fold_rep1_and_layout():
     (dict(sp_mode="cso"), NotImplementedError, "A13"),
     (dict(sp_mode="ulysses"), NotImplementedError, "A13"),
     (dict(sp_mode="ring"), ValueError, "sp_mode"),
-    (dict(kv_head_major=True), NotImplementedError, "A14c"),
-    (dict(kv_alloc_multiple=2048), NotImplementedError, "A14c"),
 ])
 def test_make_magi_statics_refusals(kw, exc, match):
     _, tcfg = _cfgs("tiny")
     with pytest.raises(exc, match=match):
         tdit.make_magi_statics(tcfg, 1, LH, LW, MAX_CHUNKS, torch.float32, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(kv_head_major=True), dict(kv_alloc_multiple=2048)])
+def test_make_magi_statics_layouts(kw):
+    """The cache layouts are taken (no longer refused): the spec's layout
+    fields and the initialised cache's shapes equal the JAX package's."""
+    jcfg, tcfg = _cfgs("tiny")
+    js = jdit.make_magi_statics(jcfg, 2, LH, LW, MAX_CHUNKS, jnp.float32, quantize_kv=True, **kw)
+    ts = tdit.make_magi_statics(tcfg, 2, LH, LW, MAX_CHUNKS, torch.float32, quantize_kv=True,
+                                **kw)
+    for f in ("max_tokens", "alloc_tokens", "slots", "head_major"):
+        assert getattr(ts.spec, f) == getattr(js.spec, f), f
+    for t, j in zip(init_kv_cache(ts.spec, device="cpu"), jax_init_cache(js.spec)):
+        assert tuple(t.shape) == tuple(j.shape)
 
 
 def test_make_magi_statics_matches_jax():

@@ -275,8 +275,6 @@ def test_magi_config_from_json(name):
     (dict(mesh=object()), {}, "A13"),
     ({}, dict(cp_strategy="cso"), "A13"),
     ({}, dict(cp_strategy="ulysses"), "A13"),
-    ({}, dict(kv_head_major=True), "A14c"),
-    ({}, dict(kv_alloc_pad=True), "A14c"),
     (dict(tile=True), {}, "A13"),
     (dict(decode_devices=["cuda:1"]), {}, "A13"),
 ])
@@ -286,6 +284,16 @@ def test_refusals(trees, kw, vkw, match):
         else tpipe.MagiPipeline
     with pytest.raises(NotImplementedError, match=match):
         _port_pipe(trees, trt, cls, **kw)
+
+
+@pytest.mark.parametrize("vkw", [dict(kv_head_major=True), dict(kv_alloc_pad=True)])
+def test_layout_switches_taken(trees, vkw):
+    """The runtime's cache layouts reach the port's window cache spec, as
+    they reach the JAX one (no longer refused)."""
+    jrt, trt = _runtime(**vkw)
+    jspec, tspec = _jax_pipe(trees, jrt).statics.spec, _port_pipe(trees, trt).statics.spec
+    for f in ("max_tokens", "alloc_tokens", "slots", "head_major"):
+        assert getattr(tspec, f) == getattr(jspec, f), f
 
 
 def test_non_prefix_caption_mask_refused(trees):
