@@ -315,8 +315,30 @@ Phases, each timed on a line of its own:
                 launches a block per rank equal to what the island's code
                 implies, seconds a block, sp_comm_bytes_per_layer and the
                 bytes each rank sent and staged.
+ 37. tp         - tensor and data parallelism on four gloo ranks of this card
+                (RankPool of 4; a layout of 2 leaves ranks 2-3 idle): B4's
+                tp stages (row_absmax, quantize_rows_int8_given) against
+                their plain versions and against the whole-row kernel at
+                the tp-2 row widths (Wan o 768, fc2 4480 with gelu_tanh,
+                MAGI-4.5B fc2 6144 with gelu_exact, MAGI-24B fc2 8192 with
+                silu_mul: codes and scales bit-equal), timed beside their
+                bound; Wan2.1-1.3B at full width and depth at tp 2, tp 2
+                x sp 2 (ulysses, 2 blocks; ring_pass_q over the head-major
+                padded int8 cache), dp 2 at B = 2 and W8A8 at tp 2 (1
+                block each but ulysses'); a MAGI-4.5B window forward at
+                cso sp 2, ulysses sp 2, cso tp 2 x sp 2 (2 chunks; the
+                int8 window cache 1) and a 3-CFG forward (a B = 2 window of
+                1 chunk with the row sync, then the uncond row) at cso tp
+                2; the MAGI-24B widths (4 of 48 layers, 2 chunks) in W8A8
+                over the int8 cache with the split gated fc1 at cso tp 2 x
+                sp 2. Each run against the one-rank run of
+                the same precision (TP_RTOL in norm), the ranks' outputs
+                bit-equal to each other, the Wan launches a block per rank
+                equal to what the code implies; the launches and each
+                group's bytes sent and staged printed per rank.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 and
-36's MAGI forward after phase 27, phase 35 after phase 25.)
+36's MAGI forward after phase 27, phase 35 after phase 25, phase 37 after
+phase 36, whose one-rank runs it reads.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -385,7 +407,8 @@ from inferix_tpu_torch.models.wan.vae import CausalVAE, VAEConfig
 from inferix_tpu_torch.ops.act_quant import (
     adaln_quantize_rows_int8, adaln_quantize_rows_int8_reference,
     ln_quantize_rows_int8, ln_quantize_rows_int8_reference, quantize_rows_int8,
-    quantize_rows_int8_reference, row_plan)
+    quantize_rows_int8_given, quantize_rows_int8_given_reference, quantize_rows_int8_reference,
+    row_absmax, row_absmax_reference, row_plan)
 from inferix_tpu_torch.ops.flash_attention import (
     FP8, LOG2E, quant_ext_reference, flash_attention_gqa, flash_attention_gqa_quant,
     flash_attention_prefix, gqa_fold, gqa_unfold,
@@ -398,6 +421,7 @@ from inferix_tpu_torch.ops.halo_conv import (
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
 from inferix_tpu_torch.parallel.launch import RankPool
+from inferix_tpu_torch.parallel.mesh import magi_param_shards
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.magi import MagiPipeline, MagiVideoPipeline, magi_config_from_json
@@ -670,17 +694,17 @@ def main_path_setup(dev: torch.device, cfg: EngineConfig, mesh=None, w8a8=None):
     weights for bf16 and W8A8: a W8A8 config quantizes them; w8a8=False
     keeps them bf16 under a quant section that only asks for the int8
     cache), on this rank of `mesh` when one is given. Returns
-    (SemiARGenerator, text K/V, noise [1, F, H, W, C], torch.Generator)."""
+    (SemiARGenerator, text K/V, noise [B, F, H, W, C], torch.Generator)."""
     m, r = cfg.model, cfg.runtime
     g = torch.Generator(device=dev).manual_seed(0)
     params = init_params(m, g, device=dev, dtype=torch.bfloat16)
     if cfg.quant.enabled if w8a8 is None else w8a8:
         params = quantize_params(params, cfg.quant)
     gen = SemiARGenerator(cfg, params, dtype=torch.bfloat16, device=dev, mesh=mesh)
-    context = torch.randn(1, m.text_len, m.text_dim, generator=g,
+    context = torch.randn(r.batch_size, m.text_len, m.text_dim, generator=g,
                           device=dev).to(torch.bfloat16)
     xattn = gen.encode_text_context(context)
-    noise = torch.randn(1, r.num_frames, r.latent_height, r.latent_width,
+    noise = torch.randn(r.batch_size, r.num_frames, r.latent_height, r.latent_width,
                         r.latent_channels, generator=g, device=dev).to(torch.bfloat16)
     return gen, xattn, noise, g
 
@@ -1215,6 +1239,8 @@ KERNEL_COUNTERS = {  # name -> (wrapper, attribute holding its launch count)
     "fp8_matmul": (fp8_matmul, "launches"),
     "flash_attention_prefix_quant_i8": (flash_attention_prefix_quant_i8, "launches"),
     "flash_attention_prefix_quant_v2": (flash_attention_prefix_quant_v2, "launches"),
+    "row_absmax": (row_absmax, "launches"),
+    "quantize_rows_int8_given": (quantize_rows_int8_given, "launches"),
 }
 
 
@@ -4389,7 +4415,7 @@ def magi_walk(params, statics, x0, caps, whole_at=None) -> dict:
     per-chunk forward after it sees the walk's own cache). Returns the
     latents, each step's velocity (host, float32), (chunks, seconds) a
     window forward, and the whole-window gate's pair."""
-    cfg, spec, geo = statics
+    cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     cw, dev = geo.chunk_width, x0.device
     sched = ChunkSchedule(MagiScheduleConfig(**MAGI_WALK))
     cache = init_kv_cache(spec, dev)
@@ -6019,11 +6045,11 @@ def sp_config(mode: str, kv: str) -> EngineConfig:
     return cfg
 
 
-def run_blocks(dev, cfg: EngineConfig, mesh=None) -> dict:
-    """main_path_setup's seed-0 weights, text and noise through `generate`
-    (on this rank of `mesh`): the latents on the host, and per block the
-    seconds and the launches."""
-    gen, xattn, noise, g = main_path_setup(dev, cfg, mesh=mesh, w8a8=False)
+def run_blocks(dev, cfg: EngineConfig, mesh=None, w8a8: bool = False) -> dict:
+    """main_path_setup's seed-0 weights (W8A8: quantized), text and noise
+    through `generate` (on this rank of `mesh`): the latents on the host,
+    and per block the seconds and the launches."""
+    gen, xattn, noise, g = main_path_setup(dev, cfg, mesh=mesh, w8a8=w8a8)
     torch.cuda.synchronize()
     reset_counts()
     out = {"secs": [], "launches": [], "sent": [], "staged": []}
@@ -6051,7 +6077,7 @@ def sp_rank_run(mesh, mode: str, kv: str) -> dict:
     the mesh (the rank's own processes' counters and clocks)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh.sent_bytes = mesh.staged_bytes = 0
+    mesh.reset_bytes()
     out, cache, gen = run_blocks(mesh.device, sp_config(mode, kv), mesh)
     out["cache_bytes"] = sum(f.numel() * f.element_size() for f in cache if f is not None)
     out["shard"] = dataclasses.astuple(gen.statics.shard)
@@ -6197,7 +6223,326 @@ def sp_phase(dev: torch.device, smi: str, tmp: str) -> dict:
                   f"{torch.equal(lats[0], other[1])}; {wall:.3f} s for the run", flush=True)
             gate(ok, f"phase 36 sp {mode} {kv}")
     phase("sp (36)", t0)
-    return total
+    return total, {kv: ref for kv, (ref, _) in refs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 37: tensor and data parallelism (A13b) on four gloo ranks of the card
+# ---------------------------------------------------------------------------
+
+TP_POOL = 4              # ranks of the phase's pool; a layout of 2 leaves 2 idle
+TP_THREADS = 2           # CPU threads of a rank
+TP_TIMEOUT = 900         # seconds a rank may take for one run
+# Each run against the one-rank run of its precision, in norm: the ranks
+# sum the o / fc2 (MAGI: proj / fc2) partials over tp in another order,
+# run the GEMMs at a half or a quarter of the rows or columns, attend a
+# half or a quarter of the heads; the gap of phase 36's SP_RTOL.
+TP_RTOL = SP_RTOL
+# B4's tp stages at the row-parallel inputs at tp 2: (label, rows, whole
+# row's quantized width, act); the rank holds half of each row
+TP_QUANT_CASES = (("wan o", SQ, 2 * 768, None), ("wan fc2", SQ, 2 * 4480, "gelu"),
+                  ("magi-4.5B fc2", 6075, 2 * 6144, "gelu_exact"),
+                  ("magi-24B fc2", 10800, 2 * 8192, "silu_mul"))
+TP2, TP2_SP2 = ParallelConfig(tp=2), ParallelConfig(sp=2, tp=2)
+# Wan runs: label -> (layout, sp_mode, kv cache, batch, W8A8, blocks). Two
+# blocks where block 1 reads block 0's shard of the cache across the tp x sp
+# head split; one block elsewhere, to keep the phase inside its wall (every
+# exchange crosses the host through gloo: ~0.4-0.9 GB/s, exp/gloo_staging.py)
+TP_WAN_RUNS = {
+    "tp2 bf16": (TP2, "ulysses", "bf16", 1, False, 1),
+    "tp2 x sp2 ulysses bf16": (TP2_SP2, "ulysses", "bf16", 1, False, 2),
+    "tp2 x sp2 ring_pass_q int8": (TP2_SP2, "ring_pass_q", "int8", 1, False, 1),
+    "dp2 bf16 B=2": (ParallelConfig(dp=2), "ulysses", "bf16", 2, False, 1),
+    "tp2 W8A8": (TP2, "ulysses", "bf16", 1, True, 1),
+}
+# MAGI runs: label -> (model, layout, sp_mode, int8 window cache, 3-CFG,
+# chunks of the window)
+TP_MAGI_RUNS = {
+    "4.5B cso sp2": ("4p5b", ParallelConfig(sp=2), "cso", False, False, 2),
+    "4.5B ulysses sp2": ("4p5b", ParallelConfig(sp=2), "ulysses", False, False, 2),
+    "4.5B cso tp2 x sp2": ("4p5b", TP2_SP2, "cso", False, False, 2),
+    "4.5B cso tp2 x sp2 int8 cache": ("4p5b", TP2_SP2, "cso", True, False, 1),
+    "4.5B 3-CFG cso tp2": ("4p5b", TP2, "cso", False, True, 1),
+    "24B W8A8 int8 cache cso tp2 x sp2": ("24b", TP2_SP2, "cso", True, False, 2),
+}
+_MAGI_TREES: dict = {}   # a rank's drawn trees, by model, kept between its runs
+
+
+def tp_kernel_case(dev: torch.device) -> dict:
+    """B4's tp stages at TP_QUANT_CASES: each half row's absmax (stage 1)
+    exact against the plain version, the codes and scales from the two
+    halves' MAX (stage 2) bit-equal to the plain version and to the
+    whole-row kernel's slice; a half row's two stages timed beside their
+    bound (bytes) and the plain versions. Returns the kernels-line entry."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    before = all_counts()
+    worst, rows = 0.0, []
+    for label, m, width, act in TP_QUANT_CASES:
+        k_in = 2 * width if act == "silu_mul" else width
+        x = (torch.randn(m, k_in, generator=g, device=dev) * 2).to(torch.bfloat16)
+        if act == "silu_mul":
+            f = width
+            halves = [torch.cat([x[:, t * f // 2:(t + 1) * f // 2],
+                                 x[:, f + t * f // 2:f + (t + 1) * f // 2]], 1).contiguous()
+                      for t in range(2)]
+        else:
+            halves = [x[:, t * width // 2:(t + 1) * width // 2].contiguous() for t in range(2)]
+        amax = [row_absmax(h, act) for h in halves]
+        amax_ok = all(torch.equal(a, row_absmax_reference(h, act)) for a, h in zip(amax, halves))
+        whole = torch.maximum(amax[0], amax[1])
+        wq, ws = quantize_rows_int8(x, act)
+        codes_ok = amax_ok
+        for t, h in enumerate(halves):
+            q, sc = quantize_rows_int8_given(h, whole, act)
+            rq, rs = quantize_rows_int8_given_reference(h, whole, act)
+            n = q.shape[1]
+            codes_ok = (codes_ok and torch.equal(q, rq) and torch.equal(sc, rs)
+                        and torch.equal(q, wq[:, t * n:(t + 1) * n]) and torch.equal(sc, ws))
+            worst = max(worst, (q.float() - rq.float()).abs().max().item())
+        h = halves[0]
+        k_out = h.shape[1] // 2 if act == "silu_mul" else h.shape[1]
+        ms = time_ms(lambda: quantize_rows_int8_given(h, row_absmax(h, act), act))
+        plain = time_ms(lambda: quantize_rows_int8_given_reference(
+            h, row_absmax_reference(h, act), act), iters=3, warmup=1)
+        # stage 1 reads the half row and writes a float; stage 2 reads it and
+        # the absmax and writes the codes and the scale
+        bound = (2.0 * m * h.shape[1] * 2 + m * k_out + 4 * m * 3) / PEAK_BYTES_PER_S * 1e3
+        print(f"phase 37 B4 tp stages, {label} (M {m}, a rank's {h.shape[1]} of {k_in}, act "
+              f"{act}): absmax exact {amax_ok}, codes and scales bit-equal to the plain "
+              f"version and to the whole-row kernel {codes_ok}; {ms:.4f} ms the two stages "
+              f"(bound {bound:.4f}, plain {plain:.4f})", flush=True)
+        gate(codes_ok, f"phase 37 B4 tp stages {label}")
+        rows.append((label, ms, plain, bound))
+    restore_counts(before)
+    label, ms, plain, bound = rows[1]
+    return {"name": "quantize_rows_int8 tp stages (row_absmax + quantize_rows_int8_given)",
+            "route": "cuda", "source": "inferix_tpu_torch/csrc/act_quant.cu",
+            "replaces": "inferix_tpu/ops/act_quant.py:117", "launches": None,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None,
+            "work": f"a rank's half of Wan's fc2 input at tp 2 (M {SQ}, 4480 of 8960, "
+                    f"gelu_tanh), both stages",
+            "cases": [{"case": c, "ms": a, "plain_ms": b, "bound_ms": d} for c, a, b, d in rows]}
+
+
+def tp_config(label: str, one_rank: bool = False) -> tuple:
+    """(config, W8A8) of a Wan run of phase 37, on its layout or one rank;
+    the int8 cache head-major and padded, as phase 36's."""
+    lay, mode, kv, batch, w8a8, blocks = TP_WAN_RUNS[label]
+    cfg = main_path_config(blocks, w8a8=w8a8)
+    if kv == "int8":
+        cfg.quant.enabled = cfg.quant.quantize_kv_cache = True
+        cfg.runtime.kv_head_major = cfg.runtime.kv_alloc_pad = True
+    cfg.runtime.batch_size = batch
+    cfg.parallel = ParallelConfig() if one_rank else dataclasses.replace(lay, sp_mode=mode)
+    return cfg, w8a8
+
+
+def tp_expected(label: str, spec, sp_rank: int, forwards: int, layers: int) -> list:
+    """The launches a block that the code implies for a Wan run's rank: one
+    B1 / B2 a layer-forward (pass-q: `sp_expected` of its sp rank); W8A8: 8
+    int8 GEMMs a layer-forward (q, k, v unfused under tp; o, cross q, cross
+    o, fc1, fc2), B4's two tp stages on o, cross o and fc2, the fused
+    prologues as on one card."""
+    lay, mode, kv, batch, w8a8, blocks = TP_WAN_RUNS[label]
+    if mode == "ring_pass_q":
+        return sp_expected(mode, kv, spec, sp_rank, forwards, layers)[:blocks]
+    lf = layers * forwards
+    want = {"flash_attention_prefix": lf}
+    if w8a8:
+        want.update(int8_matmul=8 * lf, row_absmax=3 * lf, quantize_rows_int8_given=3 * lf,
+                    adaln=2 * lf, ln=lf)
+    return [dict(want) for _ in range(blocks)]
+
+
+def tp_rank_run(mesh, label: str) -> dict:
+    """One phase-37 Wan run on a rank: its blocks of the seed-0 1.3B."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.reset_bytes()
+    cfg, w8a8 = tp_config(label)
+    out, cache, gen = run_blocks(mesh.device, cfg, mesh, w8a8=w8a8)
+    out["bytes"] = mesh.bytes_by_group()
+    out["where"] = (mesh.dp.rank, mesh.sp.rank, mesh.tp.rank)
+    out["spec"] = gen.statics.spec
+    out["cache_bytes"] = sum(f.numel() * f.element_size() for f in cache if f is not None)
+    del cache, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def magi_tree(dev: torch.device, model: str) -> tuple:
+    """(config, tree, captions, latents) of a phase-37 MAGI model, seeded:
+    MAGI-4.5B bf16 at full depth, or the 24B widths at MAGI_24B_LAYERS in
+    W8A8 with the gated fc1 split (the tp layout)."""
+    if model in _MAGI_TREES:
+        return _MAGI_TREES[model]
+    _MAGI_TREES.clear()   # one model's tree at a time
+    torch.cuda.empty_cache()
+    cfg = magi_config(model)
+    if model == "24b":
+        cfg = dataclasses.replace(cfg, num_layers=MAGI_24B_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(37)
+    params = init_magi_params(cfg, g, dev)
+    res = MAGI_720 if model == "4p5b" else MAGI_720x1280
+    caps = magi_captions(params, cfg, dev, g)
+    x = torch.randn(1, 2 * cfg.chunk_width, *res, cfg.latent_channels, generator=g,
+                    device=dev).to(torch.bfloat16)
+    if model == "24b":
+        params = split_gated_fc1(magi_quantize_params_int8(params), cfg.ffn_hidden_size)
+    _MAGI_TREES[model] = (cfg, params, caps, x)
+    return _MAGI_TREES[model]
+
+
+def magi_tp_forward(dev: torch.device, label: str, mesh=None) -> dict:
+    """A phase-37 MAGI run: the window forward of its 1 or 2 chunks (fresh
+    cache, t 0.3 / 0.7, chunk 1 attending chunks 0-1), or the 3-CFG pair
+    (the B=2 window with the row sync, then the uncond forward of its
+    chunks as rows), on one rank (mesh None) or this rank of the mesh."""
+    model, lay, mode, int8_kv, cfg3, chunks = TP_MAGI_RUNS[label]
+    cfg, params, caps, x = magi_tree(dev, model)
+    x = x[:, :chunks * cfg.chunk_width]
+    res = MAGI_720 if model == "4p5b" else MAGI_720x1280
+    if mesh is not None:
+        params = magi_param_shards(params, mesh)
+        mesh.reset_bytes()
+    b = 2 if cfg3 else 1
+    st = make_magi_statics(cfg, b, *res, chunks, mesh=mesh, sp_mode=mode if mesh else "none",
+                           quantize_kv=int8_kv)
+    cache = init_kv_cache(st.spec, dev, num_kv_heads=st.kv_heads)
+    cap, mask, null, null_mask = caps
+    t = torch.tensor([[0.3, 0.7][:chunks]], device=dev)
+    kvr = [[0, 1], [0, 2]][:chunks]
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    out = {}
+    if cfg3:
+        caps2 = torch.stack([cap[0].expand(chunks, -1, -1), null[0].expand(chunks, -1, -1)])
+        masks2 = torch.stack([mask[0].expand(chunks, -1), null_mask[0].expand(chunks, -1)])
+        v, cache = magi_forward(params, st, None, x.expand(2, -1, -1, -1, -1).contiguous(),
+                                t.expand(2, -1), caps2, masks2, cache, 0, kvr,
+                                caption_dropout=torch.tensor([False, True], device=dev),
+                                sync_kv_rows=True)
+        cw = cfg.chunk_width
+        xu = x[0].reshape(chunks, cw, *x.shape[2:])
+        out["uncond"] = magi_forward_uncond(params, st, xu, t[0][:, None],
+                                            null.expand(chunks, -1, -1)[:, None],
+                                            null_mask.expand(chunks, -1)[:, None]).float().cpu()
+    else:
+        v, cache = magi_forward(params, st, None, x, t, cap[:, None].expand(1, chunks, -1, -1),
+                                mask[:, None].expand(1, chunks, -1), cache, 0, kvr)
+    torch.cuda.synchronize()
+    out.update(vel=v.float().cpu(), secs=time.perf_counter() - t1, launches=since_reset(),
+               cache_bytes=sum(f.numel() * f.element_size() for f in cache if f is not None))
+    if mesh is not None:
+        out["bytes"] = mesh.bytes_by_group()
+        out["shard"] = dataclasses.astuple(st.shard)
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def magi_tp_rank_run(mesh, label: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return magi_tp_forward(mesh.device, label, mesh)
+
+
+def tp_phase(dev: torch.device, smi: str, tmp: str, refs: dict) -> tuple:
+    """Phase 37: B4's tp stages, then the Wan and MAGI runs of
+    TP_WAN_RUNS / TP_MAGI_RUNS on four gloo ranks of this card, each held to
+    its one-rank run (refs: phase 36's bf16 and int8 latents). Returns (the
+    launches of its paths, the ranks' included; the tp stages' kernels
+    entry)."""
+    t0 = time.perf_counter()
+    entry = tp_kernel_case(dev)
+    print(f"phase 37 B4 tp stages: {time.perf_counter() - t0:.3f} s", flush=True)
+    total = {}
+    # the one-rank references: phase 36's 2-block runs (bf16, int8), and the
+    # runs of other blocks, batch or weights here
+    wan_refs = {}
+    for label, (_, _, kv, batch, w8a8, blocks) in TP_WAN_RUNS.items():
+        key = (kv, batch, w8a8, blocks)
+        if key in wan_refs:
+            continue
+        if batch == 1 and not w8a8 and blocks == SP_BLOCKS:
+            wan_refs[key] = refs[kv]
+            continue
+        cfg, _ = tp_config(label, one_rank=True)
+        out, cache, gen = run_blocks(dev, cfg, w8a8=w8a8)
+        wan_refs[key] = out["latents"]
+        print(f"phase 37 one rank, {kv} B={batch} W8A8 {w8a8}, {blocks} blocks: s a block "
+              f"{[round(x, 3) for x in out['secs']]}; launches a block {out['launches']}",
+              flush=True)
+        for c in out["launches"]:
+            add_counts(total, c)
+        del cache, gen
+    magi_refs = {}
+    for label, (model, _, _, int8_kv, cfg3, chunks) in TP_MAGI_RUNS.items():
+        key = (model, int8_kv, cfg3, chunks)
+        if key not in magi_refs:
+            magi_refs[key] = magi_tp_forward(dev, label)
+            add_counts(total, magi_refs[key]["launches"])
+            print(f"phase 37 one rank, MAGI {model} int8 cache {int8_kv} 3-CFG {cfg3}, "
+                  f"{chunks} chunks: "
+                  f"{magi_refs[key]['secs']:.3f} s, launches {magi_refs[key]['launches']}",
+                  flush=True)
+    _MAGI_TREES.clear()
+    torch.cuda.empty_cache()
+    m = main_path_config(SP_BLOCKS).model
+    forwards = len(main_path_config(SP_BLOCKS).runtime.denoising_step_list) + 1
+    t1 = time.perf_counter()
+    with RankPool(TP_POOL, "gloo", f"file://{os.path.join(tmp, 'tp_store')}", device=str(dev),
+                  threads=TP_THREADS, timeout=TP_TIMEOUT) as pool:
+        print(f"phase 37 {TP_POOL} gloo ranks on {dev}: {time.perf_counter() - t1:.3f} s to "
+              f"start", flush=True)
+        for label, (lay, mode, kv, batch, w8a8, blocks) in TP_WAN_RUNS.items():
+            t2 = time.perf_counter()
+            res = [r for r in pool.run(tp_rank_run, label, layout=lay) if r is not None]
+            wall = time.perf_counter() - t2
+            ref = wan_refs[kv, batch, w8a8, blocks]
+            lats = [torch.from_numpy(r["latents"]) for r in res]
+            errs = [rel_err(x, torch.from_numpy(ref)) for x in lats]
+            ok = all(torch.equal(lats[0], x) for x in lats) and all(
+                e <= TP_RTOL for e in errs) and all(torch.isfinite(x).all().item() for x in lats)
+            for rank, r in enumerate(res):
+                want = tp_expected(label, r["spec"], r["where"][1], forwards, m.num_layers)
+                ok = ok and r["launches"] == want
+                for c in r["launches"]:
+                    add_counts(total, c)
+                print(f"phase 37 wan {label} rank {rank} (d, s, t) {r['where']} "
+                      f"({r['cache_bytes'] / 1e9:.3f} GB of cache): s a block "
+                      f"{[round(x, 3) for x in r['secs']]}; launches a block {r['launches']} "
+                      f"(the code implies {want}); bytes (sent, staged) by group {r['bytes']}",
+                      flush=True)
+            print(f"phase 37 wan {label}: sp_comm_bytes_per_layer {res[0]['comm_layer']}; "
+                  f"ranks' latents bit-equal {all(torch.equal(lats[0], x) for x in lats)}; rel "
+                  f"err to one rank {[f'{e:.3e}' for e in errs]} (tol {TP_RTOL:g}); {wall:.3f} s "
+                  f"for the run", flush=True)
+            gate(ok, f"phase 37 wan {label}")
+        for label, (model, lay, mode, int8_kv, cfg3, chunks) in TP_MAGI_RUNS.items():
+            t2 = time.perf_counter()
+            res = [r for r in pool.run(magi_tp_rank_run, label, layout=lay) if r is not None]
+            wall = time.perf_counter() - t2
+            ref = magi_refs[(model, int8_kv, cfg3, chunks)]
+            ok = True
+            for rank, r in enumerate(res):
+                errs = [rel_err(r[k], ref[k]) for k in ("vel", "uncond") if k in r]
+                ok = (ok and all(e <= TP_RTOL for e in errs) and torch.equal(r["vel"], res[0]["vel"])
+                      and all(torch.isfinite(r[k]).all().item() for k in ("vel", "uncond")
+                              if k in r))
+                add_counts(total, r["launches"])
+                print(f"phase 37 magi {label} rank {rank} (shard {r['shard']}, "
+                      f"{r['cache_bytes'] / 1e9:.3f} GB of cache): {r['secs']:.3f} s (one rank "
+                      f"{ref['secs']:.3f}); rel err to one rank {[f'{e:.3e}' for e in errs]} "
+                      f"(tol {TP_RTOL:g}); launches {r['launches']} (one rank "
+                      f"{ref['launches']}); bytes (sent, staged) by group {r['bytes']}",
+                      flush=True)
+            print(f"phase 37 magi {label}: {wall:.3f} s for the run", flush=True)
+            gate(ok, f"phase 37 magi {label}")
+    phase("tp (37)", t0)
+    return total, entry
 
 
 def timed_host(fn):
@@ -6310,9 +6655,12 @@ def main() -> None:
     add_counts(pipe, {k: v for k, v in magi.items() if k != "flash_attention_prefix_fp8"})
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
-        p36 = sp_phase(dev, smi, tmp)
-    print(f"launches on phase 36 (the parent's and both ranks'): {p36}", flush=True)
-    add_counts(pipe, p36)
+        p36, sp_refs = sp_phase(dev, smi, tmp)
+        print(f"launches on phase 36 (the parent's and both ranks'): {p36}", flush=True)
+        add_counts(pipe, p36)
+        p37, tp_entry = tp_phase(dev, smi, tmp, sp_refs)
+    print(f"launches on phase 37 (the parent's and every rank's): {p37}", flush=True)
+    add_counts(pipe, p37)
     kv_entries[1]["launches"] += magi.get("flash_attention_prefix_fp8", 0)
     fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]
@@ -6325,7 +6673,8 @@ def main() -> None:
                  (entries[2], "quantize_rows_int8"), (kv_entries[0], "flash_attention_prefix_quant")):
         e["launches"] += pipe[k]
     entries[3]["launches"] += pipe["adaln"] + pipe["ln"]
-    entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries
+    tp_entry["launches"] = pipe.get("row_absmax", 0) + pipe.get("quantize_rows_int8_given", 0)
+    entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries + [tp_entry]
     print(f"launches on this slice's paths: {paths}; decode {decode}; encode {encode}; "
           f"pipeline {pipe}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)

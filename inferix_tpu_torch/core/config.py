@@ -9,8 +9,8 @@ not an import: the port never imports the JAX package.
 writes. The JAX keys that name a TPU grid or an XLA switch the port does
 not have (`IGNORED_KEYS`) are taken by name and dropped; keys whose value the
 port hard-wires (`FIXED_KEYS`) must hold that value. The `parallel` section
-takes sequence parallelism (`sp` > 1 with an `sp_mode`); `tp`, `dp` and `pp`
-above 1 are refused by name. Any other unknown key raises KeyError, as in
+takes data, sequence and tensor parallelism (`dp`, `sp`, `tp` > 1, an
+`sp_mode`); `pp` above 1 is refused by name. Any other unknown key raises KeyError, as in
 the JAX package.
 """
 from __future__ import annotations
@@ -67,12 +67,13 @@ SP_MODES = ("ulysses", "ring", "ring_pass_q", "ring_pass_kv", "auto")
 class ParallelConfig:
     """The parallel layout; a copy of `inferix_tpu/core/config.py:ParallelConfig`.
 
-    The port runs sequence parallelism (`parallel/`): `sp` ranks, one
-    process each, with `sp_mode` "ulysses", "ring" / "ring_pass_q" or
-    "ring_pass_kv" choosing the attention island; "auto" (or any mode at
-    sp = 1) runs no island, as in the JAX generator. Tensor, data and
-    pipeline parallelism are not ported: `tp`, `dp` or `pp` above 1 raises
-    NotImplementedError naming the ROADMAP.md item that ports it."""
+    The port runs data, sequence and tensor parallelism (`parallel/`): dp
+    sp tp ranks, one process each, laid out as the JAX mesh lays its
+    devices (`parallel.mesh.make_mesh`). `sp_mode` "ulysses", "ring" /
+    "ring_pass_q" or "ring_pass_kv" chooses Wan's attention island; "auto"
+    (or any mode at sp = 1 and tp = 1) runs none, as in the JAX generator.
+    Pipeline parallelism is not ported: `pp` above 1 raises
+    NotImplementedError naming ROADMAP.md A13c."""
 
     dp: int = 1
     sp: int = 1
@@ -81,16 +82,23 @@ class ParallelConfig:
     sp_mode: str = "ulysses"
 
     def __post_init__(self):
-        for axis, item in (("tp", "A13b"), ("dp", "A13b"), ("pp", "A13c")):
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"parallel.{axis} = {getattr(self, axis)}: the port runs sequence "
-                    f"parallelism only ({axis} is ROADMAP.md {item})")
-        if self.sp < 1:
-            raise ValueError(f"parallel.sp must be >= 1, got {self.sp}")
+        if self.pp != 1:
+            raise NotImplementedError(
+                f"parallel.pp = {self.pp}: pipeline parallelism is not ported "
+                f"(ROADMAP.md A13c)")
+        for axis in ("dp", "sp", "tp"):
+            if getattr(self, axis) < 1:
+                raise ValueError(f"parallel.{axis} must be >= 1, got {getattr(self, axis)}")
         if self.sp_mode not in SP_MODES:
             raise ValueError(f"parallel.sp_mode must be one of {SP_MODES}, got "
                              f"{self.sp_mode!r}")
+
+    @property
+    def world_size(self) -> int:
+        return self.dp * self.sp * self.tp * self.pp
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {"dp": self.dp, "sp": self.sp, "tp": self.tp, "pp": self.pp}
 
 
 @dataclasses.dataclass

@@ -10,6 +10,14 @@
 //                         adaln_quantize_rows_int8 :199) and plain / affine
 //                         (:277, wrapper ln_quantize_rows_int8 :256)
 //
+// The act-quant kernel has two more stages for the rows of a tensor-parallel
+// row linear, where each rank holds 1/tp of a row and the scale is the
+// absmax of the whole row: stage 1 writes the local row absmax (of the
+// activation's result) in place of the scale and no code; stage 2 reads the
+// row absmax the caller reduced over the ranks (a MAX, exact) and writes the
+// codes and the scale from it, as stage 0 would for the whole row
+// (ops/act_quant.py: row_absmax, quantize_rows_int8_given).
+//
 // Contract: x [M, K] bf16, row-major and 16-byte aligned, K % 8 == 0. Out:
 // codes s8 [M, K'] and one f32 scale per row, scale = max(absmax / 127, 1e-8)
 // and code = clip(round_half_even(v / scale), -127, 127), v being the row's
@@ -77,6 +85,7 @@ namespace {
 
 enum Act { kActNone = 0, kActGelu = 1, kActGeluExact = 2, kActSiluMul = 3 };
 enum Mode { kPlain = 0, kAffine = 1, kModulate = 2 };
+enum Stage { kWhole = 0, kAbsmax = 1, kGiven = 2 };
 
 // The row classes (mirrored by ops/act_quant.py:ROW_CLASSES): G threads a
 // row, each holding at most kChunks 16-byte chunks of it in registers.
@@ -282,10 +291,11 @@ __device__ __forceinline__ uint4 act8(const uint4& raw, const uint4& up) {
 // The act-quant kernel. Group g of the grid takes rows [g * per, g * per +
 // per); every group runs `per` iterations, so the rows past M (dead) still
 // join the group's reductions and only skip their loads and stores.
-template <int kAct, int G, int kChunks, bool kResident>
+template <int kAct, int G, int kChunks, bool kResident, int kStage>
 __global__ void __launch_bounds__(RowClass<G, kChunks>::kThreads)
 quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
-                  float* __restrict__ s, int m, int k, int out_k, int per) {
+                  float* __restrict__ s, const float* __restrict__ amax_in, int m, int k,
+                  int out_k, int per) {
   using RC = RowClass<G, kChunks>;
   constexpr int kGroups = RC::kGroups;
   constexpr int kRows = kResident ? RC::kRows : 1;
@@ -305,6 +315,7 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
       live[u] = row[u] < end;
     }
     Divisor d[kRows];
+    float amax[kRows];
     if constexpr (kResident) {
       uint4 v[kRows][kChunks], up[kRows][kChunks];
 #pragma unroll
@@ -327,13 +338,17 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
         for (int j = 0; j < kChunks; ++j) {
           if (live[u] && j * G + lane < n) {
             v[u][j] = act8<kAct>(v[u][j], up[u][j]);
-            amax2 = absmax8(v[u][j], amax2);
+            if (kStage != kGiven) amax2 = absmax8(v[u][j], amax2);
           }
         }
-        d[u] = divisor_of(group_reduce<G, true>(pair_max(amax2), red, turn));
+        if constexpr (kStage == kGiven)
+          amax[u] = live[u] ? __ldg(amax_in + row[u]) : 0.0f;
+        else
+          amax[u] = group_reduce<G, true>(pair_max(amax2), red, turn);
+        d[u] = divisor_of(amax[u]);
       }
 #pragma unroll
-      for (int u = 0; u < kRows; ++u) {
+      for (int u = 0; u < kRows && kStage != kAbsmax; ++u) {
         int8_t* qr = q + row[u] * out_k;
 #pragma unroll
         for (int j = 0; j < kChunks; ++j) {
@@ -346,20 +361,24 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
       const __nv_bfloat16* xr = x + row[0] * k;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
       uint32_t amax2 = 0u;
-      for (int c = lane; live[0] && c < n; c += G) {
+      for (int c = lane; kStage != kGiven && live[0] && c < n; c += G) {
         const uint4 u = kAct == kActSiluMul ? load16(xr + out_k + c * 8) : zero;
         amax2 = absmax8(act8<kAct>(load16(xr + c * 8), u), amax2);
       }
-      d[0] = divisor_of(group_reduce<G, true>(pair_max(amax2), red, turn));
+      if constexpr (kStage == kGiven)
+        amax[0] = live[0] ? __ldg(amax_in + row[0]) : 0.0f;
+      else
+        amax[0] = group_reduce<G, true>(pair_max(amax2), red, turn);
+      d[0] = divisor_of(amax[0]);
       int8_t* qr = q + row[0] * out_k;
-      for (int c = lane; live[0] && c < n; c += G) {
+      for (int c = lane; kStage != kAbsmax && live[0] && c < n; c += G) {
         const uint4 u = kAct == kActSiluMul ? load16(xr + out_k + c * 8) : zero;
         *reinterpret_cast<uint2*>(qr + c * 8) = quant8(act8<kAct>(load16(xr + c * 8), u), d[0]);
       }
     }
 #pragma unroll
     for (int u = 0; u < kRows; ++u)
-      if (live[u] && lane == 0) s[row[u]] = d[u].b;
+      if (live[u] && lane == 0) s[row[u]] = kStage == kAbsmax ? amax[u] : d[u].b;
   }
 }
 
@@ -561,13 +580,14 @@ int ctas_for(int m, int per) {
                           (static_cast<long long>(per) * kGroups));
 }
 
-template <int kAct, int G, int kChunks, bool kResident>
-cudaError_t launch_quant(const __nv_bfloat16* x, int8_t* q, float* s, int m, int k,
-                         int out_k, cudaStream_t stream) {
+template <int kAct, int G, int kChunks, bool kResident, int kStage>
+cudaError_t launch_quant(const __nv_bfloat16* x, int8_t* q, float* s, const float* amax_in,
+                         int m, int k, int out_k, cudaStream_t stream) {
   using RC = RowClass<G, kChunks>;
   const int per = kResident ? RC::kRows : 1;
-  quant_rows_kernel<kAct, G, kChunks, kResident>
-      <<<ctas_for<RC::kGroups>(m, per), RC::kThreads, 0, stream>>>(x, q, s, m, k, out_k, per);
+  quant_rows_kernel<kAct, G, kChunks, kResident, kStage>
+      <<<ctas_for<RC::kGroups>(m, per), RC::kThreads, 0, stream>>>(x, q, s, amax_in, m, k,
+                                                                   out_k, per);
   return cudaGetLastError();
 }
 
@@ -598,16 +618,40 @@ bool covers(int n, int g, int nc) {
 // The classes built (ops/act_quant.py:ROW_CLASSES): G 16 with 1 chunk a
 // thread, G 32 with up to 6, G 128 with up to 9 or 12; past 12 the
 // act-quant kernel's two-pass row (G 128). Anything else is refused.
-template <int kAct>
-cudaError_t quant_class(const __nv_bfloat16* x, int8_t* q, float* s, int m, int k,
-                        int g, int nc, cudaStream_t st) {
-  const int out_k = kAct == kActSiluMul ? k / 2 : k;
-  if (g == 16 && nc <= 1) return launch_quant<kAct, 16, 1, true>(x, q, s, m, k, out_k, st);
-  if (g == 32 && nc <= 6) return launch_quant<kAct, 32, 6, true>(x, q, s, m, k, out_k, st);
-  if (g == 128 && nc <= 9) return launch_quant<kAct, 128, 9, true>(x, q, s, m, k, out_k, st);
-  if (g == 128 && nc <= 12) return launch_quant<kAct, 128, 12, true>(x, q, s, m, k, out_k, st);
-  if (g == 128) return launch_quant<kAct, 128, 1, false>(x, q, s, m, k, out_k, st);
+template <int kAct, int kStage>
+cudaError_t quant_class(const __nv_bfloat16* x, int8_t* q, float* s, const float* a, int m,
+                        int k, int g, int nc, cudaStream_t st) {
+  const int o = kAct == kActSiluMul ? k / 2 : k;
+  if (g == 16 && nc <= 1) return launch_quant<kAct, 16, 1, true, kStage>(x, q, s, a, m, k, o, st);
+  if (g == 32 && nc <= 6) return launch_quant<kAct, 32, 6, true, kStage>(x, q, s, a, m, k, o, st);
+  if (g == 128 && nc <= 9)
+    return launch_quant<kAct, 128, 9, true, kStage>(x, q, s, a, m, k, o, st);
+  if (g == 128 && nc <= 12)
+    return launch_quant<kAct, 128, 12, true, kStage>(x, q, s, a, m, k, o, st);
+  if (g == 128) return launch_quant<kAct, 128, 1, false, kStage>(x, q, s, a, m, k, o, st);
   return cudaErrorInvalidValue;
+}
+
+template <int kStage>
+cudaError_t quant_act(const void* x, void* q, void* s, const void* a, int m, int k, int act,
+                      int g, int nc, cudaStream_t st) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* qp = static_cast<int8_t*>(q);
+  auto* sp = static_cast<float*>(s);
+  const auto* ap = static_cast<const float*>(a);
+  switch (act) {
+    case kActNone: return quant_class<kActNone, kStage>(xp, qp, sp, ap, m, k, g, nc, st);
+    case kActGelu: return quant_class<kActGelu, kStage>(xp, qp, sp, ap, m, k, g, nc, st);
+    case kActGeluExact:
+      return quant_class<kActGeluExact, kStage>(xp, qp, sp, ap, m, k, g, nc, st);
+    case kActSiluMul: return quant_class<kActSiluMul, kStage>(xp, qp, sp, ap, m, k, g, nc, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool quant_args_ok(int m, int k, int act, int g, int nc) {
+  const int out_k = act == kActSiluMul ? k / 2 : k;
+  return m > 0 && k > 0 && k % (act == kActSiluMul ? 16 : 8) == 0 && covers(out_k / 8, g, nc);
 }
 
 template <int kMode>
@@ -623,23 +667,25 @@ cudaError_t ln_class(const LnParams& p, int g, int nc, cudaStream_t st) {
 
 extern "C" int inferix_quantize_rows_int8(const void* x, void* q, void* s, int m, int k,
                                           int act, int g, int nc, void* stream) {
-  const int out_k = act == kActSiluMul ? k / 2 : k;
-  if (m <= 0 || k <= 0 || k % (act == kActSiluMul ? 16 : 8) != 0 ||
-      !covers(out_k / 8, g, nc))
+  if (!quant_args_ok(m, k, act, g, nc)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(quant_act<kWhole>(x, q, s, nullptr, m, k, act, g, nc,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-parallel stages: stage 1 writes each row's absmax into s (q is
+// not written); stage 2 takes each row's absmax from amax_in and writes the
+// codes and the scales.
+extern "C" int inferix_quantize_rows_int8_tp(const void* x, void* q, void* s,
+                                             const void* amax_in, int m, int k, int act,
+                                             int g, int nc, int stage, void* stream) {
+  if (!quant_args_ok(m, k, act, g, nc) || (stage == kGiven && amax_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* qp = static_cast<int8_t*>(q);
-  auto* sp = static_cast<float*>(s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kActNone: return static_cast<int>(quant_class<kActNone>(xp, qp, sp, m, k, g, nc, st));
-    case kActGelu: return static_cast<int>(quant_class<kActGelu>(xp, qp, sp, m, k, g, nc, st));
-    case kActGeluExact:
-      return static_cast<int>(quant_class<kActGeluExact>(xp, qp, sp, m, k, g, nc, st));
-    case kActSiluMul:
-      return static_cast<int>(quant_class<kActSiluMul>(xp, qp, sp, m, k, g, nc, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (stage == kAbsmax)
+    return static_cast<int>(quant_act<kAbsmax>(x, q, s, nullptr, m, k, act, g, nc, st));
+  if (stage == kGiven)
+    return static_cast<int>(quant_act<kGiven>(x, q, s, amax_in, m, k, act, g, nc, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int inferix_ln_quantize_rows_int8(

@@ -12,7 +12,7 @@ in place, the port writes the buffers in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,10 +34,18 @@ def _fields(cache: KVCache) -> List[torch.Tensor]:
 class KVCacheManager:
     """Slot allocator over a batched KV cache on one device."""
 
-    def __init__(self, spec: KVCacheSpec, device: str | torch.device = "cuda"):
+    def __init__(self, spec: KVCacheSpec, device: str | torch.device = "cuda",
+                 slots: Optional[int] = None, rows: Optional[Tuple[int, int]] = None,
+                 cache_factory: Optional[Callable[[], KVCache]] = None):
+        """slots: the batch slots to allocate (default spec.batch); rows: the
+        slots [lo, hi) whose rows this cache holds (a dp rank's, default
+        all); cache_factory: makes the cache (a rank's shard; default
+        `init_kv_cache` of the spec)."""
         self.spec = spec
         self.device = resolve_device(device)
-        self.max_requests = spec.batch
+        self.max_requests = spec.batch if slots is None else slots
+        self._rows = rows
+        self._factory = cache_factory
         self._slots: Dict[str, int] = {}
         self._free_slots = list(range(self.max_requests))
         self._cache: Optional[KVCache] = None
@@ -80,7 +88,8 @@ class KVCacheManager:
     @property
     def cache(self) -> KVCache:
         if self._cache is None:
-            self._cache = init_kv_cache(self.spec, device=self.device)
+            self._cache = (self._factory() if self._factory is not None
+                           else init_kv_cache(self.spec, device=self.device))
         return self._cache
 
     def update(self, cache: KVCache) -> None:
@@ -88,6 +97,10 @@ class KVCacheManager:
         self._cache = cache
 
     def _zero_slot(self, slot: int) -> None:
+        if self._rows is not None:
+            if not self._rows[0] <= slot < self._rows[1]:
+                return  # another dp rank's row
+            slot -= self._rows[0]
         for x in _fields(self._cache):
             x[:, slot].zero_()
 

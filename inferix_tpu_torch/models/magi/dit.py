@@ -1,6 +1,7 @@
-"""MAGI-1 VideoDiT in PyTorch (port of `inferix_tpu/models/magi/dit.py`,
-the single-device branches: bf16 / fp8-distill / W8A8 weights over a bf16,
-e4m3 or int8 window cache, token-major or head-major, padded or not).
+"""MAGI-1 VideoDiT in PyTorch (port of `inferix_tpu/models/magi/dit.py`:
+bf16 / fp8-distill / W8A8 weights over a bf16, e4m3 or int8 window cache,
+token-major or head-major, padded or not, on one device or on a mesh of
+sp and tp ranks).
 
 The layer is the reference's PARALLEL attention design:
 
@@ -20,7 +21,9 @@ Attention goes through the GQA fold wherever the JAX package takes its
 Pallas kernels on a TPU: self-attention per chunk over the cache
 (`flash_attention_gqa`, or `flash_attention_gqa_quant` over the int8
 cache), the prefix-free uncond forward, and the caption cross-attention
-with each row's span the popcount of its (prefix) caption mask. On CUDA
+with each row's span the popcount of its (prefix) caption mask. One device
+runs them through the mesh's islands at a group of one, which exchange
+nothing (`parallel/distributed_attention.py`). On CUDA
 tensors these launch the flash kernels; on CPU tensors the same fold runs
 over their plain versions (the JAX package's CPU path repeats the K/V and
 takes plain softmax attention: the same math in float32).
@@ -35,9 +38,21 @@ out_dtype=torch.float32)`): its operands are bf16 values, so each product
 is exact and the sums are float32, the JAX float32 dot's arithmetic, at the
 bf16 rate; float operands elsewhere (the CPU tests) take a float32 matmul.
 
-Not ported here: the mesh / sequence-parallel branches (`sp_mode` "cso" /
-"ulysses", ROADMAP.md A13b) and `magi_forward_pp` (A13c).
-`make_magi_statics` refuses them by name. A head-major window cache is read
+On a mesh (`MagiStatics.mesh`, `sp_mode` "cso" or "ulysses": the JAX
+package's context parallelism with its tp layout) each rank runs its sp
+token shard of every chunk (a contiguous 1/sp of each chunk's tokens) and
+its tp shard of the tree (`parallel.mesh.magi_param_shards`): q / qx / k /
+v / kv_xattn / fc1 (and fc1_up) give its heads, kv groups and hidden
+columns; proj (whole groups of its interleaved input) and fc2 sum the
+ranks' partials over tp (`parallel/tensor_parallel.py`; the W8A8 row
+scales the whole row's). The per-head q_ln / k_ln / qx_ln / kx_ln stay
+local. K and V go tokens -> heads over sp into the rank's kv heads of the
+window cache (`magi_kv_cache_shard`, kv heads over (tp, sp)), the
+self-attention runs in `cso_chunk_attention` and the caption and
+prefix-free attention in `gqa_head_island`
+(`parallel/distributed_attention.py`); the head's tokens are gathered.
+MAGI at dp > 1 and `magi_forward_pp` are not ported (ROADMAP.md A13c).
+A head-major window cache is read
 through its token-major views (`kvcache.cache.token_major`), by the
 kernels through their strides.
 Where the JAX package threads an immutable cache, the port writes the
@@ -55,13 +70,17 @@ import torch.nn.functional as F
 from ...core.device import resolve_device
 from ...kvcache.cache import KVCache, KVCacheSpec, padded_tokens, token_major, write_block
 from ...ops.act_quant import quantize_rows_int8
-from ...ops.flash_attention import flash_attention_gqa, flash_attention_gqa_quant
 from ...ops.norms import layer_norm
+from ...parallel.distributed_attention import cso_chunk_attention, gqa_head_island
+from ...parallel.mesh import (CacheShard, Mesh, SPMesh, as_mesh, frame_shard,
+                              gather_frame_shards, magi_kv_cache_shard, tokens_to_heads)
+from ...parallel.tensor_parallel import quantize_rows_tp, row_reduce
 from ...quant.api import MAGI_BLOCK_KEYS
 from ...quant.kernels import FP8, int8_matmul
 from ..wan.causal_dit import layer_params
 
 Params = Dict[str, Any]
+_ONE_RANK = SPMesh(rank=0, size=1, backend="gloo", device="cpu", name="sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,9 +158,21 @@ class MagiGeometry:
 
 
 class MagiStatics(NamedTuple):
+    """The model, the window cache's spec (every kv head) and the geometry;
+    on a mesh, the rank's mesh, the island and its cache shard."""
+
     cfg: MagiModelConfig
     spec: KVCacheSpec
     geo: MagiGeometry
+    mesh: Optional[Mesh] = None
+    sp_mode: str = "none"
+    shard: CacheShard = CacheShard("none", 0, 0)
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads of the rank's cache."""
+        sh = self.shard
+        return sh.hi - sh.lo if sh.axis == "heads" else self.spec.num_kv_heads
 
 
 def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
@@ -156,15 +187,26 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
     overrides the cache's storage dtype (torch.float8_e4m3fn: scale-free
     e4m3); quantize_kv=True selects the int8 cache with per-(token, head)
     scales; kv_head_major stores it [L, B, Hkv, S, D]; kv_alloc_multiple
-    pads its slots up to a multiple (0: not padded). The mesh and `sp_mode`
-    "cso" / "ulysses" (ROADMAP.md A13b) are refused, never dropped."""
+    pads its slots up to a multiple (0: not padded). mesh (a `Mesh`, or an
+    `SPMesh` of sp ranks) with sp_mode "cso" or "ulysses": the island; an
+    island without a mesh of sp or tp > 1 raises ValueError, as in the JAX
+    package, and so does such a mesh without an island; dp > 1 raises
+    NotImplementedError (ROADMAP.md A13c)."""
     if sp_mode not in ("none", "cso", "ulysses"):
         raise ValueError(f"MAGI sp_mode must be 'none', 'cso' or 'ulysses', "
                          f"got {sp_mode!r}")
-    if mesh is not None or sp_mode != "none":
+    mesh = as_mesh(mesh)
+    if mesh is not None and mesh.dp.size > 1:
         raise NotImplementedError(
-            f"mesh / sp_mode={sp_mode!r}: MAGI's context parallelism is not ported "
-            f"(ROADMAP.md A13b)")
+            f"MAGI at dp = {mesh.dp.size}: its 3-CFG row sync would copy across dp ranks "
+            f"(ROADMAP.md A13c)")
+    sharded = mesh is not None and (mesh.sp.size > 1 or mesh.tp.size > 1)
+    if sp_mode != "none" and not sharded:
+        raise ValueError(f"sp_mode={sp_mode!r} requires a mesh with sp>1 or tp>1 (got "
+                         f"mesh={None if mesh is None else mesh.cfg.axis_sizes()})")
+    if sharded and sp_mode == "none":
+        raise ValueError("a mesh of sp or tp > 1 runs MAGI in an island: sp_mode 'cso' "
+                         "or 'ulysses'")
     if kv_alloc_multiple < 0:
         raise ValueError(f"kv_alloc_multiple must be >= 0, got {kv_alloc_multiple}")
     geo = MagiGeometry(latent_h, latent_w, cfg.chunk_width, cfg.patch_size)
@@ -175,7 +217,16 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
         dtype=kv_dtype if kv_dtype is not None else dtype,
         quantized=quantize_kv, head_major=kv_head_major,
         alloc_tokens=padded_tokens(max_tokens, kv_alloc_multiple))
-    return MagiStatics(cfg=cfg, spec=spec, geo=geo)
+    if not sharded:
+        return MagiStatics(cfg=cfg, spec=spec, geo=geo)
+    if cfg.num_attention_heads % mesh.heads.size or cfg.ffn_hidden_size % mesh.tp.size:
+        raise ValueError(f"{cfg.num_attention_heads} q heads / {cfg.ffn_hidden_size} ffn "
+                         f"columns do not split over tp {mesh.tp.size} x sp {mesh.sp.size}")
+    if geo.chunk_tokens % mesh.sp.size:
+        raise ValueError(f"{geo.chunk_tokens} tokens a chunk do not split over sp "
+                         f"{mesh.sp.size}")
+    return MagiStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh, sp_mode=sp_mode,
+                       shard=magi_kv_cache_shard(spec, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +456,24 @@ def magi_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def magi_row_linear(tp: SPMesh, p: Params, x: torch.Tensor,
+                    act: Optional[str] = None) -> torch.Tensor:
+    """`magi_linear` (and `magi_int8_linear`'s folded act) as a row-parallel
+    linear over tp: x holds the rank's input columns, p its rows. int8: the
+    row scales of the whole row (`quantize_rows_tp`), float32 partials;
+    fp8 distill and plain: partials in x's dtype; summed over tp."""
+    if "w_q" in p and p["w_q"].dtype == torch.int8:
+        *lead, k = x.shape
+        x_q, x_s = quantize_rows_tp(tp, x.reshape(-1, k), act)
+        partial = int8_matmul(x_q, p["w_q"], x_s, p["scale"], out_dtype=torch.float32)
+        return row_reduce(tp, partial, x.dtype).reshape(*lead, -1)
+    if act is not None:
+        raise ValueError(f"an activation is folded into int8 weights only, got {act!r}")
+    bias = p.get("b") if "w_q" not in p else None
+    partial = magi_linear({k: v for k, v in p.items() if k != "b"}, x)
+    return row_reduce(tp, partial, x.dtype, bias)
+
+
 def _linear_f32_out(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b) with a float32 output, the JAX `magi_linear(p,
     x.astype(float32))`: bf16 x and w on the card through a GEMM with a
@@ -460,15 +529,6 @@ def _postprocess_velocity(cfg: MagiModelConfig, geo: MagiGeometry,
     return velocity
 
 
-def _xattn_attend(cq: torch.Tensor, yk: torch.Tensor, yv: torch.Tensor,
-                  cmask: torch.Tensor) -> torch.Tensor:
-    """Caption cross-attention through the GQA fold (no repeated K/V). The
-    caption masks are prefix masks (valid tokens, then padding), so each
-    row's span end is its popcount, reduced on the device."""
-    kv_len = cmask.sum(dim=1, dtype=torch.int32)   # [B*nc]
-    return flash_attention_gqa(cq, yk, yv, kv_len=kv_len)
-
-
 def _int_pairs(x) -> list:
     """[n, 2] chunk ranges (numpy, list or tensor) as Python int pairs."""
     return [(int(a), int(b)) for a, b in torch.as_tensor(x).reshape(-1, 2).tolist()]
@@ -476,7 +536,7 @@ def _int_pairs(x) -> list:
 
 def _magi_layer(
     blk: Params,
-    h_x: torch.Tensor,            # [B, n_chunks*ct, hidden]
+    h_x: torch.Tensor,            # [B, n_chunks*ct, hidden] (a mesh: ct/sp of each chunk)
     cond: torch.Tensor,           # [B, n_chunks, cond_dim] f32
     y: torch.Tensor,              # [B, n_chunks, cap_len, xattn_dim]
     caption_mask: torch.Tensor,   # [B, n_chunks, cap_len]
@@ -486,17 +546,28 @@ def _magi_layer(
     spec: KVCacheSpec,
     n_chunks: int,
     ct: int,
-    angles: torch.Tensor,         # [n_chunks*ct, 3*nb]
+    angles: torch.Tensor,         # [n_chunks*ct, 3*nb] (a mesh: the rank's tokens')
     token_ranges: Optional[list] = None,   # [(start, end)] tokens, a chunk
     current_start: Optional[int] = None,
     current_end: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
+    sp_mode: str = "none",
 ) -> torch.Tensor:
     """One MAGI transformer layer; writes the window's K/V into
     `layer_cache` in place (layer_cache None: the prefix-free branch, each
-    batch row a lone chunk attending only to itself). Returns h_x."""
+    batch row a lone chunk attending only to itself). Returns h_x. On a
+    mesh, h_x holds the rank's token shard of each chunk, blk its tp shard
+    and layer_cache its kv heads."""
     b = h_x.shape[0]
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_query_groups, cfg.kv_channels
+    # one device is a group of one: every island below is then its single-device
+    # attention (the GQA fold over the whole cache), with no exchange
+    sp = mesh.sp if mesh is not None else _ONE_RANK
+    tp = mesh.tp if mesh is not None and mesh.tp.size > 1 else None
+    tpn = tp.size if tp is not None else 1
+    nh, nkv = cfg.num_attention_heads // tpn, cfg.num_query_groups // tpn
+    hd = cfg.kv_channels
     rep = nh // nkv
+    ct_loc = h_x.shape[1] // n_chunks   # the rank's tokens of a chunk
     eps = cfg.layernorm_epsilon
     dt = h_x.dtype
 
@@ -511,23 +582,16 @@ def _magi_layer(
     v = magi_linear(blk["v"], ln).reshape(b, -1, nkv, hd)
 
     if layer_cache is None:
-        core = flash_attention_gqa(q, k, v, kv_len=k.shape[1])
+        core = gqa_head_island(sp, q, k, v)
     else:
+        # every token of the window for the rank's kv heads
+        k, v = tokens_to_heads(sp, k, n_chunks), tokens_to_heads(sp, v, n_chunks)
         fields = write_block(spec, layer_cache[0], layer_cache[1], k, v,
                              current_start, *(layer_cache[2:] if spec.quantized else ()))
         fields = tuple(token_major(f, spec.head_major) for f in fields)
-        outs = []
-        for ci in range(n_chunks):
-            qi = q[:, ci * ct:(ci + 1) * ct]
-            start, end = token_ranges[ci]
-            kv_len = min(end, current_end)
-            if spec.quantized:
-                outs.append(flash_attention_gqa_quant(qi, *fields, kv_len=kv_len,
-                                                      kv_start=start))
-            else:
-                outs.append(flash_attention_gqa(qi, *fields, kv_len=kv_len,
-                                                kv_start=start))
-        core = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
+        core = cso_chunk_attention(sp, q.reshape(b, n_chunks, ct_loc, nh, hd), fields,
+                                   token_ranges, current_end, whole_window=sp_mode == "ulysses")
+        core = core.reshape(b, n_chunks * ct_loc, nh, hd)
 
     # cross attention (parallel branch, same ln input)
     qx = magi_linear(blk["qx"], ln).reshape(b, -1, nh, hd)
@@ -538,18 +602,28 @@ def _magi_layer(
     kv_y = magi_linear(blk["kv_xattn"], y).reshape(b, n_chunks, cap_len, nkv, 2 * hd)
     yk = _ln(blk["kx_ln"], kv_y[..., :hd].float(), eps).to(dt)
     yv = kv_y[..., hd:].to(dt)
-    xa = _xattn_attend(qx.reshape(b * n_chunks, ct, nh, hd),
-                       yk.reshape(b * n_chunks, cap_len, nkv, hd),
-                       yv.reshape(b * n_chunks, cap_len, nkv, hd),
-                       caption_mask.reshape(b * n_chunks, cap_len) > 0)
-    xatt = xa.reshape(b, n_chunks * ct, nh, hd)
+    cq = qx.reshape(b * n_chunks, ct_loc, nh, hd)
+    yk = yk.reshape(b * n_chunks, cap_len, nkv, hd)
+    yv = yv.reshape(b * n_chunks, cap_len, nkv, hd)
+    # the caption masks are prefix masks (valid tokens, then padding), so each
+    # row's span end is its popcount, reduced on the device
+    kv_len = (caption_mask.reshape(b * n_chunks, cap_len) > 0).sum(dim=1, dtype=torch.int32)
+    xa = gqa_head_island(sp, cq, yk, yv, kv_len=kv_len, kv_tokens_sharded=False)
+    xatt = xa.reshape(b, n_chunks * ct_loc, nh, hd)
 
-    # joint projection with the (n=2, hn=nkv) group interleave
+    # joint projection with the (n=2, hn=nkv) group interleave (a rank's
+    # whole groups under tp)
     cat = torch.stack([core.reshape(b, -1, nkv, rep * hd),
                        xatt.reshape(b, -1, nkv, rep * hd)], dim=3)
     cat = cat.reshape(b, -1, 2 * nkv * rep * hd)
     if "w" in blk["proj"]:
-        h1 = _linear_f32_out(blk["proj"], cat)
+        if tp is not None:   # float32 partials, as the float32 product keeps them
+            h1 = row_reduce(tp, _linear_f32_out({"w": blk["proj"]["w"]}, cat), torch.float32,
+                            blk["proj"].get("b"))
+        else:
+            h1 = _linear_f32_out(blk["proj"], cat)
+    elif tp is not None:
+        h1 = magi_row_linear(tp, blk["proj"], cat.to(dt))
     else:
         h1 = magi_linear(blk["proj"], cat.to(dt))
 
@@ -558,8 +632,8 @@ def _magi_layer(
     g_msa, g_mlp = gates[..., :cfg.hidden_size], gates[..., cfg.hidden_size:]
 
     def bias_modulate_add(xv, res, gate, post_norm):
-        xf = xv.float().reshape(b, n_chunks, ct, -1) * gate[:, :, None, :]
-        xf = _ln(post_norm, xf.reshape(b, n_chunks * ct, -1), eps)
+        xf = xv.float().reshape(b, n_chunks, ct_loc, -1) * gate[:, :, None, :]
+        xf = _ln(post_norm, xf.reshape(b, n_chunks * ct_loc, -1), eps)
         return (xf + res.float()).to(dt)
 
     h_x = bias_modulate_add(h1, residual, g_msa, blk["self_post_norm"])
@@ -567,24 +641,32 @@ def _magi_layer(
     residual = h_x
     mlp_in = _ln(blk["mlp_ln"], h_x, eps)
     fc2 = blk["fc2"]
+    int8_fc2 = "w_q" in fc2 and fc2["w_q"].dtype == torch.int8
     if "fc1_up" in blk:
         # gate/up-separate layout (split_gated_fc1)
         gate = magi_linear(blk["fc1"], mlp_in)
         up = magi_linear(blk["fc1_up"], mlp_in)
-        ff = magi_linear(fc2, _silu_f32(gate).to(up.dtype) * up)
+        if tp is not None and int8_fc2:
+            # the rank's [gate_t | up_t] rows through silu_mul's fold
+            ff = magi_row_linear(tp, fc2, torch.cat([gate, up], dim=-1), act="silu_mul")
+        elif tp is not None:
+            ff = magi_row_linear(tp, fc2, _silu_f32(gate).to(up.dtype) * up)
+        else:
+            ff = magi_linear(fc2, _silu_f32(gate).to(up.dtype) * up)
     else:
         ff_in = magi_linear(blk["fc1"], mlp_in)
-        if "w_q" in fc2 and fc2["w_q"].dtype == torch.int8:
+        fold = "silu_mul" if cfg.gated_linear_unit else "gelu_exact"
+        if int8_fc2:
             # the activation folded into fc2's quantization pass
-            ff = magi_int8_linear(fc2, ff_in, act="silu_mul" if cfg.gated_linear_unit
-                                  else "gelu_exact")
+            ff = (magi_row_linear(tp, fc2, ff_in, act=fold) if tp is not None
+                  else magi_int8_linear(fc2, ff_in, act=fold))
         else:
             if cfg.gated_linear_unit:
-                d = cfg.ffn_hidden_size
+                d = ff_in.shape[-1] // 2
                 act = _silu_f32(ff_in[..., :d]).to(ff_in.dtype) * ff_in[..., d:]
             else:
                 act = F.gelu(ff_in, approximate="none")
-            ff = magi_linear(fc2, act)
+            ff = magi_row_linear(tp, fc2, act) if tp is not None else magi_linear(fc2, act)
     return bias_modulate_add(ff, residual, g_mlp, blk["mlp_post_norm"])
 
 
@@ -614,7 +696,7 @@ def _embed_window_inputs(params: Params, statics: MagiStatics, x_window: torch.T
     adaln token: [-1] when caption_dropout, else [-2]; + t_embedder(dt) for
     distilled checkpoints), the projected captions, and the window's slice
     of the rope angles over the cache's temporal extent."""
-    cfg, spec, geo = statics
+    cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     b, n_chunks = t.shape
     ct = geo.chunk_tokens
 
@@ -663,11 +745,14 @@ def _layers(params: Params, num_layers: int) -> Iterator[Tuple[int, Params]]:
 
 
 def _head(params: Params, cfg: MagiModelConfig, geo: MagiGeometry,
-          h_x: torch.Tensor, frames: int) -> torch.Tensor:
-    """Final LayerNorm in float32 + the plain output linear, unpatchified."""
+          h_x: torch.Tensor, frames: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Final LayerNorm in float32 + the plain output linear, unpatchified;
+    on a mesh the ranks' token shards of each chunk gathered first."""
     h_out = _ln(params["final_layernorm"], h_x.float(), cfg.layernorm_epsilon)
-    return _postprocess_velocity(cfg, geo, magi_linear(params["final_linear"], h_out),
-                                 frames)
+    out = magi_linear(params["final_linear"], h_out)
+    if mesh is not None:
+        out = gather_frame_shards(mesh.sp, out, frames // geo.chunk_width)
+    return _postprocess_velocity(cfg, geo, out, frames)
 
 
 def sync_cache_rows(spec: KVCacheSpec, cache: KVCache, start: int, length: int,
@@ -707,7 +792,7 @@ def magi_forward(
     (`sync_cache_rows`). static_kv_spans sizes the TPU's kernel grid; the
     CUDA kernels walk only each span, so it has no effect here."""
     del rope_tables, max_chunks, static_kv_spans
-    cfg, spec, geo = statics
+    cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     dev = x_window.device
     t = torch.as_tensor(t, device=dev, dtype=torch.float32)
     b, n_chunks = t.shape
@@ -722,13 +807,17 @@ def magi_forward(
     current_end = current_start + n_chunks * ct
     token_ranges = [(s * ct, e * ct) for s, e in _int_pairs(kv_ranges)]
     fields = tuple(f for f in cache if f is not None)
+    mesh = statics.mesh
+    if mesh is not None:   # the rank's tokens of each chunk
+        h_x = frame_shard(mesh.sp, h_x, n_chunks)
+        angles = frame_shard(mesh.sp, angles, n_chunks, dim=0)
     for layer, blk in _layers(params, cfg.num_layers):
         h_x = _magi_layer(
             blk, h_x, cond, y, caption_mask, tuple(f[layer] for f in fields),
             cfg=cfg, spec=spec, n_chunks=n_chunks, ct=ct, angles=angles,
             token_ranges=token_ranges, current_start=current_start,
-            current_end=current_end)
-    velocity = _head(params, cfg, geo, h_x, n_chunks * cw)
+            current_end=current_end, mesh=mesh, sp_mode=statics.sp_mode)
+    velocity = _head(params, cfg, geo, h_x, n_chunks * cw, mesh)
     if sync_kv_rows:
         if b != 2:
             raise ValueError("sync_kv_rows is the 3-CFG batched-forward contract (B=2)")
@@ -787,7 +876,7 @@ def magi_forward_uncond(
     attends only to itself (no cache read or write), rope restarts at
     position 0 and the caption is dropped (adaln null token -1). Returns
     velocity [n_den, chunk_width, H, W, out]."""
-    cfg, spec, geo = statics
+    cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     dev = x_chunks.device
     t = torch.as_tensor(t, device=dev, dtype=torch.float32)
     b = x_chunks.shape[0]
@@ -795,7 +884,12 @@ def magi_forward_uncond(
         params, statics, x_chunks, t, captions, 0,
         torch.ones(b, dtype=torch.bool, device=dev), distill_dt_factor)
     caption_mask = torch.as_tensor(caption_mask, device=dev)
+    mesh = statics.mesh
+    if mesh is not None:   # each row is one chunk: the rank's tokens of it
+        h_x = frame_shard(mesh.sp, h_x, 1)
+        angles = frame_shard(mesh.sp, angles, 1, dim=0)
     for _, blk in _layers(params, cfg.num_layers):
         h_x = _magi_layer(blk, h_x, cond, y, caption_mask, None, cfg=cfg, spec=spec,
-                          n_chunks=1, ct=geo.chunk_tokens, angles=angles)
-    return _head(params, cfg, geo, h_x, geo.chunk_width)
+                          n_chunks=1, ct=geo.chunk_tokens, angles=angles, mesh=mesh,
+                          sp_mode=statics.sp_mode)
+    return _head(params, cfg, geo, h_x, geo.chunk_width, mesh)

@@ -24,8 +24,12 @@ With a mesh of sp > 1 ranks and an `sp_mode` (`DiTStatics`), each rank runs
 the layers on its frame shard of the block's tokens (`parallel/mesh.py`),
 and self-attention writes and reads the rank's shard of the cache through
 the mode's island (`parallel/distributed_attention.py`); the output head's
-tokens are gathered, so every rank returns the whole flow. Tensor and
-pipeline parallelism are not ported (ROADMAP.md A13b / A13c).
+tokens are gathered, so every rank returns the whole flow. With tp > 1 each
+rank holds its tp shard of the tree (`parallel.mesh.wan_param_shards`):
+q / k / v and fc1 give the rank's heads and hidden columns, o and fc2 sum
+the ranks' partials, the qk-norms reduce their sums of squares, and the
+text / image K/V hold the rank's heads (`parallel/tensor_parallel.py`).
+Pipeline parallelism is not ported (ROADMAP.md A13c).
 """
 from __future__ import annotations
 
@@ -39,11 +43,12 @@ from ...core.config import ModelConfig
 from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
                               init_kv_cache, padded_tokens, valid_mask, write_block)
 from ...ops.attention import cache_attention
-from ...ops.norms import layer_norm, rms_norm
+from ...ops.norms import layer_norm
 from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
 from ...parallel.distributed_attention import sp_cache_attention, sp_write_block
-from ...parallel.mesh import (CacheShard, SPMesh, frame_shard, gather_frame_shards,
-                              wan_kv_cache_shard)
+from ...parallel.mesh import (CacheShard, Mesh, SPMesh, as_mesh, frame_shard,
+                              gather_frame_shards, wan_kv_cache_shard)
+from ...parallel.tensor_parallel import rms_norm_tp, rms_norms_tp, row_linear
 from ...quant.api import (adaln_quant, ln_quant, quantized_ffn,
                           quantized_linear, quantized_linear_prequant,
                           use_fused_prologue)
@@ -183,17 +188,27 @@ def embed_text(params: Params, cfg: ModelConfig, context: torch.Tensor) -> torch
 
 
 def _project_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                k: str, v: str, norm_k: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                k: str, v: str, norm_k: str, tp: Optional[SPMesh] = None,
+                sharded: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every layer's cross-attention K (RMS-normed) and V of `tokens`
-    [B, s, dim]: [L, B, s, H, D] each."""
+    [B, s, dim]: [L, B, s, H, D] each, or with tp the rank's H / tp heads:
+    from its column shard of k / v (sharded), or from replicated weights
+    (the i2v k_img / v_img) whose heads are sliced after the norm."""
     b, s, _ = tokens.shape
-    shape = (b, s, cfg.num_heads, cfg.head_dim)
+    heads = cfg.num_heads // tp.size if tp is not None and sharded else cfg.num_heads
+    shape = (b, s, heads, cfg.head_dim)
     ks, vs = [], []
     for lid in range(cfg.num_layers):
         ca = layer_params(params["blocks"]["cross_attn"], lid)
-        ks.append(rms_norm(linear(ca[k], tokens), ca[norm_k]["w"], cfg.eps).reshape(shape))
+        kn = rms_norm_tp(tp if sharded else None, linear(ca[k], tokens), ca[norm_k]["w"],
+                         cfg.eps, cfg.dim)
+        ks.append(kn.reshape(shape))
         vs.append(linear(ca[v], tokens).reshape(shape))
-    return torch.stack(ks), torch.stack(vs)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if tp is not None and not sharded:
+        per = cfg.num_heads // tp.size
+        ks, vs = (x[:, :, :, tp.rank * per:(tp.rank + 1) * per] for x in (ks, vs))
+    return ks, vs
 
 
 def embed_image(params: Params, cfg: ModelConfig,
@@ -208,19 +223,24 @@ def embed_image(params: Params, cfg: ModelConfig,
 
 def precompute_crossattn_cache(params: Params, cfg: ModelConfig,
                                context: torch.Tensor,
-                               clip_features: Optional[torch.Tensor] = None
-                               ) -> CrossAttnCache:
+                               clip_features: Optional[torch.Tensor] = None,
+                               tp: Optional[SPMesh] = None) -> CrossAttnCache:
     """Project the text context through every layer's cross-attention K/V
     once per prompt: [L, B, text_len, H, D] each. For an i2v model,
     clip_features [B, 257, 1280] go through `img_emb` and each layer's
-    k_img / v_img (the JAX package's `precompute_crossattn_cache`)."""
-    k, v = _project_kv(params, cfg, embed_text(params, cfg, context), "k", "v", "norm_k")
+    k_img / v_img (the JAX package's `precompute_crossattn_cache`). With tp
+    (a group of more than one rank) `params` is the rank's tp shard and the
+    K/V hold its H / tp heads (the JAX `xattn_cache_pspec`)."""
+    tp = tp if tp is not None and tp.size > 1 else None
+    k, v = _project_kv(params, cfg, embed_text(params, cfg, context), "k", "v", "norm_k",
+                       tp)
     if cfg.model_type == "i2v" and clip_features is not None:
         # in the model's dtype (the JAX package computes img_emb in the
         # features' dtype, float32 from its CLIP tower)
         img = embed_image(params, cfg,
                           clip_features.to(params["img_emb"]["fc1"]["w"].dtype))
-        k_img, v_img = _project_kv(params, cfg, img, "k_img", "v_img", "norm_k_img")
+        k_img, v_img = _project_kv(params, cfg, img, "k_img", "v_img", "norm_k_img", tp,
+                                   sharded=False)
         return CrossAttnCache(k=k, v=v, k_img=k_img, v_img=v_img)
     return CrossAttnCache(k=k, v=v)
 
@@ -257,6 +277,7 @@ def block_forward(
     kv_mask: Optional[torch.Tensor],  # [Smax] or [B, Smax] bool: valid slots after the write
     xattn_img: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # i2v image K/V
     sp: Optional["SPContext"] = None,  # sequence parallel: x is a frame shard
+    tp: Optional[SPMesh] = None,  # tensor parallel: block is the rank's tp shard
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
     place (quantizing it for an int8 cache, whose layer_cache then holds the
@@ -264,10 +285,18 @@ def block_forward(
     each norm prologue (LN + modulate, or the norm3 LN) is fused with its
     linear's activation quantization. With `sp`, x holds this rank's frame
     shard of the tokens and layer_cache its shard of the cache: the write
-    and the attention go through the sp island (kv_mask unused)."""
+    and the attention go through the sp island (kv_mask unused). With `tp`,
+    block holds the rank's tp shard: its H / tp heads attend over its heads
+    of the cache and of the text K/V, and o / fc2 reduce over tp."""
     b, s, c = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh = cfg.num_heads // tp.size if tp is not None else cfg.num_heads
+    c_loc = nh * hd
     frames = e0.shape[1]
+
+    def out_linear(p: Params, h: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        """o / fc2: row-parallel over tp (act: fc2's folded gelu), else plain."""
+        return row_linear(tp, p, h, act) if tp is not None else linear(p, h)
 
     # modulation is per frame: six [B, F, C] fp32 vectors
     mod = block["modulation"][None] + e0
@@ -286,8 +315,8 @@ def block_forward(
         proj = [linear(sa[n], h_in) for n in names]
     q_p, k_p, v_p = proj[0].chunk(3, dim=-1) if len(proj) == 1 else proj
     # qk-norm: RMS over the whole width, before the head split and rope
-    q = rms_norm(q_p, sa["norm_q"]["w"], cfg.eps)
-    k = rms_norm(k_p, sa["norm_k"]["w"], cfg.eps)
+    q, k = rms_norms_tp(tp, (q_p, k_p), (sa["norm_q"]["w"], sa["norm_k"]["w"]), cfg.eps,
+                        cfg.dim)
     v = v_p.reshape(b, s, nh, hd)
     q = apply_rope(q.reshape(b, s, nh, hd), angles)
     k = apply_rope(k.reshape(b, s, nh, hd), angles)
@@ -303,7 +332,7 @@ def block_forward(
         attn = cache_attention(q, new_cache[0], new_cache[1], kv_mask=kv_mask,
                                logical_kv=spec.max_tokens,
                                kv_layout="bhsd" if spec.head_major else "bshd", **scales)
-    x = x + _gate(linear(sa["o"], attn.reshape(b, s, c)), gate_msa, frames)
+    x = x + _gate(out_linear(sa["o"], attn.reshape(b, s, c_loc)), gate_msa, frames)
 
     # --- cross-attention over the cached text K/V ---
     ca = block["cross_attn"]
@@ -311,27 +340,34 @@ def block_forward(
               else (None, None))
     if use_fused_prologue(ca["q"]):
         hq2, hs2 = ln_quant(x.reshape(b * s, c), w3, b3, cfg.eps)
-        cq = quantized_linear_prequant(ca["q"], hq2, hs2, x.dtype).reshape(b, s, c)
+        cq = quantized_linear_prequant(ca["q"], hq2, hs2, x.dtype).reshape(b, s, c_loc)
     else:
         cq = linear(ca["q"], layer_norm(x, w3, b3, cfg.eps))
-    cq = rms_norm(cq, ca["norm_q"]["w"], cfg.eps)
+    cq = rms_norm_tp(tp, cq, ca["norm_q"]["w"], cfg.eps, cfg.dim)
     cq = cq.reshape(b, s, nh, hd)
     xa = cache_attention(cq, xattn_k, xattn_v)
     if xattn_img is not None:
         # i2v: the image attention is added to the text attention
         xa = xa + cache_attention(cq, *xattn_img)
-    x = x + linear(ca["o"], xa.reshape(b, s, c))
+    x = x + out_linear(ca["o"], xa.reshape(b, s, c_loc))
 
     # --- FFN: fc2(gelu_tanh(fc1(h))); with int8 weights the gelu runs
     # inside fc2's quantization ---
     ffn = block["ffn"]
     if use_fused_prologue(ffn["fc1"]):
         hq3, hs3 = adaln_quant(x, shift_mlp, scale_mlp, cfg.eps)
-        y = quantized_ffn(ffn["fc1"], ffn["fc2"], x_q=hq3, x_scale=hs3,
-                          out_dtype=x.dtype)
+        if tp is not None:
+            y = out_linear(ffn["fc2"], quantized_linear_prequant(ffn["fc1"], hq3, hs3,
+                                                                 x.dtype), "gelu")
+        else:
+            y = quantized_ffn(ffn["fc1"], ffn["fc2"], x_q=hq3, x_scale=hs3,
+                              out_dtype=x.dtype)
     else:
         h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
-        y = quantized_ffn(ffn["fc1"], ffn["fc2"], h_f)
+        if tp is not None:
+            y = out_linear(ffn["fc2"], linear(ffn["fc1"], h_f), "gelu")
+        else:
+            y = quantized_ffn(ffn["fc1"], ffn["fc2"], h_f)
     x = x + _gate(y, gate_mlp, frames)
     return x, new_cache
 
@@ -346,16 +382,18 @@ def head_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 class DiTStatics(NamedTuple):
-    """Host-side constants of the forward. With a mesh of sp > 1 and a mode
-    of `parallel.distributed_attention.MODES` the forward runs sequence
-    parallel, and `shard` is this rank's cache shard."""
+    """Host-side constants of the forward. With a mesh and a mode of
+    `parallel.distributed_attention.MODES` the forward runs its attention
+    in that island over the mesh's sp group; `tp` is the mesh's tp group
+    when it has more than one rank; `shard` is this rank's cache shard."""
 
     cfg: ModelConfig
     spec: KVCacheSpec
     geo: DiTGeometry
-    mesh: Optional[SPMesh] = None
+    mesh: Optional[Mesh] = None
     sp_mode: str = "none"
     shard: CacheShard = CacheShard("none", 0, 0)
+    tp: Optional[SPMesh] = None
 
 
 class SPContext(NamedTuple):
@@ -370,19 +408,32 @@ class SPContext(NamedTuple):
 def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
                  latent_w: int, dtype: torch.dtype = torch.bfloat16,
                  quantized_kv: bool = False,
-                 kv_dtype: Optional[torch.dtype] = None, mesh: Optional[SPMesh] = None,
+                 kv_dtype: Optional[torch.dtype] = None, mesh=None,
                  sp_mode: str = "none", kv_head_major: bool = False,
                  kv_alloc_multiple: int = 0) -> DiTStatics:
-    """sp_mode "none", or no mesh of sp > 1, runs the single-device forward."""
+    """batch: the rows this rank runs (B / dp). mesh: a `Mesh` (or an
+    `SPMesh`, a mesh of sp ranks). The island runs for a mode on a mesh of
+    sp > 1, and for "ulysses" on a tp-only mesh too (its sp all-to-alls
+    are then identities); else the single-device attention, over the
+    rank's heads at tp > 1."""
     spec = make_kv_spec(cfg, batch, latent_h, latent_w, dtype, quantized_kv, kv_dtype,
                         head_major=kv_head_major, alloc_multiple=kv_alloc_multiple)
     geo = DiTGeometry(frames, latent_h, latent_w, cfg.patch_size)
-    if mesh is None or mesh.size == 1 or sp_mode == "none":
-        return DiTStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh)
-    if geo.frame_seq % mesh.size:
-        raise ValueError(f"{geo.frame_seq} tokens a frame do not split over sp {mesh.size}")
+    mesh = as_mesh(mesh)
+    if mesh is None:
+        return DiTStatics(cfg=cfg, spec=spec, geo=geo)
+    tp = mesh.tp if mesh.tp.size > 1 else None
+    if tp is not None:
+        for what, n in (("heads", cfg.num_heads), ("ffn columns", cfg.ffn_dim)):
+            if n % tp.size:
+                raise ValueError(f"{n} {what} do not split over tp {tp.size}")
+    if mesh.sp.size == 1 and not (tp is not None and sp_mode == "ulysses"):
+        sp_mode = "none"
+    if sp_mode != "none" and geo.frame_seq % mesh.sp.size:
+        raise ValueError(f"{geo.frame_seq} tokens a frame do not split over sp "
+                         f"{mesh.sp.size}")
     return DiTStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh, sp_mode=sp_mode,
-                      shard=wan_kv_cache_shard(sp_mode, spec, mesh))
+                      shard=wan_kv_cache_shard(sp_mode, spec, mesh), tp=tp)
 
 
 def dit_forward_inference(
@@ -428,7 +479,7 @@ def dit_forward_inference(
     sp = kv_mask = None
     if statics.sp_mode != "none":
         # this rank's frame shard of the tokens and of their rope angles
-        mesh = statics.mesh
+        mesh = statics.mesh.sp
         tokens = frame_shard(mesh, tokens, geo.frames)
         angles = frame_shard(mesh, angles, geo.frames, dim=angles.dim() - 2)
         sp = SPContext(mesh, statics.sp_mode, statics.shard,
@@ -443,7 +494,7 @@ def dit_forward_inference(
         h, _ = block_forward(
             layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
             tuple(f[lid] for f in fields), xattn.k[lid], xattn.v[lid],
-            current_start, kv_mask, xattn_img=img, sp=sp)
+            current_start, kv_mask, xattn_img=img, sp=sp, tp=statics.tp)
     if not need_output:
         return None, cache
     out = head_forward(params, cfg, h, e)

@@ -6,6 +6,10 @@ Port of `inferix_tpu/ops/act_quant.py`:
 - `quantize_rows_int8` (`:94`, TPU kernel `_quant_kernel` `:66`): one row a
   token, an optional activation (`gelu`, `gelu_exact`, `silu_mul`) first,
   then the row's absmax -> int8 codes + an f32 scale;
+  `row_absmax` and `quantize_rows_int8_given` are the same kernel's two
+  stages for a tensor-parallel row (no JAX counterpart: the JAX package
+  leaves the global absmax to GSPMD): each rank's row absmax, then, after
+  the caller's MAX over the ranks, the codes from the whole row's scale;
 - `adaln_quantize_rows_int8` (`:199`) and `ln_quantize_rows_int8` (`:256`),
   TPU kernel `_ln_mod_quant_kernel` (`:154`): LayerNorm, then the per-frame
   AdaLN modulate or the affine weight/bias, then the same quantization.
@@ -30,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from ..quant.kernels import quantize_act_int8_per_token
+from ..quant.kernels import quantize_act_int8_per_token, scale_from_absmax
 
 ACTS = (None, "gelu", "gelu_exact", "silu_mul")
 _ACT_CODE = {a: i for i, a in enumerate(ACTS)}
@@ -111,6 +115,26 @@ def quantize_rows_int8_reference(x: torch.Tensor, act: Optional[str] = None
     return quantize_act_int8_per_token(apply_act_fused(x, act))
 
 
+def row_absmax_reference(x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of the act-quant kernel's stage 1: each row's absmax
+    after the activation, f32 [M, 1]."""
+    _out_width(x.shape[-1], act)
+    return apply_act_fused(x, act).abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows_int8_given_reference(x: torch.Tensor, absmax: torch.Tensor,
+                                       act: Optional[str] = None
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the act-quant kernel's stage 2: the codes and scales
+    of x's rows (after the activation) from the given row absmax [M, 1]
+    (scale = max(absmax / 127, 1e-8)), as `quantize_rows_int8_reference`
+    takes them from the row's own."""
+    _out_width(x.shape[-1], act)
+    scale = scale_from_absmax(absmax.float().reshape(-1, 1))
+    q = torch.clamp(torch.round(apply_act_fused(x, act) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def _layer_norm_f32(x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -161,7 +185,10 @@ _ARGTYPES_LN = (
     + [ctypes.c_float] + [ctypes.c_int] * 3    # eps, mode, G, chunks
     + [ctypes.c_void_p]                        # stream
 )
+_ARGTYPES_QUANT_TP = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])   # x, q, s, amax, M, K, act, G, chunks, stage, stream
 _MODE = {"plain": 0, "affine": 1, "modulate": 2}
+_STAGE_ABSMAX, _STAGE_GIVEN = 1, 2
 
 
 def _lib():
@@ -171,6 +198,8 @@ def _lib():
         lib.inferix_quantize_rows_int8.restype = ctypes.c_int
         lib.inferix_ln_quantize_rows_int8.argtypes = _ARGTYPES_LN
         lib.inferix_ln_quantize_rows_int8.restype = ctypes.c_int
+        lib.inferix_quantize_rows_int8_tp.argtypes = _ARGTYPES_QUANT_TP
+        lib.inferix_quantize_rows_int8_tp.restype = ctypes.c_int
     return lib
 
 
@@ -220,6 +249,68 @@ def quantize_rows_int8(x: torch.Tensor, act: Optional[str] = None
 
 
 quantize_rows_int8.launches = 0
+
+
+def _tp_launch(x: torch.Tensor, act: Optional[str], stage: int,
+               absmax: Optional[torch.Tensor]):
+    k_out = _out_width(x.shape[-1], act)
+    _check_x(x, 2, 16 if act == "silu_mul" else 8)
+    g, nc = row_plan(k_out)
+    m = x.shape[0]
+    q = (torch.empty(m, k_out, dtype=torch.int8, device=x.device) if stage == _STAGE_GIVEN
+         else None)
+    s = torch.empty(m, 1, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return q, s
+    if m > 2**31 - 1:
+        raise ValueError(f"M = {m} exceeds the kernel's grid limit")
+    if absmax is not None and (absmax.device != x.device or absmax.dtype != torch.float32
+                               or absmax.numel() != m or not absmax.is_contiguous()):
+        raise ValueError(f"absmax must be a contiguous float32 [{m}, 1] tensor on {x.device}")
+    with torch.cuda.device(x.device):
+        err = _lib().inferix_quantize_rows_int8_tp(
+            x.data_ptr(), None if q is None else q.data_ptr(), s.data_ptr(),
+            None if absmax is None else absmax.data_ptr(), m, x.shape[1], _ACT_CODE[act],
+            g, nc, stage, torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(err, "quantize_rows_int8 (tp stage)")
+    return q, s
+
+
+def row_absmax(x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """Each row's absmax of x [M, K] after the optional activation, f32
+    [M, 1]: the act-quant kernel's stage 1, for a row that a tensor-parallel
+    rank holds 1/tp of (the caller reduces it over the ranks with MAX). On
+    CUDA tensors this launches the kernel and counts it in
+    `row_absmax.launches`; on CPU tensors it takes the plain version."""
+    if not x.is_cuda:
+        return row_absmax_reference(x, act)
+    _, s = _tp_launch(x, act, _STAGE_ABSMAX, None)
+    if x.shape[0]:
+        row_absmax.launches += 1
+    return s
+
+
+row_absmax.launches = 0
+
+
+def quantize_rows_int8_given(x: torch.Tensor, absmax: torch.Tensor,
+                             act: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 codes and scales of x [M, K] (after the optional activation)
+    from the given row absmax [M, 1] f32: the act-quant kernel's stage 2.
+    With the absmax of the whole row, a rank's codes are the slice of the
+    codes `quantize_rows_int8` gives the whole row. On CUDA tensors this
+    launches the kernel and counts it in `quantize_rows_int8_given.launches`;
+    on CPU tensors it takes the plain version."""
+    if not x.is_cuda:
+        return quantize_rows_int8_given_reference(x, absmax, act)
+    q, s = _tp_launch(x, act, _STAGE_GIVEN, absmax.reshape(-1, 1).contiguous())
+    if x.shape[0]:
+        quantize_rows_int8_given.launches += 1
+    return q, s
+
+
+quantize_rows_int8_given.launches = 0
 
 
 def _ln_launch(x2, p0, p1, sb, sf, rows_per_batch, frame_seq, eps, mode):

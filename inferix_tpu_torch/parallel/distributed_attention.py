@@ -1,7 +1,8 @@
-"""Sequence-parallel self-attention over the KV cache inside the Wan
-forward (port of `inferix_tpu/parallel/distributed_attention.py`: the
-ulysses, ring pass-q and ring pass-kv cache islands, `sp_cache_attention`
-and `sp_comm_bytes_per_layer`).
+"""Sequence-parallel attention inside the model forwards (port of
+`inferix_tpu/parallel/distributed_attention.py`: Wan's ulysses, ring pass-q
+and ring pass-kv cache islands, `sp_cache_attention`, MAGI's
+`cso_chunk_attention` and `gqa_head_island`, and
+`sp_comm_bytes_per_layer`).
 
 Where the JAX package runs each island as a `shard_map` with
 `all_to_all` / `ppermute`, the port runs one process a rank and exchanges
@@ -30,8 +31,29 @@ dequantized slice that the single-device dispatcher takes there. Every
 cache validity mask is a prefix of the slots, so each slice's live length
 is known on the host; a slice with no live row skips the attention and
 contributes out 0, lse -inf (rows of a [B] batch with no live token get lse
--inf too), which the merge weighs 0. `gqa_head_island`
-and the CSO island (MAGI) are not ported here (ROADMAP.md A13b).
+-inf too), which the merge weighs 0.
+
+Under tp each rank enters with its tp-local heads (H / tp): the ulysses
+all-to-all splits them again over sp, so the rank attends heads slice
+t sp + s of tp sp (the JAX `("tp", "sp")` axis), and the ring modes keep
+the rank's tp heads over its sp slot slice (JAX `wan_kv_cache_pspec`).
+
+MAGI (`models/magi/dit.py`):
+- **`cso_chunk_attention`**: q enters as the rank's token shard of every
+  chunk (a contiguous 1/sp of each chunk's tokens, JAX `P("dp", None,
+  "sp", ...)`); per chunk, an all-to-all turns it into every token of the
+  chunk for the rank's heads, the GQA fold (B1 / B2 on the card) attends
+  the rank's kv heads of the window cache over the chunk's span [start,
+  min(end, current_end)) (host ints), and the reverse all-to-all follows;
+  `whole_window=True` is "ulysses": one all-to-all pair for the whole
+  window, the spans still a chunk each (JAX `:538-557`);
+- **`gqa_head_island`**: the JAX island is collective-free because GSPMD
+  reshards its inputs by heads; here q (and fresh k / v) are token shards,
+  so they go through `tokens_to_heads`, the fold attends the rank's
+  Hq / (tp sp) heads over its Hkv / (tp sp) kv heads, and the output comes
+  back through `heads_to_tokens`. K/V computed from replicated inputs
+  (the caption's) hold every token: the rank takes its kv heads, no
+  exchange.
 """
 from __future__ import annotations
 
@@ -42,7 +64,8 @@ import torch
 from ..kvcache.cache import (KVCacheSpec, block_fields, live_tokens, token_major,
                              valid_mask, write_fields)
 from ..ops.attention import attention_chunked, cache_attention
-from ..ops.flash_attention import FP8, flash_attention_prefix, flash_attention_prefix_quant
+from ..ops.flash_attention import (FP8, flash_attention_gqa, flash_attention_gqa_quant,
+                                   flash_attention_prefix, flash_attention_prefix_quant)
 from .mesh import (CacheShard, SPMesh, gather_frame_shards, heads_to_tokens,
                    tokens_to_heads)
 
@@ -237,6 +260,64 @@ def sp_cache_attention(mesh: SPMesh, mode: str, spec: KVCacheSpec, shard: CacheS
         return ring_pass_kv_cache_attention(mesh, q, layer[0], layer[1], lens, *scales,
                                             kv_layout=kv_layout)
     raise ValueError(f"unknown sp attention mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# MAGI: the CSO / ulysses window island and the head island
+# ---------------------------------------------------------------------------
+
+def _span_attention(q: torch.Tensor, fields: Sequence[torch.Tensor], start: int,
+                    end: int) -> torch.Tensor:
+    """The GQA fold of q [B, ct, Hq, D] over the token-major cache fields
+    (k, v[, k_scale, v_scale]) on [start, end)."""
+    if len(fields) == 4:
+        return flash_attention_gqa_quant(q, *fields, kv_len=end, kv_start=start)
+    return flash_attention_gqa(q, fields[0], fields[1], kv_len=end, kv_start=start)
+
+
+def cso_chunk_attention(mesh: SPMesh, q: torch.Tensor, fields: Sequence[torch.Tensor],
+                        token_ranges: Sequence[Tuple[int, int]], current_end: int,
+                        whole_window: bool = False) -> torch.Tensor:
+    """q: [B, n_chunks, ct/sp, Hq_loc, D], the rank's token shard of every
+    chunk (its tp-local heads); fields: the rank's kv heads of the window
+    cache layer, token-major views (k, v[, k_scale, v_scale]);
+    token_ranges: each chunk's [start, end) in tokens. Returns the rank's
+    shard of the output, q's shape."""
+    b, nc, cs, h, d = q.shape
+    if whole_window:
+        qg = tokens_to_heads(mesh, q.reshape(b, nc * cs, h, d), nc)
+        ct = qg.shape[1] // nc
+        outs = [_span_attention(qg[:, ci * ct:(ci + 1) * ct], fields, start,
+                                min(end, current_end))
+                for ci, (start, end) in enumerate(token_ranges)]
+        out = outs[0] if nc == 1 else torch.cat(outs, dim=1)
+        return heads_to_tokens(mesh, out, nc).reshape(b, nc, cs, h, d)
+    outs = []
+    for ci, (start, end) in enumerate(token_ranges):
+        qg = tokens_to_heads(mesh, q[:, ci], 1)
+        outs.append(heads_to_tokens(
+            mesh, _span_attention(qg, fields, start, min(end, current_end)), 1))
+    return torch.stack(outs, dim=1)
+
+
+def gqa_head_island(mesh: SPMesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len=None, kv_tokens_sharded: bool = True) -> torch.Tensor:
+    """q: [B, S/sp, Hq_loc, D] the rank's token shard (tp-local heads);
+    k/v: likewise token shards [B, Skv/sp, Hkv_loc, D], or with
+    kv_tokens_sharded=False every token [B, Skv, Hkv_loc, D] (computed from
+    replicated inputs). The rank attends its 1/sp of the heads over every
+    token (kv_len: a prefix length, int or [B]; default all), and gets its
+    token shard back."""
+    qg = tokens_to_heads(mesh, q, 1)
+    if kv_tokens_sharded:
+        kg, vg = tokens_to_heads(mesh, k, 1), tokens_to_heads(mesh, v, 1)
+    else:
+        per = k.shape[2] // mesh.size
+        if k.shape[2] % mesh.size:
+            raise ValueError(f"{k.shape[2]} kv heads do not split over sp {mesh.size}")
+        kg, vg = (x[:, :, mesh.rank * per:(mesh.rank + 1) * per] for x in (k, v))
+    out = flash_attention_gqa(qg, kg, vg, kv_len=kg.shape[1] if kv_len is None else kv_len)
+    return heads_to_tokens(mesh, out, 1)
 
 
 def sp_comm_bytes_per_layer(mode: str, sp: int, tp: int, batch: int, block_tokens: int,

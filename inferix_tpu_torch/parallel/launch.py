@@ -1,8 +1,13 @@
-"""Rank processes for the sequence-parallel path: `RankPool` starts one
-process a rank (multiprocessing "spawn"), each joins the process group
-from `init_method` with the backend the caller names and holds its mesh;
-`run(fn, *args)` calls the module-level function `fn(mesh, *args)` on every
-rank and returns the ranks' results in rank order.
+"""Rank processes for the parallel paths: `RankPool` starts one process a
+rank (multiprocessing "spawn"), each joins the process group from
+`init_method` with the backend the caller names and holds its mesh
+(`parallel.mesh.Mesh`); `run(fn, *args)` calls the module-level function
+`fn(mesh, *args)` on every rank and returns the ranks' results in rank
+order. A pool of n ranks hosts every layout of at most n ranks:
+`run(fn, *args, layout=ParallelConfig(...))` hands fn that layout's mesh,
+whose groups each rank builds at its first use (every rank the same
+groups in the same order) and keeps; the ranks past a smaller layout's
+world return None without calling fn.
 
 The pool is started once and reused: a rank process costs seconds to start
 (importing torch, joining the group). A rank that raises, or a call past
@@ -12,7 +17,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -21,21 +26,29 @@ from ..core.config import ParallelConfig
 from .mesh import make_mesh
 
 
-def _rank_main(rank: int, size: int, backend: str, init_method: str, device: str,
-               threads: Optional[int], conn) -> None:
+def _key(cfg: ParallelConfig) -> Tuple[int, int, int]:
+    return cfg.dp, cfg.sp, cfg.tp
+
+
+def _rank_main(rank: int, layout: ParallelConfig, backend: str, init_method: str,
+               device: str, threads: Optional[int], conn) -> None:
     if threads:
         torch.set_num_threads(threads)
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
-    mesh = make_mesh(ParallelConfig(sp=size), rank, backend, device, init_method)
+    meshes = {_key(layout): make_mesh(layout, rank, backend, device, init_method)}
     try:
         while True:
             msg = conn.recv()
             if msg is None:
                 break
-            fn, args = msg
+            fn, args, cfg = msg
             try:
-                conn.send(("ok", fn(mesh, *args)))
+                cfg = cfg or layout
+                if _key(cfg) not in meshes:
+                    meshes[_key(cfg)] = make_mesh(cfg, rank, backend, device)
+                mesh = meshes[_key(cfg)]
+                conn.send(("ok", None if mesh is None else fn(mesh, *args)))
             except BaseException:  # noqa: BLE001 - sent to the caller, which raises
                 conn.send(("error", traceback.format_exc()))
                 break
@@ -44,29 +57,39 @@ def _rank_main(rank: int, size: int, backend: str, init_method: str, device: str
 
 
 class RankPool:
-    """`size` rank processes over `backend` ("gloo" or "nccl"), on `device`
-    ("cpu", or "cuda:i"; under nccl rank r takes "cuda:r")."""
+    """The ranks of `layout` (a ParallelConfig, or an int: that many sp
+    ranks) over `backend` ("gloo" or "nccl"), on `device` ("cpu", or
+    "cuda:i"; under nccl rank r takes "cuda:r")."""
 
-    def __init__(self, size: int, backend: str, init_method: str, device: str = "cuda",
-                 threads: Optional[int] = None, timeout: float = 600.0):
+    def __init__(self, layout: Union[int, ParallelConfig], backend: str, init_method: str,
+                 device: str = "cuda", threads: Optional[int] = None, timeout: float = 600.0):
+        if isinstance(layout, int):
+            layout = ParallelConfig(sp=layout)
         ctx = mp.get_context("spawn")
-        self.size, self.timeout = size, timeout
+        self.layout, self.timeout = layout, timeout
+        self.size = layout.dp * layout.sp * layout.tp
         self._conns, self._procs = [], []
-        for rank in range(size):
+        for rank in range(self.size):
             dev = f"cuda:{rank}" if backend == "nccl" else device
             here, there = ctx.Pipe()
             p = ctx.Process(target=_rank_main, daemon=True,
-                            args=(rank, size, backend, init_method, dev, threads, there))
+                            args=(rank, layout, backend, init_method, dev, threads, there))
             p.start()
             self._conns.append(here)
             self._procs.append(p)
 
-    def run(self, fn: Callable, *args: Any) -> List[Any]:
-        """fn(mesh, *args) on every rank; the results in rank order."""
+    def run(self, fn: Callable, *args: Any,
+            layout: Optional[ParallelConfig] = None) -> List[Any]:
+        """fn(mesh, *args) on every rank of `layout` (default: the pool's;
+        at most the pool's world), mesh the rank's; the results in rank
+        order, None from a rank past the layout."""
         if not self._procs:
             raise RuntimeError("the rank pool is closed")
+        if layout is not None and layout.dp * layout.sp * layout.tp > self.size:
+            raise ValueError(f"a layout of {layout.dp * layout.sp * layout.tp} ranks on a "
+                             f"pool of {self.size}")
         for c in self._conns:
-            c.send((fn, args))
+            c.send((fn, args, layout))
         results, failure = [], None
         for rank, c in enumerate(self._conns):
             if not c.poll(self.timeout):

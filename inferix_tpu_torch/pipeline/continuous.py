@@ -9,7 +9,9 @@ a stream resets its slot and starts it at position 0 while its neighbours go
 on mid-clip; an idle slot computes on zeros at position 0 and touches no
 other row. Each stream draws its noise and renoise from a generator of its
 own, so its trajectory does not depend on the slot it holds or on its
-neighbours.
+neighbours. On a mesh every rank admits and steps the same streams: the
+slots are spread over dp (each rank runs its rows), and each stream's
+rows are whole on its rank.
 """
 from __future__ import annotations
 
@@ -46,8 +48,14 @@ class ContinuousBatcher:
     def __init__(self, generator: SemiARGenerator):
         self.gen = generator
         self.spec = generator.statics.spec
-        self.manager = KVCacheManager(self.spec, device=generator.device)
-        self.max_streams = self.spec.batch
+        # on a mesh the slots are the whole batch's, the cache this rank's
+        # shard of its dp rows (`SemiARGenerator.init_cache`)
+        rows = generator.rows
+        self.manager = KVCacheManager(
+            self.spec, device=generator.device, slots=generator.batch,
+            rows=None if rows is None else (rows.start, rows.stop),
+            cache_factory=generator.init_cache)
+        self.max_streams = generator.batch
         self.streams: Dict[str, Stream] = {}
         self._xattn: Optional[CrossAttnCache] = None
         self.fpb = generator.cfg.model.num_frame_per_block

@@ -22,9 +22,15 @@ The window cache takes the runtime's layouts (`kv_head_major`,
 `kv_alloc_pad`), and a resume state carries the cache in the layout of the
 run that saved it (a JAX head-major state too).
 
-Not ported here: a mesh and `cp_strategy` "cso" / "ulysses" (ROADMAP.md
-A13b), pipeline parallelism, and `MagiVideoPipeline`'s tile-parallel decode
-and `decode_devices` (A13c). Each is refused by name.
+On a mesh (`parallel.mesh.make_mesh`, one process a rank, every rank
+calling the pipeline with the same inputs) of sp or tp > 1 the walk runs
+`cp_strategy` "cso" or "ulysses" (forced to "cso" when the runtime names
+neither, as the JAX pipeline does): each rank holds its tp shard of the
+tree (gated fc1 split into gate / up first) and its kv heads of the window
+cache; the 3-CFG row sync stays on the rank (its cache rows are whole).
+Not ported here: MAGI at dp > 1, pipeline parallelism, and
+`MagiVideoPipeline`'s tile-parallel decode and `decode_devices`
+(ROADMAP.md A13c). Each is refused by name.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..kvcache.cache import KVCache, cache_shape, init_kv_cache
+from ..parallel.distributed_attention import sp_comm_bytes_per_layer
+from ..parallel.mesh import as_mesh, magi_param_shards
 from ..models.magi.dit import (
     MagiModelConfig,
     Params,
@@ -45,6 +53,7 @@ from ..models.magi.dit import (
     magi_forward_uncond,
     magi_forward_window_scan,
     make_magi_statics,
+    split_gated_fc1,
     sync_cache_rows,
 )
 from ..models.magi.scheduler import ChunkSchedule, MagiScheduleConfig
@@ -83,7 +92,9 @@ class MagiRuntimeConfig:
     shortcut_mode: str = ""
     distill_nearly_clean_chunk_threshold: float = 0.3
     distill_prev_chunks_scale: float = 0.7  # reference env prev_chunks_scale
-    # in-forward context parallelism over a mesh: only "none" here (A13b)
+    # in-forward context parallelism over a mesh of sp or tp > 1: "cso"
+    # (per-chunk all-to-alls) or "ulysses" (one pair a window); "none" on
+    # such a mesh is taken as "cso"
     cp_strategy: str = "none"
     # the int8 window cache with per-(token, head) scales (B2's path)
     quantize_kv: bool = False
@@ -133,10 +144,13 @@ class MagiPipeline:
         device: str | torch.device = "cuda",
         generator: Optional[torch.Generator] = None,
     ):
-        if mesh is not None or runtime.cp_strategy != "none":
-            raise NotImplementedError(
-                f"mesh / cp_strategy={runtime.cp_strategy!r}: MAGI's context parallelism "
-                f"is not ported (ROADMAP.md A13b)")
+        mesh = as_mesh(mesh)
+        sp_mode = runtime.cp_strategy
+        if mesh is not None and (mesh.sp.size > 1 or mesh.tp.size > 1) \
+                and sp_mode not in ("cso", "ulysses"):
+            print("[magi] tp/sp>1 mesh without cp_strategy: forcing cp_strategy='cso' "
+                  "(attention must run inside the islands)", flush=True)
+            sp_mode = "cso"
         if runtime.window_dispatch not in WINDOW_DISPATCHES:
             raise ValueError(f"window_dispatch must be one of {WINDOW_DISPATCHES}, got "
                              f"{runtime.window_dispatch!r}")
@@ -151,12 +165,24 @@ class MagiPipeline:
         self.batch = 2 if runtime.cfg_number >= 2 else 1
         self.statics = make_magi_statics(
             model_cfg, self.batch, latent_h, latent_w, max_chunks, dtype,
-            kv_dtype=kv_dtype, quantize_kv=runtime.quantize_kv,
+            mesh=mesh, sp_mode=sp_mode, kv_dtype=kv_dtype, quantize_kv=runtime.quantize_kv,
             kv_head_major=runtime.kv_head_major,
             kv_alloc_multiple=DEFAULT_KV_BLOCK if runtime.kv_alloc_pad else 0)
         if params is None:
             g = generator or torch.Generator(device=self.device).manual_seed(runtime.seed)
             params = init_magi_params(model_cfg, g, self.device, dtype)
+        self.mesh = self.statics.mesh
+        # the JAX package's count of one layer's window exchange a forward
+        self.sp_comm_bytes = 0
+        if self.mesh is not None:
+            if model_cfg.gated_linear_unit and self.mesh.tp.size > 1:
+                params = split_gated_fc1(params, model_cfg.ffn_hidden_size)
+            params = magi_param_shards(params, self.mesh)
+            self.sp_comm_bytes = sp_comm_bytes_per_layer(
+                "cso", self.mesh.sp.size, 1, self.batch,
+                runtime.window_size * self.statics.geo.chunk_tokens,
+                self.statics.spec.max_tokens, model_cfg.num_attention_heads,
+                model_cfg.kv_channels, itemsize=torch.empty((), dtype=dtype).element_size())
         self.params = params
 
     # -- CFG ----------------------------------------------------------------
@@ -256,13 +282,13 @@ class MagiPipeline:
             x[:, :chunk_offset * cw] = prefix_latents.to(x.dtype)
 
         if resume_state is None:
-            cache = init_kv_cache(self.statics.spec, dev)
+            cache = init_kv_cache(self.statics.spec, dev, num_kv_heads=self.statics.kv_heads)
         else:
             c = resume_state["cache"]
             cache = KVCache(*(torch.as_tensor(c[f], device=dev) if f in c else None
                               for f in KVCache._fields))
             spec = self.statics.spec
-            shape = cache_shape(spec)
+            shape = cache_shape(spec, num_kv_heads=self.statics.kv_heads)
             want = (shape, shape) + ((shape[:-1],) * 2 if spec.quantized else (None, None))
             got = tuple(None if f is None else tuple(f.shape) for f in cache)
             if got != want:

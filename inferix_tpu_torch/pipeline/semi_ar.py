@@ -27,13 +27,21 @@ off on multi-device meshes, and on one device takes it only with
 `set_fused_act_quant(True)`).
 
 `runtime.kv_head_major` / `kv_alloc_pad` choose the cache's layouts
-(`kvcache/cache.py`). Sequence parallelism: pass a mesh
-(`parallel.mesh.make_mesh`) of sp > 1 ranks, one process each, every rank
-calling the generator with the same inputs; `parallel.sp_mode` "ulysses",
-"ring" / "ring_pass_q" or "ring_pass_kv" picks the attention island, and
-"auto" (or a mesh of one) runs none, as in the JAX generator. Each rank
-holds only its shard of the cache (`init_cache`) and returns the whole
-latents.
+(`kvcache/cache.py`). Parallelism: pass a mesh (`parallel.mesh.make_mesh`),
+one process a rank, every rank calling the generator with the same inputs.
+- sp > 1: `parallel.sp_mode` "ulysses", "ring" / "ring_pass_q" or
+  "ring_pass_kv" picks the attention island, and "auto" (or a mesh of one)
+  runs none, as in the JAX generator;
+- tp > 1: the rank holds its tp shard of the tree
+  (`parallel.mesh.wan_param_shards`; q/k/v stay unfused, as in the JAX
+  generator) and of the text K/V; "ulysses" on a tp-only mesh runs the
+  island too (`semi_ar.py:118-131`);
+- dp > 1: each rank runs its B / dp batch rows. The inputs are the whole
+  batch's: the noise and every renoise are drawn for all B rows, then
+  sliced, so a dp run equals the one-device run row for row; each block's
+  x0 is gathered over dp.
+Each rank holds only its shard of the cache (`init_cache`) and returns the
+whole latents.
 """
 from __future__ import annotations
 
@@ -51,18 +59,19 @@ from ..models.wan.causal_dit import (Params, dit_forward_inference,
 from ..ops.flash_attention import DEFAULT_KV_BLOCK
 from ..ops.rope import build_rope_tables
 from ..parallel.distributed_attention import MODES, sp_comm_bytes_per_layer
-from ..parallel.mesh import SPMesh, init_kv_cache_shard
+from ..parallel.mesh import as_mesh, init_kv_cache_shard, wan_param_shards
 from ..quant.api import to_kernel_layout
 
 
 class SemiARGenerator:
     """Generates latents block by block over one KV cache, on one device or
-    on this rank of a sequence-parallel mesh."""
+    on this rank of a mesh (`parallel.mesh.Mesh`, or an `SPMesh` of sp
+    ranks)."""
 
     def __init__(self, cfg: EngineConfig, params: Params,
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
-                 mesh: Optional[SPMesh] = None):
+                 mesh=None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -75,25 +84,43 @@ class SemiARGenerator:
             raise ValueError("kv_cache_dtype must be 'int8' or 'fp8', "
                              f"got {qc.kv_cache_dtype!r}")
         fp8_kv = quant_kv and qc.kv_cache_dtype == "fp8"
-        # q/k/v fused into one [D, 3D] projection, as the JAX generator does;
+        mesh = as_mesh(mesh)
+        tp = mesh.tp.size if mesh is not None else 1
+        # q/k/v fused into one [D, 3D] projection, as the JAX generator does
+        # (kept apart under tp, whose column shards split each projection);
         # int8 weights then held once, in the int8 GEMM's K-contiguous layout
-        self.params = to_kernel_layout(fuse_qkv_params(params) if m.fuse_qkv
-                                       else params)
-        # the sp island (JAX `semi_ar.py:118-131`): a listed mode on a mesh of
-        # sp > 1; "auto" and a mesh of one run none
+        if tp > 1:
+            params = wan_param_shards(params, mesh)
+        elif m.fuse_qkv:
+            params = fuse_qkv_params(params)
+        self.params = to_kernel_layout(params)
+        # the island (JAX `semi_ar.py:118-131`): a listed mode on a mesh of
+        # sp > 1, "ulysses" on a tp-only mesh; "auto" and a mesh of one run none
         sp_mode = "none"
-        if mesh is not None and mesh.size > 1 and cfg.parallel.sp_mode in MODES:
-            sp_mode = cfg.parallel.sp_mode
+        if mesh is not None and cfg.parallel.sp_mode in MODES:
+            if mesh.sp.size > 1:
+                sp_mode = cfg.parallel.sp_mode
+            elif tp > 1 and cfg.parallel.sp_mode == "ulysses":
+                sp_mode = "ulysses"
         self.mesh, self.sp_mode = mesh, sp_mode
+        # data parallel: `rows`, the batch rows this rank runs (None: all)
+        self.batch = r.batch_size
+        self._dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
+        self.rows, local_batch = None, self.batch
+        if self._dp is not None:
+            if self.batch % self._dp.size:
+                raise ValueError(f"batch {self.batch} does not split over dp {self._dp.size}")
+            local_batch = self.batch // self._dp.size
+            self.rows = slice(self._dp.rank * local_batch, (self._dp.rank + 1) * local_batch)
         self.statics = make_statics(
-            m, r.batch_size, m.num_frame_per_block, r.latent_height,
+            m, local_batch, m.num_frame_per_block, r.latent_height,
             r.latent_width, dtype, quantized_kv=quant_kv and not fp8_kv,
             kv_dtype=torch.float8_e4m3fn if fp8_kv else None, mesh=mesh, sp_mode=sp_mode,
             kv_head_major=r.kv_head_major,
             kv_alloc_multiple=DEFAULT_KV_BLOCK if r.kv_alloc_pad else 0)
         # the JAX package's count of one layer's attention exchange a forward
         self.sp_comm_bytes = sp_comm_bytes_per_layer(
-            sp_mode, mesh.size if mesh is not None else 1, 1, r.batch_size,
+            sp_mode, mesh.sp.size if mesh is not None else 1, tp, r.batch_size,
             self.statics.geo.tokens, self.statics.spec.max_tokens, m.num_heads,
             m.head_dim, itemsize=torch.empty((), dtype=dtype).element_size())
         self.rope_tables = build_rope_tables(m.head_dim, m.rope_max_seq_len,
@@ -113,17 +140,31 @@ class SemiARGenerator:
         self.context_mode = r.context_mode
 
     def init_cache(self) -> KVCache:
-        """The cache, or under sp this rank's shard of it."""
+        """The cache, or on a mesh this rank's shard of it."""
         return init_kv_cache_shard(self.statics.spec, self.statics.shard, self.device)
+
+    def _local(self, x):
+        """This dp rank's rows of a whole-batch tensor or sequence (x as it
+        is without dp, or when it has no row a slot: a batch of one)."""
+        if self.rows is None or x is None or len(x) != self.batch:
+            return x
+        return x[self.rows]
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's rows, in batch order."""
+        return x if self._dp is None else torch.cat(self._dp.all_gather(x), dim=0)
 
     def encode_text_context(self, context: torch.Tensor,
                             clip_features: Optional[torch.Tensor] = None) -> CrossAttnCache:
         """context: [B, text_len, text_dim] text-encoder features; for an
-        i2v model, clip_features [B, 257, 1280] add the image K/V."""
+        i2v model, clip_features [B, 257, 1280] add the image K/V. Under dp
+        the rank's rows are kept; under tp the rank's heads."""
+        tp = self.mesh.tp if self.mesh is not None else None
         with torch.inference_mode():
             return precompute_crossattn_cache(
-                self.params, self.cfg.model, context.to(self.device),
-                None if clip_features is None else clip_features.to(self.device))
+                self.params, self.cfg.model, self._local(context).to(self.device),
+                None if clip_features is None else self._local(clip_features).to(self.device),
+                tp=tp)
 
     def _start_tokens(self, current_start_frame):
         """A block's token offset: an int, or a [B] CPU tensor (one start a
@@ -133,16 +174,20 @@ class SemiARGenerator:
         starts = torch.as_tensor(current_start_frame, device="cpu").to(torch.long)
         if starts.dim() == 0:
             return int(starts) * self.frame_seq
-        return starts * self.frame_seq
+        return self._local(starts) * self.frame_seq
 
     def _renoise(self, x0: torch.Tensor, generator) -> torch.Tensor:
         """Fresh noise shaped like x0: from one generator for the batch, or
         with a sequence, each row from its own generator (zeros where it is
         None: an idle slot), so that a stream's draws do not depend on its
-        neighbours."""
+        neighbours. Under dp the whole batch's draw is made and sliced (one
+        generator), or the rank's rows' generators draw."""
         if generator is None or isinstance(generator, torch.Generator):
-            return torch.randn(x0.shape, generator=generator, dtype=torch.float32,
-                               device=self.device).to(x0.dtype)
+            rows = self.batch if self.rows is not None else x0.shape[0]
+            return self._local(torch.randn((rows,) + tuple(x0.shape[1:]), generator=generator,
+                                           dtype=torch.float32,
+                                           device=self.device)).to(x0.dtype)
+        generator = self._local(list(generator))
         if len(generator) != x0.shape[0]:
             raise ValueError(f"{len(generator)} generators for a batch of {x0.shape[0]}")
         rows = [torch.zeros(x0.shape[1:], dtype=torch.float32, device=self.device)
@@ -177,20 +222,22 @@ class SemiARGenerator:
         n_steps - 1 tensors shaped like `noisy` (a test hands in the noise
         the JAX package drew); when None it is drawn from `generator`: one
         torch.Generator, or a sequence of one per batch row (None for an
-        idle row, which gets zeros).
+        idle row, which gets zeros). Under dp, noisy, the starts, renoise
+        and the generators are the whole batch's; x0 is gathered, the cache
+        holds the rank's rows.
         """
         steps = self.denoising_steps
         if renoise is not None and len(renoise) < len(steps) - 1:
             raise ValueError(f"renoise needs {len(steps) - 1} tensors, got {len(renoise)}")
         start = self._start_tokens(current_start_frame)
-        x = noisy.to(self.device)
+        x = self._local(noisy).to(self.device)
         for i, t_val in enumerate(steps):
             flow, t = self._forward(x, t_val, xattn, cache, start)
             x0 = self.schedule.flow_to_x0(flow, x, t)
             if i == len(steps) - 1:
                 break
             if renoise is not None:
-                fresh = renoise[i].to(device=self.device, dtype=x0.dtype)
+                fresh = self._local(renoise[i]).to(device=self.device, dtype=x0.dtype)
             else:
                 fresh = self._renoise(x0, generator)
             t_next = torch.full_like(t, steps[i + 1])
@@ -199,7 +246,7 @@ class SemiARGenerator:
             # the clean-context re-run: its K/V is what later blocks attend
             self._forward(x0, self.context_noise, xattn, cache, start,
                           need_output=False)
-        return x0, cache
+        return self._gather(x0), cache
 
     @torch.inference_mode()
     def cache_context_block(self, cache: KVCache, xattn: CrossAttnCache,
@@ -207,7 +254,7 @@ class SemiARGenerator:
         """Write a block of clean latents into the KV cache without
         denoising (initial_latent prefixes)."""
         start = self._start_tokens(current_start_frame)
-        self._forward(clean.to(self.device), self.context_noise, xattn, cache,
+        self._forward(self._local(clean).to(self.device), self.context_noise, xattn, cache,
                       start, need_output=False)
         return cache
 

@@ -235,9 +235,14 @@ def test_gqa_fold_rep1_and_layout():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=object()), NotImplementedError, "A13"),
-    (dict(sp_mode="cso"), NotImplementedError, "A13"),
-    (dict(sp_mode="ulysses"), NotImplementedError, "A13"),
+    # since A13b a mesh is taken: an object that is none is refused, and an
+    # island without a mesh of sp or tp > 1 raises ValueError, as in JAX
+    pytest.param(dict(mesh=object()), TypeError, "mesh",
+                 id="kw0-NotImplementedError-A13"),
+    pytest.param(dict(sp_mode="cso"), ValueError, "requires a mesh",
+                 id="kw1-NotImplementedError-A13"),
+    pytest.param(dict(sp_mode="ulysses"), ValueError, "requires a mesh",
+                 id="kw2-NotImplementedError-A13"),
     (dict(sp_mode="ring"), ValueError, "sp_mode"),
 ])
 def test_make_magi_statics_refusals(kw, exc, match):

@@ -272,9 +272,13 @@ def test_magi_config_from_json(name):
 
 
 @pytest.mark.parametrize("kw,vkw,match", [
-    (dict(mesh=object()), {}, "A13"),
-    ({}, dict(cp_strategy="cso"), "A13"),
-    ({}, dict(cp_strategy="ulysses"), "A13"),
+    # since A13b a mesh and cp_strategy are taken: an object that is no mesh
+    # is refused, and a cp_strategy without a mesh of sp or tp > 1 raises
+    # ValueError (the JAX make_magi_statics' refusal); the tile decode and
+    # decode_devices are A13c
+    pytest.param(dict(mesh=object()), {}, "mesh", id="kw0-vkw0-A13"),
+    pytest.param({}, dict(cp_strategy="cso"), "requires a mesh", id="kw1-vkw1-A13"),
+    pytest.param({}, dict(cp_strategy="ulysses"), "requires a mesh", id="kw2-vkw2-A13"),
     (dict(tile=True), {}, "A13"),
     (dict(decode_devices=["cuda:1"]), {}, "A13"),
 ])
@@ -282,7 +286,8 @@ def test_refusals(trees, kw, vkw, match):
     _, trt = _runtime(**vkw)
     cls = tpipe.MagiVideoPipeline if ("tile" in kw or "decode_devices" in kw) \
         else tpipe.MagiPipeline
-    with pytest.raises(NotImplementedError, match=match):
+    exc = {"mesh": TypeError, "requires a mesh": ValueError}.get(match, NotImplementedError)
+    with pytest.raises(exc, match=match):
         _port_pipe(trees, trt, cls, **kw)
 
 

@@ -484,7 +484,7 @@ def test_config_round_trips():
         == ttypes.StreamingMode.TRUE_STREAMING
     for section, key, value, exc in (("runtime", "bogus", 1, KeyError),
                                      ("model", "qk_norm", False, ValueError),
-                                     ("parallel", "tp", 2, NotImplementedError),
+                                     ("parallel", "pp", 2, NotImplementedError),
                                      ("parallel", "bogus", 1, KeyError)):
         bad = tconfig.EngineConfig().to_dict()
         bad.setdefault(section, {})[key] = value

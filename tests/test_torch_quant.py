@@ -438,7 +438,11 @@ def test_row_plan_classes(width, plan):
 
 @pytest.mark.parametrize("k,act,plan", [
     (2 * 8960, "silu_mul", (128, 9)), (2 * 12288, "silu_mul", (128, 12)),
-    (8960, "gelu", (128, 9)), (8960, "gelu_exact", (128, 9)), (128, None, (16, 1))])
+    (8960, "gelu", (128, 9)), (8960, "gelu_exact", (128, 9)), (128, None, (16, 1)),
+    # the row-parallel inputs at tp 2: Wan's o (768) and fc2 (4480), MAGI-4.5B's
+    # proj (3072) and fc2 (6144), MAGI-24B's proj (6144) and split fc2 (8192)
+    (768, None, (32, 3)), (4480, "gelu", (128, 5)), (3072, None, (128, 3)),
+    (6144, "gelu_exact", (128, 6)), (6144, None, (128, 6)), (2 * 8192, "silu_mul", (128, 8))])
 def test_row_plan_of_an_activation_takes_its_output_width(k, act, plan):
     """silu_mul reads [gate | up] and quantizes half the input width."""
     assert taq.row_plan(taq._out_width(k, act)) == plan

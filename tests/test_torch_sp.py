@@ -18,8 +18,9 @@ in `tests/torch_sp_ranks.py`.
   on a mesh (`tests/test_distributed_attention.py`'s `_generate`, its rtol /
   atol 2e-4), the port fed the JAX renoise; and every mode x storage x
   layout held to the port's single-device generate (1e-5);
-- `sp_comm_bytes_per_layer` equal to the JAX integer; the refusals of tp,
-  dp and pp > 1 and of shapes that do not split over sp.
+- `sp_comm_bytes_per_layer` equal to the JAX integer; tp and dp > 1
+  accepted, pp > 1 refused; the refusals of shapes that do not split over
+  sp.
 """
 import copy
 
@@ -288,12 +289,22 @@ def test_sp_comm_bytes_per_layer_matches_jax():
 
 @pytest.mark.parametrize("axis,item", [("tp", "A13b"), ("dp", "A13b"), ("pp", "A13c")])
 def test_tp_dp_pp_refused(axis, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ParallelConfig(**{axis: 2})
+    """Since A13b (tensor and data parallelism) tp and dp build, through the
+    config's dict too; pp is still refused, naming A13c."""
     d = EngineConfig().to_dict()
     d["parallel"][axis] = 2
-    with pytest.raises(NotImplementedError, match=f"parallel.{axis}"):
-        EngineConfig.from_dict(d)
+    if item == "A13c":
+        with pytest.raises(NotImplementedError, match=item):
+            ParallelConfig(**{axis: 2})
+        with pytest.raises(NotImplementedError, match=f"parallel.{axis}"):
+            EngineConfig.from_dict(d)
+        return
+    assert getattr(ParallelConfig(**{axis: 2}), axis) == 2
+    cfg = EngineConfig.from_dict(d)
+    assert getattr(cfg.parallel, axis) == 2 and cfg.parallel.world_size == 2
+    assert EngineConfig.from_dict(cfg.to_dict()).parallel == cfg.parallel
+    with pytest.raises(ValueError, match=f"parallel.{axis}"):
+        ParallelConfig(**{axis: 0})
 
 
 def test_shapes_that_do_not_split_and_modes():

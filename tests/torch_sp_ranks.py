@@ -39,17 +39,18 @@ def island(mesh, mode, spec_kw, cache_np, q, k, v, start, frames):
         elif shard.axis == "slots":
             src = src[:, shard.lo:shard.hi]
         view.copy_(src)
-    ql, kl, vl = (frame_shard(mesh, torch.from_numpy(x), frames) for x in (q, k, v))
-    layer = sp_write_block(mesh, mode, spec, shard, layer, kl, vl, start, frames)
-    out = sp_cache_attention(mesh, mode, spec, shard, ql, layer, start + q.shape[1], frames)
+    sp = mesh.sp
+    ql, kl, vl = (frame_shard(sp, torch.from_numpy(x), frames) for x in (q, k, v))
+    layer = sp_write_block(sp, mode, spec, shard, layer, kl, vl, start, frames)
+    out = sp_cache_attention(sp, mode, spec, shard, ql, layer, start + q.shape[1], frames)
     return out.numpy(), [_np(f) for f in layer], mesh.sent_bytes
 
 
 def attention(mesh, name, q, k, v):
     """One `parallel.sp_attention` function over this rank's contiguous
     1/sp of the tokens; returns its output shard."""
-    q, k, v = (frame_shard(mesh, torch.from_numpy(x), 1) for x in (q, k, v))
-    return getattr(sp_attention, name)(mesh, q, k, v).numpy()
+    q, k, v = (frame_shard(mesh.sp, torch.from_numpy(x), 1) for x in (q, k, v))
+    return getattr(sp_attention, name)(mesh.sp, q, k, v).numpy()
 
 
 def generate(mesh, cfg_dict, params_np, ctx, noise, renoise):
