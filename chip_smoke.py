@@ -336,9 +336,35 @@ Phases, each timed on a line of its own:
                 bit-equal to each other, the Wan launches a block per rank
                 equal to what the code implies; the launches and each
                 group's bytes sent and staged printed per rank.
+ 38. pp         - pipeline parallelism, MAGI at dp > 1, the tiled and
+                disaggregated decodes and multi-host start-up, on phase
+                37's four ranks: Wan2.1-1.3B refused at pp 4 (30 layers);
+                Wan at pp 2, B = 2 as 2 microbatches, 1 block, bf16
+                against phase 37's one-rank B = 2 latents and W8A8 against
+                a one-rank W8A8 B = 2 block; MAGI-4.5B (full depth, 17
+                layers a stage) a 3-CFG window of 1 chunk with the row sync
+                and the uncond row at pp 2, cso tp 2 x pp 2 and dp 2 (its
+                row sync a send from dp rank 1 to dp rank 0); the MAGI-24B
+                widths W8A8 + int8 window cache at cso tp 2 x pp 2 (2
+                chunks), each against a one-rank run of the same forward
+                (PP_RTOL in norm), the ranks bit-equal, each rank's
+                attention launches and layer applications (microbatches x
+                layers a stage x forwards) as the code implies, the synced
+                cache rows equal; the ViT-VAE's 720x720 chunk through
+                MagiVideoPipeline(tile=True, decode_devices=[cuda:0]) (one
+                tile bit-equal to vae.decode, the pipeline's tiles within
+                TILE_MEAN_TOL of the whole decode); the disaggregated Wan
+                decode on the halo kernel (1 tile bit-equal to
+                decode_chunk over 2 blocks, 2 tiles within TILE_MEAN_TOL)
+                and a 2-segment TRUE_STREAMING run with and without
+                set_disaggregated_decode (every frame); two processes
+                joining through COORDINATOR_ADDRESS / NUM_PROCESSES /
+                PROCESS_ID (gloo), an all-reduce and process 0's
+                interactive decision on both.
 (Phase 13 runs after phase 7, phases 11-12 after phase 6, phases 30-32 and
 36's MAGI forward after phase 27, phase 35 after phase 25, phase 37 after
-phase 36, whose one-rank runs it reads.)
+phase 36, whose one-rank runs it reads; phase 38 after phase 37, on its
+pool and its one-rank B = 2 latents.)
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no such line.
@@ -350,9 +376,11 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -399,7 +427,8 @@ from inferix_tpu_torch.kvcache.cache import (FP8_MAX, KVCache, KVCacheSpec, init
                                              quantize_kv_block, token_major, valid_mask)
 from inferix_tpu_torch.models.magi.dit import (
     MagiModelConfig, init_magi_params, magi_forward, magi_forward_uncond,
-    magi_forward_window_scan, make_magi_statics, split_gated_fc1, sync_cache_rows)
+    magi_forward_window_scan, make_magi_statics, split_gated_fc1, sync_cache_rows,
+    tiny_magi_config)
 from inferix_tpu_torch.models.magi.scheduler import ChunkSchedule, MagiScheduleConfig
 from inferix_tpu_torch.models.magi.vae import (ViTVAE, ViTVAEConfig, init_vitvae_params,
                                                vitvae_rope_tables)
@@ -420,8 +449,11 @@ from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
 from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
+from inferix_tpu_torch.parallel.disaggregated import DisaggregatedVAEDecoder
 from inferix_tpu_torch.parallel.launch import RankPool
-from inferix_tpu_torch.parallel.mesh import magi_param_shards
+from inferix_tpu_torch.parallel.mesh import Mesh, SPMesh, grid_place, magi_param_shards
+from inferix_tpu_torch.parallel.pipeline_parallel import pp_pipeline, stage_layers
+from inferix_tpu_torch.parallel.tile_parallel import TileProcessor, split_tiles
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
 from inferix_tpu_torch.pipeline.magi import MagiPipeline, MagiVideoPipeline, magi_config_from_json
@@ -6449,12 +6481,12 @@ def magi_tp_rank_run(mesh, label: str) -> dict:
     return magi_tp_forward(mesh.device, label, mesh)
 
 
-def tp_phase(dev: torch.device, smi: str, tmp: str, refs: dict) -> tuple:
+def tp_phase(dev: torch.device, smi: str, pool: RankPool, refs: dict) -> tuple:
     """Phase 37: B4's tp stages, then the Wan and MAGI runs of
-    TP_WAN_RUNS / TP_MAGI_RUNS on four gloo ranks of this card, each held to
-    its one-rank run (refs: phase 36's bf16 and int8 latents). Returns (the
-    launches of its paths, the ranks' included; the tp stages' kernels
-    entry)."""
+    TP_WAN_RUNS / TP_MAGI_RUNS on `pool`, four gloo ranks of this card, each
+    held to its one-rank run (refs: phase 36's bf16 and int8 latents).
+    Returns (the launches of its paths, the ranks' included; the tp stages'
+    kernels entry; the one-rank Wan latents by (kv, batch, W8A8, blocks))."""
     t0 = time.perf_counter()
     entry = tp_kernel_case(dev)
     print(f"phase 37 B4 tp stages: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -6492,57 +6524,538 @@ def tp_phase(dev: torch.device, smi: str, tmp: str, refs: dict) -> tuple:
     torch.cuda.empty_cache()
     m = main_path_config(SP_BLOCKS).model
     forwards = len(main_path_config(SP_BLOCKS).runtime.denoising_step_list) + 1
-    t1 = time.perf_counter()
-    with RankPool(TP_POOL, "gloo", f"file://{os.path.join(tmp, 'tp_store')}", device=str(dev),
-                  threads=TP_THREADS, timeout=TP_TIMEOUT) as pool:
-        print(f"phase 37 {TP_POOL} gloo ranks on {dev}: {time.perf_counter() - t1:.3f} s to "
-              f"start", flush=True)
-        for label, (lay, mode, kv, batch, w8a8, blocks) in TP_WAN_RUNS.items():
-            t2 = time.perf_counter()
-            res = [r for r in pool.run(tp_rank_run, label, layout=lay) if r is not None]
-            wall = time.perf_counter() - t2
-            ref = wan_refs[kv, batch, w8a8, blocks]
-            lats = [torch.from_numpy(r["latents"]) for r in res]
-            errs = [rel_err(x, torch.from_numpy(ref)) for x in lats]
-            ok = all(torch.equal(lats[0], x) for x in lats) and all(
-                e <= TP_RTOL for e in errs) and all(torch.isfinite(x).all().item() for x in lats)
-            for rank, r in enumerate(res):
-                want = tp_expected(label, r["spec"], r["where"][1], forwards, m.num_layers)
-                ok = ok and r["launches"] == want
-                for c in r["launches"]:
-                    add_counts(total, c)
-                print(f"phase 37 wan {label} rank {rank} (d, s, t) {r['where']} "
-                      f"({r['cache_bytes'] / 1e9:.3f} GB of cache): s a block "
-                      f"{[round(x, 3) for x in r['secs']]}; launches a block {r['launches']} "
-                      f"(the code implies {want}); bytes (sent, staged) by group {r['bytes']}",
-                      flush=True)
-            print(f"phase 37 wan {label}: sp_comm_bytes_per_layer {res[0]['comm_layer']}; "
-                  f"ranks' latents bit-equal {all(torch.equal(lats[0], x) for x in lats)}; rel "
-                  f"err to one rank {[f'{e:.3e}' for e in errs]} (tol {TP_RTOL:g}); {wall:.3f} s "
-                  f"for the run", flush=True)
-            gate(ok, f"phase 37 wan {label}")
-        for label, (model, lay, mode, int8_kv, cfg3, chunks) in TP_MAGI_RUNS.items():
-            t2 = time.perf_counter()
-            res = [r for r in pool.run(magi_tp_rank_run, label, layout=lay) if r is not None]
-            wall = time.perf_counter() - t2
-            ref = magi_refs[(model, int8_kv, cfg3, chunks)]
-            ok = True
-            for rank, r in enumerate(res):
-                errs = [rel_err(r[k], ref[k]) for k in ("vel", "uncond") if k in r]
-                ok = (ok and all(e <= TP_RTOL for e in errs) and torch.equal(r["vel"], res[0]["vel"])
-                      and all(torch.isfinite(r[k]).all().item() for k in ("vel", "uncond")
-                              if k in r))
-                add_counts(total, r["launches"])
-                print(f"phase 37 magi {label} rank {rank} (shard {r['shard']}, "
-                      f"{r['cache_bytes'] / 1e9:.3f} GB of cache): {r['secs']:.3f} s (one rank "
-                      f"{ref['secs']:.3f}); rel err to one rank {[f'{e:.3e}' for e in errs]} "
-                      f"(tol {TP_RTOL:g}); launches {r['launches']} (one rank "
-                      f"{ref['launches']}); bytes (sent, staged) by group {r['bytes']}",
-                      flush=True)
-            print(f"phase 37 magi {label}: {wall:.3f} s for the run", flush=True)
-            gate(ok, f"phase 37 magi {label}")
+    for label, (lay, mode, kv, batch, w8a8, blocks) in TP_WAN_RUNS.items():
+        t2 = time.perf_counter()
+        res = [r for r in pool.run(tp_rank_run, label, layout=lay) if r is not None]
+        wall = time.perf_counter() - t2
+        ref = wan_refs[kv, batch, w8a8, blocks]
+        lats = [torch.from_numpy(r["latents"]) for r in res]
+        errs = [rel_err(x, torch.from_numpy(ref)) for x in lats]
+        ok = all(torch.equal(lats[0], x) for x in lats) and all(
+            e <= TP_RTOL for e in errs) and all(torch.isfinite(x).all().item() for x in lats)
+        for rank, r in enumerate(res):
+            want = tp_expected(label, r["spec"], r["where"][1], forwards, m.num_layers)
+            ok = ok and r["launches"] == want
+            for c in r["launches"]:
+                add_counts(total, c)
+            print(f"phase 37 wan {label} rank {rank} (d, s, t) {r['where']} "
+                  f"({r['cache_bytes'] / 1e9:.3f} GB of cache): s a block "
+                  f"{[round(x, 3) for x in r['secs']]}; launches a block {r['launches']} "
+                  f"(the code implies {want}); bytes (sent, staged) by group {r['bytes']}",
+                  flush=True)
+        print(f"phase 37 wan {label}: sp_comm_bytes_per_layer {res[0]['comm_layer']}; "
+              f"ranks' latents bit-equal {all(torch.equal(lats[0], x) for x in lats)}; rel "
+              f"err to one rank {[f'{e:.3e}' for e in errs]} (tol {TP_RTOL:g}); {wall:.3f} s "
+              f"for the run", flush=True)
+        gate(ok, f"phase 37 wan {label}")
+    for label, (model, lay, mode, int8_kv, cfg3, chunks) in TP_MAGI_RUNS.items():
+        t2 = time.perf_counter()
+        res = [r for r in pool.run(magi_tp_rank_run, label, layout=lay) if r is not None]
+        wall = time.perf_counter() - t2
+        ref = magi_refs[(model, int8_kv, cfg3, chunks)]
+        ok = True
+        for rank, r in enumerate(res):
+            errs = [rel_err(r[k], ref[k]) for k in ("vel", "uncond") if k in r]
+            ok = (ok and all(e <= TP_RTOL for e in errs) and torch.equal(r["vel"], res[0]["vel"])
+                  and all(torch.isfinite(r[k]).all().item() for k in ("vel", "uncond")
+                          if k in r))
+            add_counts(total, r["launches"])
+            print(f"phase 37 magi {label} rank {rank} (shard {r['shard']}, "
+                  f"{r['cache_bytes'] / 1e9:.3f} GB of cache): {r['secs']:.3f} s (one rank "
+                  f"{ref['secs']:.3f}); rel err to one rank {[f'{e:.3e}' for e in errs]} "
+                  f"(tol {TP_RTOL:g}); launches {r['launches']} (one rank "
+                  f"{ref['launches']}); bytes (sent, staged) by group {r['bytes']}",
+                  flush=True)
+        print(f"phase 37 magi {label}: {wall:.3f} s for the run", flush=True)
+        gate(ok, f"phase 37 magi {label}")
     phase("tp (37)", t0)
-    return total, entry
+    return total, entry, wan_refs
+
+
+# ---------------------------------------------------------------------------
+# Phase 38: pipeline parallelism, MAGI at dp > 1, the tiled and disaggregated
+# decodes and multi-host start-up (A13c)
+# ---------------------------------------------------------------------------
+
+# Each run against the one-rank run of its precision, in norm: the stages do
+# one device's math a row at a time (B = 1 GEMMs where one rank runs B = 2),
+# as phase 37's dp 2 run does (4.4e-3 from one rank on an H100); the
+# composed runs add phase 37's tp sums. Phase 37's gap.
+PP_RTOL = TP_RTOL
+# mean |tiled - whole| of a decode's pixels: the JAX package's bound
+# (tests/test_disaggregated.py:104)
+TILE_MEAN_TOL = 0.05
+# Wan runs: label -> (layout, W8A8); B = 2 as 2 microbatches, 1 block
+PP_WAN_RUNS = {"pp2 bf16 B=2": (ParallelConfig(pp=2), False),
+               "pp2 W8A8 B=2": (ParallelConfig(pp=2), True)}
+# MAGI runs: label -> (model, layout, sp_mode, int8 window cache, 3-CFG,
+# chunks of the window)
+PP_MAGI_RUNS = {
+    "4.5B pp2 3-CFG": ("4p5b", ParallelConfig(pp=2), "none", False, True, 1),
+    "4.5B cso tp2 x pp2 3-CFG": ("4p5b", ParallelConfig(tp=2, pp=2), "cso", False, True, 1),
+    "4.5B dp2 3-CFG": ("4p5b", ParallelConfig(dp=2), "none", False, True, 1),
+    "24B W8A8 int8 cache cso tp2 x pp2": ("24b", ParallelConfig(tp=2, pp=2), "cso", True,
+                                          False, 2),
+}
+PP_SEGMENT_FRAMES = 6    # phase 38's streaming segments: 6, then 3 carried + 3 new
+MULTIHOST_TIMEOUT = 180  # seconds the two multi-host processes may take
+MULTIHOST_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+device = sys.argv[2]
+import torch
+import torch.distributed as dist
+from inferix_tpu_torch.core.config import ParallelConfig
+from inferix_tpu_torch.core.interactive import InteractiveSession
+from inferix_tpu_torch.core.types import CheckpointResult, GenerationCommand
+from inferix_tpu_torch.parallel.multihost import (initialize_multihost, is_coordinator,
+                                                  make_global_mesh, process_index)
+ok = initialize_multihost(backend="gloo")   # NCCL takes one rank a card
+try:
+    make_global_mesh(ParallelConfig(tp=4), device=device)
+    refused = ""
+except ValueError as e:
+    refused = str(e)
+mesh = make_global_mesh(ParallelConfig(pp=2), device=device)
+me = process_index()
+x = torch.full((4,), me + 1.0, device=device).cpu()
+dist.all_reduce(x)
+prompt = "x" * 70000 if me == 0 else "no"
+got = InteractiveSession()._broadcast_result(
+    CheckpointResult(GenerationCommand.UPDATE_PROMPT, prompt))
+print(json.dumps({"ok": ok, "coordinator": is_coordinator(), "stage": mesh.stage,
+                  "sum": x.tolist(), "command": got.command.value,
+                  "prompt": len(got.new_prompt or ""), "refused": refused}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def pp_wan_config(label: str, one_rank: bool = False) -> tuple:
+    lay, w8a8 = PP_WAN_RUNS[label]
+    cfg = main_path_config(1, w8a8=w8a8)
+    cfg.runtime.batch_size = 2
+    if not one_rank:
+        cfg.parallel = lay
+    return cfg, w8a8
+
+
+def pp_wan_rank_run(mesh, label: str) -> dict:
+    """One phase-38 Wan run on a rank: a block of the seed-0 1.3B at B = 2,
+    its stage's 15 layers, with the rank's layer applications."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.reset_bytes()
+    cfg, w8a8 = pp_wan_config(label)
+    pp_pipeline.layer_applications = 0
+    out, cache, gen = run_blocks(mesh.device, cfg, mesh, w8a8=w8a8)
+    out["layers"] = pp_pipeline.layer_applications
+    out["bytes"] = mesh.bytes_by_group()
+    out["stage"] = mesh.stage
+    out["cache_layers"] = cache.k.shape[0]
+    del cache, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_wan_expected(w8a8: bool, stage_layers_: int, forwards: int) -> dict:
+    """The launches a block on a rank of pp 2 at B = 2: each of the 2
+    microbatches through the stage's layers in each forward; W8A8: 6 int8
+    GEMMs a layer-forward (q, k, v fused), 3 B4 and 3 B5 (2 adaln, 1 ln)."""
+    lf = 2 * stage_layers_ * forwards
+    want = {"flash_attention_prefix": lf}
+    if w8a8:
+        want.update(int8_matmul=6 * lf, quantize_rows_int8=3 * lf, adaln=2 * lf, ln=lf)
+    return want
+
+
+def magi_pp_forward(dev: torch.device, label: str, mesh=None) -> dict:
+    """A phase-38 MAGI run: the window forward of its chunks (fresh cache,
+    t 0.3 / 0.7) and for 3-CFG the B = 2 window with the row sync, then the
+    uncond forward of its chunk as a row; on one rank (mesh None) or this
+    rank of the mesh (its stage's layers, its tp shard, its dp rows; the
+    velocity rows gathered over dp). The launches and layer applications of
+    each forward, and each of the rank's cache rows' sum over the window
+    span of its last layer's K (the row sync makes the rows equal)."""
+    model, lay, mode, int8_kv, cfg3, chunks = PP_MAGI_RUNS[label]
+    cfg, params, caps, x = magi_tree(dev, model)
+    x = x[:, :chunks * cfg.chunk_width]
+    res = MAGI_720 if model == "4p5b" else MAGI_720x1280
+    b = 2 if cfg3 else 1
+    rows = slice(0, b)
+    if mesh is not None:
+        params = magi_param_shards(params, mesh)
+        if mesh.pp.size > 1:
+            params = {**params, "blocks": stage_layers(params["blocks"], mesh)}
+        if mesh.dp.size > 1:
+            lb = b // mesh.dp.size
+            rows = slice(mesh.dp.rank * lb, (mesh.dp.rank + 1) * lb)
+        mesh.reset_bytes()
+    st = make_magi_statics(cfg, rows.stop - rows.start, *res, chunks, mesh=mesh,
+                           sp_mode=mode if mesh is not None else "none", quantize_kv=int8_kv)
+    cache = init_kv_cache(st.spec, dev, num_kv_heads=st.kv_heads)
+    cap, mask, null, null_mask = caps
+    t = torch.tensor([[0.3, 0.7][:chunks]], device=dev)
+    kvr = [[0, 1], [0, 2]][:chunks]
+    torch.cuda.synchronize()
+    reset_counts()
+    pp_pipeline.layer_applications = 0
+    t1 = time.perf_counter()
+    out = {}
+    if cfg3:
+        caps2 = torch.stack([cap[0].expand(chunks, -1, -1), null[0].expand(chunks, -1, -1)])
+        masks2 = torch.stack([mask[0].expand(chunks, -1), null_mask[0].expand(chunks, -1)])
+        drop = torch.tensor([False, True], device=dev)
+        v, cache = magi_forward(params, st, None, x.expand(2, -1, -1, -1, -1)[rows].contiguous(),
+                                t.expand(2, -1)[rows], caps2[rows], masks2[rows], cache, 0, kvr,
+                                caption_dropout=drop[rows], sync_kv_rows=True)
+        if mesh is not None and mesh.dp.size > 1:
+            v = torch.cat(mesh.dp.all_gather(v))
+    else:
+        v, cache = magi_forward(params, st, None, x, t, cap[:, None].expand(1, chunks, -1, -1),
+                                mask[:, None].expand(1, chunks, -1), cache, 0, kvr)
+    torch.cuda.synchronize()
+    out.update(window_launches=since_reset(), window_layers=pp_pipeline.layer_applications)
+    reset_counts()
+    pp_pipeline.layer_applications = 0
+    if cfg3:
+        cw = cfg.chunk_width
+        xu = x[0].reshape(chunks, cw, *x.shape[2:])
+        out["uncond"] = magi_forward_uncond(params, st, xu, t[0][:, None],
+                                            null.expand(chunks, -1, -1)[:, None],
+                                            null_mask.expand(chunks, -1)[:, None]).float().cpu()
+        torch.cuda.synchronize()
+    out.update(uncond_launches=since_reset(), uncond_layers=pp_pipeline.layer_applications,
+               vel=v.float().cpu(), secs=time.perf_counter() - t1,
+               cache_layers=cache.k.shape[0],
+               row_sums=token_major(cache.k, st.spec.head_major, axis=2)[
+                   -1, :, :chunks * st.geo.chunk_tokens].float().sum(dim=(1, 2, 3)).cpu(),
+               cache_bytes=sum(f.numel() * f.element_size() for f in cache if f is not None))
+    if mesh is not None:
+        out["bytes"] = mesh.bytes_by_group()
+        out["where"] = grid_place(mesh.cfg, mesh.rank)
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def magi_pp_rank_run(mesh, label: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return magi_pp_forward(mesh.device, label, mesh)
+
+
+def magi_pp_expected(label: str, ref: dict) -> tuple:
+    """(attention launches, layer applications) of a rank, by forward, from
+    the one-rank run's: each microbatch (a row of the rank's) through the
+    stage's L / pp layers at the launches a layer of one rank makes; the
+    uncond forward's one row likewise; at dp the rank runs every layer on its
+    row, the uncond whole."""
+    model, lay, _, int8_kv, cfg3, _ = PP_MAGI_RUNS[label]
+    layers = magi_config(model).num_layers if model == "4p5b" else MAGI_24B_LAYERS
+    key = "flash_attention_prefix_quant" if int8_kv else "flash_attention_prefix"
+    per = layers // lay.pp
+    m = (2 if cfg3 else 1) // lay.dp if lay.pp > 1 else 1
+    want_w = m * per * ref["window_launches"].get(key, 0) // layers
+    want_u = per * ref["uncond_launches"].get("flash_attention_prefix", 0) // layers
+    layers_w = m * per if lay.pp > 1 else 0
+    layers_u = per if lay.pp > 1 and cfg3 else 0
+    return (want_w, want_u), (layers_w, layers_u), key
+
+
+def pp_decode_phase(dev: torch.device, total: dict) -> None:
+    """Phase 38's decodes: MagiVideoPipeline's tiled decode of a 720x720
+    chunk through the full-width ViT-VAE on this card, and the disaggregated
+    Wan decode of a 480x832 block on the halo conv kernel (B6), each against
+    the whole decode; then a 2-segment TRUE_STREAMING run with and without
+    set_disaggregated_decode."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 38 decodes: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated by this "
+          f"process before them, {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB reserved",
+          flush=True)
+    # --- the ViT-VAE tile decode
+    cfg = ViTVAEConfig()
+    g = torch.Generator(device=dev).manual_seed(30)
+    vae = ViTVAE(cfg, params=init_vitvae_params(cfg, g, dev), device=dev)
+    z = torch.randn(1, 6, *MAGI_720, cfg.z_chans, generator=g, device=dev).to(torch.bfloat16)
+    whole, whole_s = timed_host(lambda: sync_out(vae.decode(z)))
+    one = TileProcessor(fn=vae.decode, scale_t=cfg.patch_length, scale_hw=cfg.patch_size,
+                        devices=[dev]).process(z, 6, *MAGI_720, 2, 2)
+    same = torch.equal(torch.from_numpy(one).to(dev, torch.bfloat16), whole)
+    pipe = MagiVideoPipeline(tiny_magi_config(), device=dev, vae=vae, tile=True,
+                             decode_devices=[dev])
+    tiled, tiled_s = timed_host(lambda: sync_out(pipe.decode_chunk(z)))
+    n_tiles = len(split_tiles(6, *MAGI_720, 6, max(MAGI_720[0] // 2, 4),
+                              max(MAGI_720[1] // 2, 4), 2, 2))
+    mean = float((tiled.float() - whole.float()).abs().mean())
+    print(f"phase 38 ViT-VAE tile decode of a 720x720 chunk (z {tuple(z.shape)} -> "
+          f"{tuple(whole.shape)}): one tile covering the chunk bit-equal to vae.decode {same}; "
+          f"MagiVideoPipeline(tile=True, decode_devices=[{dev}]) in {n_tiles} tiles (overlap 2), "
+          f"mean |tiled - whole| {mean:.4e} (tol {TILE_MEAN_TOL}); whole {whole_s:.3f} s, tiled "
+          f"{tiled_s:.3f} s (host clock, after a synchronize)", flush=True)
+    gate(same and mean < TILE_MEAN_TOL and bool(torch.isfinite(tiled).all()),
+         "phase 38 ViT-VAE tile decode")
+    del vae, pipe, whole, tiled
+    torch.cuda.empty_cache()
+
+    # --- the disaggregated Wan decode, halo conv: one decoder's temporal cache
+    # alive at a time (a 480x832 decode peaks at ~28 GB; three at once, beside
+    # the ranks, run an 80 GB card out of memory)
+    vcfg = VAEConfig()
+    wvae = CausalVAE(vcfg, params=vae_params(dev, vcfg), dtype=torch.bfloat16, device=dev,
+                     conv_impl="halo")
+    r = main_path_config(1).runtime
+    zs = [torch.randn(1, 3, r.latent_height, r.latent_width, vcfg.z_dim, generator=g,
+                      device=dev).to(torch.bfloat16) for _ in range(2)]
+    before = all_counts()
+    runs = {}
+    for name, tiles in (("decode_chunk", 0), ("1 tile", 1), ("2 tiles", 2)):
+        dec = DisaggregatedVAEDecoder(wvae, [dev], tiles=tiles) if tiles else None
+        cache, px, secs = None, [], []
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for i, zi in enumerate(zs[:1] if tiles == 2 else zs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if dec is None:
+                out, cache = wvae.decode_chunk(zi, cache, first=i == 0)
+                out = torch.clamp(out, -1, 1) * 0.5 + 0.5
+            else:
+                tiled, cache = dec.decode_chunk(zi, cache, first=i == 0)
+                out = tiled.tiles[0] if tiles == 1 else tiled
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            px.append(out.assemble() if tiles == 2 else out.cpu())
+        runs[name] = (px, secs, (torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+                      None if dec is None else [s for s in (out.spans if tiles == 2 else [])])
+        del dec, cache, out
+        torch.cuda.empty_cache()
+    add_counts(total, count_diff(all_counts(), before))
+    ref, ref_s, ref_peak, _ = runs["decode_chunk"]
+    one, one_s, one_peak, _ = runs["1 tile"]
+    two, two_s, two_peak, spans = runs["2 tiles"]
+    eq = all(torch.equal(a, b) for a, b in zip(one, ref))
+    mean = float(np.abs(two[0] - ref[0].float().numpy()).mean())
+    print(f"phase 38 disaggregated Wan decode of 2 blocks (z {tuple(zs[0].shape)} -> "
+          f"{[tuple(x.shape) for x in ref]}, halo conv): 1 tile bit-equal to decode_chunk, cache "
+          f"carried, {eq}; 2 tiles (spans {spans}) on block 0 mean |tiled - whole| {mean:.4e} "
+          f"(tol {TILE_MEAN_TOL}); s a block decode_chunk {[round(x, 3) for x in ref_s]}, 1 "
+          f"tile {[round(x, 3) for x in one_s]}, 2 tiles {[round(x, 3) for x in two_s]}; peak "
+          f"GB above the resident {ref_peak:.3f}, {one_peak:.3f}, {two_peak:.3f}", flush=True)
+    gate(eq and mean < TILE_MEAN_TOL and two[0].shape == tuple(ref[0].shape),
+         "phase 38 disaggregated decode")
+    del wvae, runs, ref, one, two
+    torch.cuda.empty_cache()
+
+    # --- TRUE_STREAMING, 2 segments, local and disaggregated decode
+    scfg = pipeline_config()
+    r = scfg.runtime
+    r.frames_per_segment, r.overlap_frames = PP_SEGMENT_FRAMES, OVERLAP_FRAMES
+    r.streaming_mode = StreamingMode.TRUE_STREAMING
+    spipe = SelfForcingPipeline(scfg, text_encoder=StandInTextEncoder(dev), device=dev)
+    spipe.setup()
+    runs = {}
+    for name in ("local", "disaggregated"):
+        if name == "disaggregated":
+            spipe.set_disaggregated_decode([dev], tiles=1)
+        got, marks = [], [time.perf_counter()]
+
+        def on_px(px, got=got, marks=marks):
+            got.append(px)
+            marks.append(time.perf_counter())
+
+        before = all_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        spipe.run_streaming_generation(["a red fox"], num_segments=2, stream_callback=on_px)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        add_counts(total, count_diff(all_counts(), before))
+        frames = [px.assemble() if name == "disaggregated" else px.float().cpu().numpy()
+                  for px in got]
+        runs[name] = (frames, wall, np.diff(marks).tolist())
+    (lf, lw, lb), (df, dw, db) = runs["local"], runs["disaggregated"]
+    counts_ok = [f.shape for f in lf] == [f.shape for f in df] and len(df) > 0
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(lf, df)) if counts_ok else float("nan")
+    print(f"phase 38 TRUE_STREAMING, 2 segments ({PP_SEGMENT_FRAMES} frames, then "
+          f"{OVERLAP_FRAMES} carried): local decode {len(lf)} blocks, "
+          f"{sum(f.shape[1] for f in lf)} pixel frames, {lw:.3f} s, s between blocks "
+          f"{[round(x, 3) for x in lb]}; disaggregated decode (PixelTiles, 1 tile on {dev}) "
+          f"{len(df)} blocks, {sum(f.shape[1] for f in df)} pixel frames, {dw:.3f} s, s between "
+          f"blocks {[round(x, 3) for x in db]}; max |disaggregated - local| {diff:.3e}",
+          flush=True)
+    gate(counts_ok and all(np.isfinite(f).all() for f in df), "phase 38 streaming frames")
+    del spipe
+    torch.cuda.empty_cache()
+
+
+def sync_out(out):
+    torch.cuda.synchronize()
+    return out
+
+
+def multihost_case(dev: torch.device, tmp: str) -> None:
+    """Two processes join through COORDINATOR_ADDRESS / NUM_PROCESSES /
+    PROCESS_ID (gloo on this card), refuse a layout of 4, build pp 2 across
+    both, all-reduce, and take process 0's interactive decision."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    path = os.path.join(tmp, "multihost.py")
+    with open(path, "w") as f:
+        f.write(MULTIHOST_SCRIPT)
+    t1 = time.perf_counter()
+    procs = []
+    for pid in range(2):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK")}
+        env.update(COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES="2",
+                   PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen([sys.executable, path, REPO, str(dev)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    try:
+        outs = [p.communicate(timeout=MULTIHOST_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ok = True
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(err[-3000:], flush=True)
+            ok = False
+            continue
+        res = json.loads(out.strip().splitlines()[-1])
+        ok = ok and (res["ok"] and res["coordinator"] == (pid == 0) and res["stage"] == pid
+                     and res["sum"] == [3.0] * 4 and res["command"] == "update_prompt"
+                     and res["prompt"] == 35000 and "needs 4 devices but the job has 2"
+                     in res["refused"])
+        print(f"phase 38 multi-host process {pid}: {res}", flush=True)
+    print(f"phase 38 multi-host: 2 processes, {time.perf_counter() - t1:.3f} s", flush=True)
+    gate(ok, "phase 38 multi-host")
+
+
+def pp_phase(dev: torch.device, smi: str, pool: RankPool, tmp: str, refs: dict) -> dict:
+    """Phase 38: the pp 4 refusal, the Wan and MAGI runs of PP_WAN_RUNS /
+    PP_MAGI_RUNS on `pool` (four gloo ranks of this card), each held to its
+    one-rank run (refs: phase 37's one-rank Wan latents) with its per-rank
+    launches and layer applications; then the decodes and the multi-host
+    start-up. Returns the launches of its paths, the ranks' included."""
+    t0 = time.perf_counter()
+    total = {}
+    m = main_path_config(1).model
+    forwards = len(main_path_config(1).runtime.denoising_step_list) + 1
+    # a rank-0 mesh of pp 4 (the groups are not needed: the generator refuses
+    # the layout while it takes its stage's layers, before any exchange)
+    groups = {n: SPMesh(0, 4 if n == "pp" else 1, "gloo", dev, name=n)
+              for n in ("sp", "tp", "dp", "pp")}
+    pp4 = Mesh(cfg=ParallelConfig(pp=4), rank=0, backend="gloo", device=dev, sp=groups["sp"],
+               tp=groups["tp"], dp=groups["dp"], heads=groups["sp"], pp=groups["pp"])
+    try:
+        main_path_setup(dev, main_path_config(1), mesh=pp4)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    torch.cuda.empty_cache()
+    print(f"phase 38 Wan-1.3B at pp 4: SemiARGenerator raises {refused!r}", flush=True)
+    gate(f"{m.num_layers} layers do not split over pp 4" in refused,
+         "phase 38 Wan pp 4 refusal")
+
+    wan_refs = {False: refs[("bf16", 2, False, 1)]}
+    cfg, _ = pp_wan_config("pp2 W8A8 B=2", one_rank=True)
+    out, cache, gen = run_blocks(dev, cfg, w8a8=True)
+    wan_refs[True] = out["latents"]
+    add_counts(total, out["launches"][0])
+    print(f"phase 38 one rank, W8A8 B=2, 1 block: s {[round(x, 3) for x in out['secs']]}; "
+          f"launches {out['launches']}", flush=True)
+    del cache, gen
+    magi_refs, by_key = {}, {}
+    for label, (model, _, _, int8_kv, cfg3, chunks) in PP_MAGI_RUNS.items():
+        key = (model, int8_kv, cfg3, chunks)
+        if key not in by_key:   # the runs of one model, cache and batch share it
+            by_key[key] = ref = magi_pp_forward(dev, label)
+            add_counts(total, ref["window_launches"])
+            add_counts(total, ref["uncond_launches"])
+            print(f"phase 38 one rank, MAGI {model} int8 cache {int8_kv} 3-CFG {cfg3}, "
+                  f"{chunks} chunks: {ref['secs']:.3f} s, launches window "
+                  f"{ref['window_launches']} uncond {ref['uncond_launches']}", flush=True)
+        magi_refs[label] = by_key[key]
+    _MAGI_TREES.clear()
+    torch.cuda.empty_cache()
+
+    for label, (lay, w8a8) in PP_WAN_RUNS.items():
+        t2 = time.perf_counter()
+        res = [r for r in pool.run(pp_wan_rank_run, label, layout=lay) if r is not None]
+        wall = time.perf_counter() - t2
+        ref = torch.from_numpy(wan_refs[w8a8])
+        lats = [torch.from_numpy(r["latents"]) for r in res]
+        errs = [rel_err(x, ref) for x in lats]
+        per = m.num_layers // lay.pp
+        want = pp_wan_expected(w8a8, per, forwards)
+        ok = (all(torch.equal(lats[0], x) for x in lats) and all(e <= PP_RTOL for e in errs)
+              and all(torch.isfinite(x).all().item() for x in lats))
+        for rank, r in enumerate(res):
+            ok = (ok and r["launches"] == [want] and r["layers"] == 2 * per * forwards
+                  and r["cache_layers"] == per)
+            for c in r["launches"]:
+                add_counts(total, c)
+            print(f"phase 38 wan {label} rank {rank} (stage {r['stage']}, {r['cache_layers']} "
+                  f"cache layers): s a block {[round(x, 3) for x in r['secs']]}; launches a "
+                  f"block {r['launches']} (the code implies {want}); layer applications "
+                  f"{r['layers']} (2 microbatches x {per} layers x {forwards} forwards = "
+                  f"{2 * per * forwards}); bytes (sent, staged) by group {r['bytes']}",
+                  flush=True)
+        print(f"phase 38 wan {label}: ranks' latents bit-equal "
+              f"{all(torch.equal(lats[0], x) for x in lats)}; rel err to one rank "
+              f"{[f'{e:.3e}' for e in errs]} (tol {PP_RTOL:g}); {wall:.3f} s for the run",
+              flush=True)
+        gate(ok, f"phase 38 wan {label}")
+
+    for label, (model, lay, mode, int8_kv, cfg3, chunks) in PP_MAGI_RUNS.items():
+        t2 = time.perf_counter()
+        res = [r for r in pool.run(magi_pp_rank_run, label, layout=lay) if r is not None]
+        wall = time.perf_counter() - t2
+        ref = magi_refs[label]
+        ok = True
+        for rank, r in enumerate(res):
+            (want_w, want_u), (lw, lu), key = magi_pp_expected(label, ref)
+            errs = [rel_err(r[k], ref[k]) for k in ("vel", "uncond") if k in r]
+            got_w = r["window_launches"].get(key, 0)
+            got_u = r["uncond_launches"].get("flash_attention_prefix", 0)
+            rows_equal = bool((r["row_sums"] == r["row_sums"][0]).all())
+            ok = (ok and all(e <= PP_RTOL for e in errs) and torch.equal(r["vel"], res[0]["vel"])
+                  and all(torch.isfinite(r[k]).all().item() for k in ("vel", "uncond") if k in r)
+                  and (got_w, got_u) == (want_w, want_u)
+                  and (r["window_layers"], r["uncond_layers"]) == (lw, lu))
+            add_counts(total, r["window_launches"])
+            add_counts(total, r["uncond_launches"])
+            print(f"phase 38 magi {label} rank {rank} (d, s, t, p) {r['where']} "
+                  f"({r['cache_layers']} cache layers, {r['cache_bytes'] / 1e9:.3f} GB): "
+                  f"{r['secs']:.3f} s (one rank {ref['secs']:.3f}); rel err to one rank "
+                  f"{[f'{e:.3e}' for e in errs]} (tol {PP_RTOL:g}); {key} window {got_w} "
+                  f"uncond {got_u} (the code implies {want_w}, {want_u}; one rank "
+                  f"{ref['window_launches'].get(key, 0)}, "
+                  f"{ref['uncond_launches'].get('flash_attention_prefix', 0)}); layer "
+                  f"applications {r['window_layers']}, {r['uncond_layers']} (implied {lw}, {lu}); "
+                  f"cache row sums of the last layer {r['row_sums'].tolist()}; launches "
+                  f"{r['window_launches']} + {r['uncond_launches']}; bytes (sent, staged) by "
+                  f"group {r['bytes']}", flush=True)
+            if cfg3 and lay.dp == 1:
+                ok = ok and rows_equal
+        if cfg3 and lay.dp > 1:   # dp rank 0's synced row is dp rank 1's row
+            ok = ok and torch.equal(res[0]["row_sums"], res[1]["row_sums"])
+        print(f"phase 38 magi {label}: {wall:.3f} s for the run", flush=True)
+        gate(ok, f"phase 38 magi {label}")
+    _MAGI_TREES.clear()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    pp_decode_phase(dev, total)
+    print(f"phase 38 decodes: {time.perf_counter() - t2:.3f} s", flush=True)
+    multihost_case(dev, tmp)
+    phase("pp (38)", t0)
+    return total
 
 
 def timed_host(fn):
@@ -6658,9 +7171,17 @@ def main() -> None:
         p36, sp_refs = sp_phase(dev, smi, tmp)
         print(f"launches on phase 36 (the parent's and both ranks'): {p36}", flush=True)
         add_counts(pipe, p36)
-        p37, tp_entry = tp_phase(dev, smi, tmp, sp_refs)
-    print(f"launches on phase 37 (the parent's and every rank's): {p37}", flush=True)
+        t1 = time.perf_counter()
+        with RankPool(TP_POOL, "gloo", f"file://{os.path.join(tmp, 'tp_store')}",
+                      device=str(dev), threads=TP_THREADS, timeout=TP_TIMEOUT) as pool:
+            print(f"phases 37-38 {TP_POOL} gloo ranks on {dev}: {time.perf_counter() - t1:.3f} "
+                  f"s to start", flush=True)
+            p37, tp_entry, wan_refs = tp_phase(dev, smi, pool, sp_refs)
+            print(f"launches on phase 37 (the parent's and every rank's): {p37}", flush=True)
+            p38 = pp_phase(dev, smi, pool, tmp, wan_refs)
+        print(f"launches on phase 38 (the parent's and every rank's): {p38}", flush=True)
     add_counts(pipe, p37)
+    add_counts(pipe, p38)
     kv_entries[1]["launches"] += magi.get("flash_attention_prefix_fp8", 0)
     fp8_entry["launches"] += pipe.get("fp8_matmul", 0)
     vae_entries[0]["launches"] = (decode["halo"]["halo_conv3d"] + encode["halo"]["halo_conv3d"]

@@ -43,6 +43,9 @@ _LAZY = {
     "FlowDPMSolverMultistep": "inferix_tpu_torch.models.schedulers.fm_solvers",
     "DiffusionAnalyzer": "inferix_tpu_torch.profiling.diffusion_analyzer",
     "register_flow_metrics": "inferix_tpu_torch.eval.flow_metrics",
+    "initialize_multihost": "inferix_tpu_torch.parallel.multihost",
+    "make_global_mesh": "inferix_tpu_torch.parallel.multihost",
+    "pp_pipeline": "inferix_tpu_torch.parallel.pipeline_parallel",
     "evaluate_video": "inferix_tpu_torch.eval.vde",
     "quality_delta": "inferix_tpu_torch.eval.vde",
 }

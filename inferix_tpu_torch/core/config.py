@@ -67,13 +67,12 @@ SP_MODES = ("ulysses", "ring", "ring_pass_q", "ring_pass_kv", "auto")
 class ParallelConfig:
     """The parallel layout; a copy of `inferix_tpu/core/config.py:ParallelConfig`.
 
-    The port runs data, sequence and tensor parallelism (`parallel/`): dp
-    sp tp ranks, one process each, laid out as the JAX mesh lays its
-    devices (`parallel.mesh.make_mesh`). `sp_mode` "ulysses", "ring" /
-    "ring_pass_q" or "ring_pass_kv" chooses Wan's attention island; "auto"
-    (or any mode at sp = 1 and tp = 1) runs none, as in the JAX generator.
-    Pipeline parallelism is not ported: `pp` above 1 raises
-    NotImplementedError naming ROADMAP.md A13c."""
+    The port runs data, sequence, tensor and pipeline parallelism
+    (`parallel/`): dp sp tp pp ranks, one process each, laid out as the JAX
+    mesh lays its devices (`parallel.mesh.make_mesh`). `sp_mode` "ulysses",
+    "ring" / "ring_pass_q" or "ring_pass_kv" chooses Wan's attention island;
+    "auto" (or any mode at sp = 1 and tp = 1) runs none, as in the JAX
+    generator."""
 
     dp: int = 1
     sp: int = 1
@@ -82,11 +81,7 @@ class ParallelConfig:
     sp_mode: str = "ulysses"
 
     def __post_init__(self):
-        if self.pp != 1:
-            raise NotImplementedError(
-                f"parallel.pp = {self.pp}: pipeline parallelism is not ported "
-                f"(ROADMAP.md A13c)")
-        for axis in ("dp", "sp", "tp"):
+        for axis in ("dp", "sp", "tp", "pp"):
             if getattr(self, axis) < 1:
                 raise ValueError(f"parallel.{axis} must be >= 1, got {getattr(self, axis)}")
         if self.sp_mode not in SP_MODES:

@@ -3,16 +3,19 @@ evaluation, pause / resume / stop (port of `inferix_tpu/core/interactive.py`).
 
 Latest-wins input queue, `evaluate_checkpoint(boundary, idx)` returning a
 `CheckpointResult`, pause / resume / stop events and a progress callback with
-ETA. The port runs as one process, so the decision needs no broadcast:
-`_broadcast_result` returns it unchanged (the JAX package broadcasts host 0's
-decision to every host; a `torch.distributed` broadcast belongs to the
-parallel layer, which is not ported).
+ETA. With more than one process (`torch.distributed` initialised, e.g. by
+`parallel.multihost.initialize_multihost`) `_broadcast_result` sends
+process 0's decision to every process, as the JAX package sends host 0's.
 """
 from __future__ import annotations
 
+import json
 import threading
 import time
 from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
 
 from .types import (
     CheckpointResult,
@@ -21,6 +24,8 @@ from .types import (
     InputApplyPolicy,
     QueuedInput,
 )
+
+_BCAST_BYTES = 65536   # the decision's fixed buffer: every process the same size
 
 
 class InteractiveSession:
@@ -148,6 +153,31 @@ class InteractiveSession:
     # -- multi-host ---------------------------------------------------------
 
     def _broadcast_result(self, result: CheckpointResult) -> CheckpointResult:
-        """Host 0's decision wins everywhere; with one process it is this
-        process's decision."""
-        return result
+        """Process 0's decision wins everywhere (reference session.py:461-521):
+        one `dist.broadcast` of a fixed 65536-byte buffer. Every process must
+        agree on its size, so an oversized payload's prompt is halved until
+        it fits. With one process it is this process's decision."""
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return result
+
+        def encode(r: CheckpointResult) -> bytes:
+            return json.dumps({"command": r.command.value, "new_prompt": r.new_prompt,
+                               "new_guidance": r.new_guidance}).encode()
+
+        payload = encode(result)
+        while len(payload) > _BCAST_BYTES:
+            prompt = result.new_prompt or ""
+            result = CheckpointResult(command=result.command,
+                                      new_prompt=prompt[:len(prompt) // 2] or None,
+                                      new_guidance=result.new_guidance)
+            payload = encode(result)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        buf = torch.zeros(_BCAST_BYTES, dtype=torch.uint8)
+        buf[:len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        buf = buf.to(dev)
+        dist.broadcast(buf, src=0)
+        data = json.loads(bytes(buf.cpu().numpy()).rstrip(b"\x00").decode())
+        return CheckpointResult(command=GenerationCommand(data["command"]),
+                                new_prompt=data["new_prompt"],
+                                new_guidance=data["new_guidance"])

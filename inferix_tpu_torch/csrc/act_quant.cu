@@ -591,15 +591,38 @@ cudaError_t launch_quant(const __nv_bfloat16* x, int8_t* q, float* s, const floa
   return cudaGetLastError();
 }
 
+// The dynamic shared memory opt-in. cudaFuncSetAttribute sets a kernel's
+// attribute for the device current at the call, not for the process: a
+// process that launches on several cards (a decode card beside the
+// generator's) opts in once on each, or its launches past 48 KB fail there
+// with cudaErrorInvalidValue. Each library keeps its own copy (its build key
+// hashes its one source).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int kMode, int G, int kChunks>
 cudaError_t launch_ln(LnParams p, cudaStream_t stream) {
   using RC = RowClass<G, kChunks>;
   constexpr int kRowsPerCta = RC::kGroups * kLnRows;
   // the most the class can stage (one frame a row, the widest row): past the
   // default 48 KB for the wide rows
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      ln_quant_kernel<kMode, G, kChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      ln_smem_bytes<kMode>(kRowsPerCta, 1, kChunks * G));
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t opt_in = smem_opt_in(ln_quant_kernel<kMode, G, kChunks>,
+                                         ln_smem_bytes<kMode>(kRowsPerCta, 1, kChunks * G),
+                                         opted);
   if (opt_in != cudaSuccess) return opt_in;
   p.per = kLnRows;
   ln_quant_kernel<kMode, G, kChunks>

@@ -904,18 +904,35 @@ Plan plan_of(bool fp8, int M, int N, int sms) {
   return fp8 ? make_plan(N, M, sms) : make_plan(M, N, sms);
 }
 
+// The dynamic shared memory opt-in. cudaFuncSetAttribute sets a kernel's
+// attribute for the device current at the call, not for the process: a
+// process that launches on several cards (a decode card beside the
+// generator's) opts in once on each, or its launches past 48 KB fail there
+// with cudaErrorInvalidValue. Each library keeps its own copy (its build key
+// hashes its one source).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <bool kFp8, bool kOutF32, int kBN>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& to,
                    const Params& p, int grid, cudaStream_t stream) {
   using C = Cfg<kFp8, kBN>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<kFp8, kOutF32, kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t err = smem_opt_in(gemm_sm90_kernel<kFp8, kOutF32, kBN>, C::kSmem, opted);
+  if (err != cudaSuccess) return err;
   gemm_sm90_kernel<kFp8, kOutF32, kBN><<<grid, kThreads, C::kSmem, stream>>>(ta, tb, to, p);
   return cudaGetLastError();
 }

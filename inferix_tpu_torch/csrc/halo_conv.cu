@@ -680,18 +680,35 @@ int sm_count() {
   return n;
 }
 
+// The dynamic shared memory opt-in. cudaFuncSetAttribute sets a kernel's
+// attribute for the device current at the call, not for the process: a
+// process that launches on several cards (a decode card beside the
+// generator's) opts in once on each, or its launches past 48 KB fail there
+// with cudaErrorInvalidValue. Each library keeps its own copy (its build key
+// hashes its one source).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <bool kInt8, int kN, int kWG>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& to,
                    const Params& p, cudaStream_t stream) {
   using C = Cfg<kInt8, kN, kWG>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        halo_conv_sm90_kernel<kInt8, kN, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t err = smem_opt_in(halo_conv_sm90_kernel<kInt8, kN, kWG>, C::kSmem, opted);
+  if (err != cudaSuccess) return err;
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   const int grid = std::min(p.n_tiles, sms);

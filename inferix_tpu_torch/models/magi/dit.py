@@ -51,7 +51,14 @@ window cache (`magi_kv_cache_shard`, kv heads over (tp, sp)), the
 self-attention runs in `cso_chunk_attention` and the caption and
 prefix-free attention in `gqa_head_island`
 (`parallel/distributed_attention.py`); the head's tokens are gathered.
-MAGI at dp > 1 and `magi_forward_pp` are not ported (ROADMAP.md A13c).
+At dp > 1 each rank runs its rows of the batch (`MagiStatics.dp`); the
+3-CFG row sync then sends row 1's new cache span from dp rank 1 to dp rank
+0 (`sync_cache_rows`). At pp > 1 (`MagiStatics.pp`) every forward runs its
+layers as a GPipe pipeline (`magi_forward_pp`, `parallel/pipeline_parallel.py`):
+the batch rows are the microbatches, the rank holds its stage's layers of
+the tree and of the window cache, embeddings and the head run on every
+stage; with sp or tp > 1 as well each stage runs the islands and the tp
+linears over its own groups (the JAX package's composed mode).
 A head-major window cache is read
 through its token-major views (`kvcache.cache.token_major`), by the
 kernels through their strides.
@@ -74,6 +81,7 @@ from ...ops.norms import layer_norm
 from ...parallel.distributed_attention import cso_chunk_attention, gqa_head_island
 from ...parallel.mesh import (CacheShard, Mesh, SPMesh, as_mesh, frame_shard,
                               gather_frame_shards, magi_kv_cache_shard, tokens_to_heads)
+from ...parallel.pipeline_parallel import pp_pipeline
 from ...parallel.tensor_parallel import quantize_rows_tp, row_reduce
 from ...quant.api import MAGI_BLOCK_KEYS
 from ...quant.kernels import FP8, int8_matmul
@@ -158,8 +166,11 @@ class MagiGeometry:
 
 
 class MagiStatics(NamedTuple):
-    """The model, the window cache's spec (every kv head) and the geometry;
-    on a mesh, the rank's mesh, the island and its cache shard."""
+    """The model, the window cache's spec (every kv head; under pp the
+    stage's layers; under dp the rank's rows) and the geometry; on a mesh
+    of sp or tp > 1, the rank's mesh, the island and its cache shard; the
+    pp group when the layers are pipelined, the dp group when the rows lie
+    over dp ranks."""
 
     cfg: MagiModelConfig
     spec: KVCacheSpec
@@ -167,6 +178,8 @@ class MagiStatics(NamedTuple):
     mesh: Optional[Mesh] = None
     sp_mode: str = "none"
     shard: CacheShard = CacheShard("none", 0, 0)
+    pp: Optional[SPMesh] = None
+    dp: Optional[SPMesh] = None
 
     @property
     def kv_heads(self) -> int:
@@ -190,16 +203,17 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
     pads its slots up to a multiple (0: not padded). mesh (a `Mesh`, or an
     `SPMesh` of sp ranks) with sp_mode "cso" or "ulysses": the island; an
     island without a mesh of sp or tp > 1 raises ValueError, as in the JAX
-    package, and so does such a mesh without an island; dp > 1 raises
-    NotImplementedError (ROADMAP.md A13c)."""
+    package, and so does such a mesh without an island. batch: the rows
+    this rank runs (B / dp). A mesh of pp > 1 pipelines the layers (the
+    caller holds its stage's layers, `parallel.pipeline_parallel.stage_layers`;
+    L % pp != 0 raises ValueError); the int8 cache there needs sp or tp > 1
+    too, as in the JAX package."""
     if sp_mode not in ("none", "cso", "ulysses"):
         raise ValueError(f"MAGI sp_mode must be 'none', 'cso' or 'ulysses', "
                          f"got {sp_mode!r}")
     mesh = as_mesh(mesh)
-    if mesh is not None and mesh.dp.size > 1:
-        raise NotImplementedError(
-            f"MAGI at dp = {mesh.dp.size}: its 3-CFG row sync would copy across dp ranks "
-            f"(ROADMAP.md A13c)")
+    pp = mesh.pp if mesh is not None and mesh.pp.size > 1 else None
+    dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
     sharded = mesh is not None and (mesh.sp.size > 1 or mesh.tp.size > 1)
     if sp_mode != "none" and not sharded:
         raise ValueError(f"sp_mode={sp_mode!r} requires a mesh with sp>1 or tp>1 (got "
@@ -217,8 +231,17 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
         dtype=kv_dtype if kv_dtype is not None else dtype,
         quantized=quantize_kv, head_major=kv_head_major,
         alloc_tokens=padded_tokens(max_tokens, kv_alloc_multiple))
+    if pp is not None:
+        if cfg.num_layers % pp.size:
+            raise ValueError(f"{cfg.num_layers} layers do not split over pp {pp.size}")
+        if quantize_kv and not sharded:
+            raise NotImplementedError(
+                "quantized MAGI KV cache through the fully-manual pp pipeline "
+                "is not wired (use a tp/sp>1 mesh — composed mode — or "
+                "quantize_kv=False)")
+        spec = dataclasses.replace(spec, num_layers=cfg.num_layers // pp.size)
     if not sharded:
-        return MagiStatics(cfg=cfg, spec=spec, geo=geo)
+        return MagiStatics(cfg=cfg, spec=spec, geo=geo, pp=pp, dp=dp)
     if cfg.num_attention_heads % mesh.heads.size or cfg.ffn_hidden_size % mesh.tp.size:
         raise ValueError(f"{cfg.num_attention_heads} q heads / {cfg.ffn_hidden_size} ffn "
                          f"columns do not split over tp {mesh.tp.size} x sp {mesh.sp.size}")
@@ -226,7 +249,7 @@ def make_magi_statics(cfg: MagiModelConfig, batch: int, latent_h: int,
         raise ValueError(f"{geo.chunk_tokens} tokens a chunk do not split over sp "
                          f"{mesh.sp.size}")
     return MagiStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh, sp_mode=sp_mode,
-                       shard=magi_kv_cache_shard(spec, mesh))
+                       shard=magi_kv_cache_shard(spec, mesh), pp=pp, dp=dp)
 
 
 # ---------------------------------------------------------------------------
@@ -756,14 +779,29 @@ def _head(params: Params, cfg: MagiModelConfig, geo: MagiGeometry,
 
 
 def sync_cache_rows(spec: KVCacheSpec, cache: KVCache, start: int, length: int,
-                    src_row: int = 1, dst_row: int = 0) -> KVCache:
+                    src_row: int = 1, dst_row: int = 0,
+                    dp: Optional[SPMesh] = None) -> KVCache:
     """Copy the token span [start, start+length) of batch row `src_row` into
     `dst_row` for every layer and field, in place (the 3-CFG cache: only
-    the cond_pre row's KV persists). Returns the same cache."""
+    the cond_pre row's KV persists). Returns the same cache. With dp (the
+    rows over its ranks, spec.batch of them a rank), a row on another rank
+    is sent there: one message a field, every layer of the rank's cache."""
+    lb = spec.batch
+    ranks = (src_row // lb, dst_row // lb) if dp is not None else (0, 0)
+    src, dst = src_row % lb, dst_row % lb
     for f in cache:
-        if f is not None:
-            f = token_major(f, spec.head_major, axis=2)
-            f[:, dst_row, start:start + length].copy_(f[:, src_row, start:start + length])
+        if f is None:
+            continue
+        f = token_major(f, spec.head_major, axis=2)
+        span = slice(start, start + length)
+        if ranks[0] == ranks[1]:
+            if dp is None or dp.rank == ranks[0]:
+                f[:, dst, span].copy_(f[:, src, span])
+        elif dp.rank == ranks[0]:
+            dp.send([f[:, src, span]], ranks[1])
+        elif dp.rank == ranks[1]:
+            part = f[:, dst, span]
+            part.copy_(dp.recv([(tuple(part.shape), part.dtype)], ranks[0])[0])
     return cache
 
 
@@ -790,7 +828,14 @@ def magi_forward(
     [B, n_chunks*cw, H, W, out] float32, the cache). sync_kv_rows=True (the
     3-CFG batch, B=2): afterwards row 1's span overwrites row 0's
     (`sync_cache_rows`). static_kv_spans sizes the TPU's kernel grid; the
-    CUDA kernels walk only each span, so it has no effect here."""
+    CUDA kernels walk only each span, so it has no effect here. Under pp
+    (`statics.pp`) the layers run through the GPipe stages
+    (`parallel/pipeline_parallel.py`): the batch rows (the CFG halves) are
+    the microbatches, params["blocks"] and the cache hold the stage's
+    layers (the "blocks" layout only), embeddings and the head run on every
+    stage, and on a mesh of sp or tp > 1 (composed mode) each layer runs the
+    islands and the tp linears over the stage's own groups. Under dp the
+    inputs are the rank's rows, and so is the velocity."""
     del rope_tables, max_chunks, static_kv_spans
     cfg, spec, geo = statics.cfg, statics.spec, statics.geo
     dev = x_window.device
@@ -806,23 +851,47 @@ def magi_forward(
     current_start = slice_point * ct
     current_end = current_start + n_chunks * ct
     token_ranges = [(s * ct, e * ct) for s, e in _int_pairs(kv_ranges)]
-    fields = tuple(f for f in cache if f is not None)
+    fields = [f for f in cache if f is not None]
     mesh = statics.mesh
     if mesh is not None:   # the rank's tokens of each chunk
         h_x = frame_shard(mesh.sp, h_x, n_chunks)
         angles = frame_shard(mesh.sp, angles, n_chunks, dim=0)
-    for layer, blk in _layers(params, cfg.num_layers):
-        h_x = _magi_layer(
-            blk, h_x, cond, y, caption_mask, tuple(f[layer] for f in fields),
-            cfg=cfg, spec=spec, n_chunks=n_chunks, ct=ct, angles=angles,
-            token_ranges=token_ranges, current_start=current_start,
-            current_end=current_end, mesh=mesh, sp_mode=statics.sp_mode)
+    layer_kw = dict(cfg=cfg, spec=spec, n_chunks=n_chunks, ct=ct, angles=angles,
+                    token_ranges=token_ranges, current_start=current_start,
+                    current_end=current_end, mesh=mesh, sp_mode=statics.sp_mode)
+    if statics.pp is not None:
+        if "blocks" not in params:
+            raise ValueError("the pp path requires the uniform blocks layout")
+
+        def layer_fn(blk, state, h, i):   # microbatch i: batch row i
+            row = slice(i, i + 1)
+            return _magi_layer(blk, h, cond[row], y[row], caption_mask[row],
+                               tuple(f[row] for f in state), **layer_kw), state
+
+        outs, _ = pp_pipeline(statics.pp, layer_fn, params["blocks"], h_x[:, None],
+                              layer_state=fields, pass_mb_index=True)
+        h_x = outs[:, 0]
+    else:
+        for layer, blk in _layers(params, cfg.num_layers):
+            h_x = _magi_layer(blk, h_x, cond, y, caption_mask,
+                              tuple(f[layer] for f in fields), **layer_kw)
     velocity = _head(params, cfg, geo, h_x, n_chunks * cw, mesh)
     if sync_kv_rows:
-        if b != 2:
+        # the batch's rows: b on this rank, b a dp rank under dp
+        if b * (statics.dp.size if statics.dp is not None else 1) != 2:
             raise ValueError("sync_kv_rows is the 3-CFG batched-forward contract (B=2)")
-        sync_cache_rows(spec, cache, current_start, n_chunks * ct)
+        sync_cache_rows(spec, cache, current_start, n_chunks * ct, dp=statics.dp)
     return velocity, cache
+
+
+def magi_forward_pp(params: Params, statics: MagiStatics, *args, **kwargs
+                    ) -> Tuple[torch.Tensor, KVCache]:
+    """The pipeline-parallel window forward (JAX `magi_forward_pp`): the
+    contract of `magi_forward`, whose layers run through the GPipe stages
+    of `statics.pp`, the statics of a mesh of pp > 1."""
+    if statics.pp is None:
+        raise ValueError("magi_forward_pp takes the statics of a mesh of pp > 1")
+    return magi_forward(params, statics, *args, **kwargs)
 
 
 def magi_forward_window_scan(
@@ -888,8 +957,20 @@ def magi_forward_uncond(
     if mesh is not None:   # each row is one chunk: the rank's tokens of it
         h_x = frame_shard(mesh.sp, h_x, 1)
         angles = frame_shard(mesh.sp, angles, 1, dim=0)
-    for _, blk in _layers(params, cfg.num_layers):
-        h_x = _magi_layer(blk, h_x, cond, y, caption_mask, None, cfg=cfg, spec=spec,
-                          n_chunks=1, ct=geo.chunk_tokens, angles=angles, mesh=mesh,
-                          sp_mode=statics.sp_mode)
+
+    def layer(blk, hx, rows=slice(None)):
+        return _magi_layer(blk, hx, cond[rows], y[rows], caption_mask[rows], None, cfg=cfg,
+                           spec=spec, n_chunks=1, ct=geo.chunk_tokens, angles=angles,
+                           mesh=mesh, sp_mode=statics.sp_mode)
+
+    if statics.pp is not None:   # the rows are the pipeline's microbatches
+        if "blocks" not in params:
+            raise ValueError("the pp path requires the uniform blocks layout")
+        outs, _ = pp_pipeline(statics.pp,
+                              lambda blk, s, h, i: (layer(blk, h, slice(i, i + 1)), s),
+                              params["blocks"], h_x[:, None], pass_mb_index=True)
+        h_x = outs[:, 0]
+    else:
+        for _, blk in _layers(params, cfg.num_layers):
+            h_x = layer(blk, h_x)
     return _head(params, cfg, geo, h_x, geo.chunk_width, mesh)

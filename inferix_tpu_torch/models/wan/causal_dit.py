@@ -29,7 +29,14 @@ rank holds its tp shard of the tree (`parallel.mesh.wan_param_shards`):
 q / k / v and fc1 give the rank's heads and hidden columns, o and fc2 sum
 the ranks' partials, the qk-norms reduce their sums of squares, and the
 text / image K/V hold the rank's heads (`parallel/tensor_parallel.py`).
-Pipeline parallelism is not ported (ROADMAP.md A13c).
+With pp > 1 and no island (`DiTStatics.pp`) the forward is a GPipe
+pipeline (`parallel/pipeline_parallel.py`, the JAX branch of the same
+condition): the rank holds its stage's layers of the tree, of the text /
+image K/V and of the cache, the batch rows are the microbatches, and every
+stage ends with the whole output (at tp > 1 inside a stage, the stage's
+layers run on the rank's tp shard). With pp > 1 and an island the JAX
+package does not pipeline either: it runs the island over the whole stack,
+and so do the port's pp ranks, each holding every layer.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embeddin
 from ...parallel.distributed_attention import sp_cache_attention, sp_write_block
 from ...parallel.mesh import (CacheShard, Mesh, SPMesh, as_mesh, frame_shard,
                               gather_frame_shards, wan_kv_cache_shard)
+from ...parallel.pipeline_parallel import pp_pipeline
 from ...parallel.tensor_parallel import rms_norm_tp, rms_norms_tp, row_linear
 from ...quant.api import (adaln_quant, ln_quant, quantized_ffn,
                           quantized_linear, quantized_linear_prequant,
@@ -198,7 +206,9 @@ def _project_kv(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     heads = cfg.num_heads // tp.size if tp is not None and sharded else cfg.num_heads
     shape = (b, s, heads, cfg.head_dim)
     ks, vs = [], []
-    for lid in range(cfg.num_layers):
+    # the tree's layers: all of them, or a pipeline stage's
+    layers = next(iter(params["blocks"]["cross_attn"][k].values())).shape[0]
+    for lid in range(layers):
         ca = layer_params(params["blocks"]["cross_attn"], lid)
         kn = rms_norm_tp(tp if sharded else None, linear(ca[k], tokens), ca[norm_k]["w"],
                          cfg.eps, cfg.dim)
@@ -385,7 +395,9 @@ class DiTStatics(NamedTuple):
     """Host-side constants of the forward. With a mesh and a mode of
     `parallel.distributed_attention.MODES` the forward runs its attention
     in that island over the mesh's sp group; `tp` is the mesh's tp group
-    when it has more than one rank; `shard` is this rank's cache shard."""
+    when it has more than one rank; `shard` is this rank's cache shard;
+    `pp` is the mesh's pp group when the forward is a pipeline (pp > 1, no
+    island): the spec then counts the stage's layers."""
 
     cfg: ModelConfig
     spec: KVCacheSpec
@@ -394,6 +406,7 @@ class DiTStatics(NamedTuple):
     sp_mode: str = "none"
     shard: CacheShard = CacheShard("none", 0, 0)
     tp: Optional[SPMesh] = None
+    pp: Optional[SPMesh] = None
 
 
 class SPContext(NamedTuple):
@@ -415,7 +428,10 @@ def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
     `SPMesh`, a mesh of sp ranks). The island runs for a mode on a mesh of
     sp > 1, and for "ulysses" on a tp-only mesh too (its sp all-to-alls
     are then identities); else the single-device attention, over the
-    rank's heads at tp > 1."""
+    rank's heads at tp > 1. A mesh of pp > 1 without an island pipelines
+    the layers (the caller holds its stage's layers of the tree,
+    `parallel.pipeline_parallel.stage_layers`); L % pp != 0 raises
+    ValueError, as the JAX package asserts."""
     spec = make_kv_spec(cfg, batch, latent_h, latent_w, dtype, quantized_kv, kv_dtype,
                         head_major=kv_head_major, alloc_multiple=kv_alloc_multiple)
     geo = DiTGeometry(frames, latent_h, latent_w, cfg.patch_size)
@@ -432,8 +448,13 @@ def make_statics(cfg: ModelConfig, batch: int, frames: int, latent_h: int,
     if sp_mode != "none" and geo.frame_seq % mesh.sp.size:
         raise ValueError(f"{geo.frame_seq} tokens a frame do not split over sp "
                          f"{mesh.sp.size}")
+    pp = mesh.pp if mesh.pp.size > 1 and sp_mode == "none" else None
+    if pp is not None:
+        if cfg.num_layers % pp.size:
+            raise ValueError(f"{cfg.num_layers} layers do not split over pp {pp.size}")
+        spec = dataclasses.replace(spec, num_layers=cfg.num_layers // pp.size)
     return DiTStatics(cfg=cfg, spec=spec, geo=geo, mesh=mesh, sp_mode=sp_mode,
-                      shard=wan_kv_cache_shard(sp_mode, spec, mesh), tp=tp)
+                      shard=wan_kv_cache_shard(sp_mode, spec, mesh), tp=tp, pp=pp)
 
 
 def dit_forward_inference(
@@ -487,6 +508,9 @@ def dit_forward_inference(
     else:
         kv_mask = valid_mask(spec, current_end, device=x.device)
     fields = [f for f in cache if f is not None]
+    if statics.pp is not None:
+        return _pipelined_forward(params, statics, tokens, e, e0, angles, xattn, fields,
+                                  current_start, kv_mask, need_output), cache
     h = tokens
     for lid in range(cfg.num_layers):
         img = (None if xattn.k_img is None
@@ -501,6 +525,38 @@ def dit_forward_inference(
     if sp is not None:
         out = gather_frame_shards(sp.mesh, out, geo.frames)
     return unpatchify(out, cfg, geo), cache
+
+
+def _pipelined_forward(params: Params, statics: DiTStatics, tokens: torch.Tensor,
+                       e: torch.Tensor, e0: torch.Tensor, angles: torch.Tensor,
+                       xattn: CrossAttnCache, fields, current_start, kv_mask,
+                       need_output: bool) -> Optional[torch.Tensor]:
+    """The layers through the stages (JAX `causal_dit.py:647-707`): the batch
+    rows are the microbatches, each with its rows of the modulation, rope
+    angles, start and mask; the stage's layers of the tree, the text /
+    image K/V and the cache (written in place, row by row). The flow, or
+    None without need_output (no broadcast of the last stage's tokens)."""
+    cfg, spec = statics.cfg, statics.spec
+    stacked = {"block": params["blocks"], "xk": xattn.k, "xv": xattn.v}
+    if xattn.k_img is not None:
+        stacked.update(xki=xattn.k_img, xvi=xattn.v_img)
+    per_row = isinstance(current_start, torch.Tensor)
+
+    def layer_fn(stk, state, h, i):
+        row = slice(i, i + 1)
+        img = (stk["xki"][row], stk["xvi"][row]) if "xki" in stk else None
+        h, _ = block_forward(
+            stk["block"], cfg, spec, h, e0[row], angles[row] if angles.dim() == 3 else angles,
+            tuple(f[row] for f in state), stk["xk"][row], stk["xv"][row],
+            current_start[row] if per_row else current_start,
+            kv_mask[row] if kv_mask.dim() == 2 else kv_mask, xattn_img=img, tp=statics.tp)
+        return h, state
+
+    outs, _ = pp_pipeline(statics.pp, layer_fn, stacked, tokens[:, None], layer_state=fields,
+                          pass_mb_index=True, collect=need_output)
+    if not need_output:
+        return None
+    return unpatchify(head_forward(params, cfg, outs[:, 0], e), cfg, statics.geo)
 
 
 def _clip_statics(cfg: ModelConfig, x: torch.Tensor, frames: int,

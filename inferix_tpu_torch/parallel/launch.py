@@ -26,8 +26,8 @@ from ..core.config import ParallelConfig
 from .mesh import make_mesh
 
 
-def _key(cfg: ParallelConfig) -> Tuple[int, int, int]:
-    return cfg.dp, cfg.sp, cfg.tp
+def _key(cfg: ParallelConfig) -> Tuple[int, int, int, int]:
+    return cfg.dp, cfg.sp, cfg.tp, cfg.pp
 
 
 def _rank_main(rank: int, layout: ParallelConfig, backend: str, init_method: str,
@@ -67,7 +67,7 @@ class RankPool:
             layout = ParallelConfig(sp=layout)
         ctx = mp.get_context("spawn")
         self.layout, self.timeout = layout, timeout
-        self.size = layout.dp * layout.sp * layout.tp
+        self.size = layout.world_size
         self._conns, self._procs = [], []
         for rank in range(self.size):
             dev = f"cuda:{rank}" if backend == "nccl" else device
@@ -85,9 +85,8 @@ class RankPool:
         order, None from a rank past the layout."""
         if not self._procs:
             raise RuntimeError("the rank pool is closed")
-        if layout is not None and layout.dp * layout.sp * layout.tp > self.size:
-            raise ValueError(f"a layout of {layout.dp * layout.sp * layout.tp} ranks on a "
-                             f"pool of {self.size}")
+        if layout is not None and layout.world_size > self.size:
+            raise ValueError(f"a layout of {layout.world_size} ranks on a pool of {self.size}")
         for c in self._conns:
             c.send((fn, args, layout))
         results, failure = [], None

@@ -5,12 +5,16 @@
 
 The JAX package lays one `jax.sharding.Mesh` over its devices and lets GSPMD
 place every tensor. The port runs one process a rank. `make_mesh` lays the
-ranks on the JAX grid, `reshape(dp, sp, tp)`: global rank = (d sp + s) tp +
-t. A rank's `Mesh` holds a view (`SPMesh`) of each process group it is in:
-its sp group (the ranks of its (d, t)), its tp group (of its (d, s)), its dp
-group (of its (s, t)) and its head group, the combined (tp, sp) axis with
-tp the major one, as a JAX `PartitionSpec` orders `("tp", "sp")`: rank
-(t, s) holds head slice t sp + s of tp sp. A group of one makes no exchange.
+ranks on the JAX grid, `reshape(dp, sp, tp, pp)`, pp the fastest axis:
+global rank = ((d sp + s) tp + t) pp + p (at pp 1, (d sp + s) tp + t). A
+rank's `Mesh` holds a view (`SPMesh`) of each process group it is in, all
+within its pipeline stage p: its sp group (the ranks of its (d, t)), its tp
+group (of its (d, s)), its dp group (of its (s, t)) and its head group, the
+combined (tp, sp) axis with tp the major one, as a JAX `PartitionSpec`
+orders `("tp", "sp")`: rank (t, s) holds head slice t sp + s of tp sp; and
+its pp group, the stages of its (d, s, t), which hand activations from
+stage to stage (`SPMesh.send` / `recv`, `parallel/pipeline_parallel.py`).
+A group of one makes no exchange.
 The caller names the backend: "nccl" (one rank a card) or "gloo" (the CPU
 tests, and several ranks on one card). gloo exchanges host tensors only, so
 with gloo and CUDA tensors every exchange goes through host copies in
@@ -30,7 +34,10 @@ Placement, stated once (the JAX package leaves it to GSPMD):
 - the KV cache: `wan_kv_cache_shard` / `magi_kv_cache_shard` (heads over
   tp, and over sp too or slots over sp, by island);
 - the text (and i2v image) K/V: heads over tp; latents and noise:
-  replicated over sp and tp, batch rows over dp.
+  replicated over sp and tp, batch rows over dp;
+- under pp, the stacked layers of the tree, the text K/V and the cache:
+  stage p holds layers [p L/pp, (p+1) L/pp) only
+  (`pipeline_parallel.stage_layers`).
 """
 from __future__ import annotations
 
@@ -182,6 +189,38 @@ class SPMesh:
                 req.wait()
         return [self._back(r, t.dtype) for r, t in zip(recv, tensors)]
 
+    def send(self, tensors: Sequence[torch.Tensor], dst: int) -> None:
+        """Send each tensor to group rank dst, in order (a blocking
+        point-to-point send; the receiver knows the shapes and dtypes)."""
+        for t in tensors:
+            s = self._out(_wire(t))
+            self.sent_bytes += _nbytes(s)
+            dist.send(s, self._global(dst), group=self.group)
+
+    def recv(self, like: Sequence[Tuple[Tuple[int, ...], torch.dtype]],
+             src: int) -> List[torch.Tensor]:
+        """Receive one tensor of each (shape, dtype) of `like` from group rank
+        src, in the order it sent them."""
+        out = []
+        for shape, dtype in like:
+            buf = self._empty_like(shape, dtype)
+            dist.recv(buf, self._global(src), group=self.group)
+            out.append(self._back(buf, dtype))
+        return out
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Group rank src's t on every rank. Elsewhere t only gives the shape
+        and dtype (a "meta" tensor will do)."""
+        if self.size == 1:
+            return t
+        if self.rank == src:
+            buf = self._out(_wire(t))
+            self.sent_bytes += _nbytes(buf) * (self.size - 1)
+        else:
+            buf = self._empty_like(t.shape, t.dtype)
+        dist.broadcast(buf, self._global(src), group=self.group)
+        return t if self.rank == src else self._back(buf, t.dtype)
+
     def _global(self, rank: int) -> int:
         if self.members is not None:
             return self.members[rank]
@@ -194,21 +233,32 @@ def _one(name: str, backend: str, device) -> SPMesh:
 
 @dataclasses.dataclass
 class Mesh:
-    """A rank's place on the (dp, sp, tp) grid and its view of each group."""
+    """A rank's place on the (dp, sp, tp, pp) grid and its view of each
+    group (pp None: a group of one)."""
 
     cfg: ParallelConfig
-    rank: int                 # global rank, (d sp + s) tp + t
+    rank: int                 # global rank, ((d sp + s) tp + t) pp + p
     backend: str
     device: torch.device
     sp: SPMesh
     tp: SPMesh
     dp: SPMesh
     heads: SPMesh             # the combined (tp, sp) axis, tp major
+    pp: Optional[SPMesh] = None   # the stages of the rank's (d, s, t)
+
+    def __post_init__(self):
+        if self.pp is None:
+            self.pp = _one("pp", self.backend, self.device)
+
+    @property
+    def stage(self) -> int:
+        """The rank's pipeline stage p."""
+        return self.pp.rank
 
     def groups(self) -> Dict[str, SPMesh]:
         """The distinct groups of the rank, by name."""
         out: Dict[str, SPMesh] = {}
-        for g in (self.sp, self.tp, self.dp, self.heads):
+        for g in (self.sp, self.tp, self.dp, self.heads, self.pp):
             if all(g is not h for h in out.values()):
                 out[g.name] = g
         return out
@@ -243,26 +293,39 @@ def as_mesh(mesh) -> Optional[Mesh]:
                 dp=_one("dp", mesh.backend, mesh.device), heads=mesh)
 
 
+def grid_place(cfg: ParallelConfig, rank: int) -> Tuple[int, int, int, int]:
+    """(d, s, t, p) of a global rank on the JAX grid reshape(dp, sp, tp, pp)."""
+    p, rest = rank % cfg.pp, rank // cfg.pp
+    return rest // (cfg.sp * cfg.tp), rest // cfg.tp % cfg.sp, rest % cfg.tp, p
+
+
 def grid_coords(cfg: ParallelConfig, rank: int) -> Tuple[int, int, int]:
-    """(d, s, t) of a global rank on the JAX grid reshape(dp, sp, tp)."""
-    return rank // (cfg.sp * cfg.tp), rank // cfg.tp % cfg.sp, rank % cfg.tp
+    """(d, s, t) of a global rank (its stage left out)."""
+    return grid_place(cfg, rank)[:3]
 
 
-def _grid_rank(cfg: ParallelConfig, d: int, s: int, t: int) -> int:
-    return (d * cfg.sp + s) * cfg.tp + t
+def _grid_rank(cfg: ParallelConfig, d: int, s: int, t: int, p: int = 0) -> int:
+    return ((d * cfg.sp + s) * cfg.tp + t) * cfg.pp + p
 
 
 def _layout_groups(cfg: ParallelConfig) -> List[Tuple[str, List[List[int]]]]:
     """Every group of the layout, in the order each rank builds them: for
-    each axis, its groups' global ranks in logical order."""
-    r = lambda d, s, t: _grid_rank(cfg, d, s, t)  # noqa: E731
-    dp, sp, tp = cfg.dp, cfg.sp, cfg.tp
-    return [
-        ("sp", [[r(d, s, t) for s in range(sp)] for d in range(dp) for t in range(tp)]),
-        ("tp", [[r(d, s, t) for t in range(tp)] for d in range(dp) for s in range(sp)]),
-        ("dp", [[r(d, s, t) for d in range(dp)] for s in range(sp) for t in range(tp)]),
-        ("heads", [[r(d, s, t) for t in range(tp) for s in range(sp)] for d in range(dp)]),
-    ]
+    each axis, its groups' global ranks in logical order; the sp, tp, dp
+    and head groups once a stage, then the pp groups. At pp 1 these are the
+    groups of the (dp, sp, tp) grid."""
+    dp, sp, tp, pp = cfg.dp, cfg.sp, cfg.tp, cfg.pp
+    out = []
+    for p in range(pp):
+        r = lambda d, s, t: _grid_rank(cfg, d, s, t, p)  # noqa: E731
+        out += [
+            ("sp", [[r(d, s, t) for s in range(sp)] for d in range(dp) for t in range(tp)]),
+            ("tp", [[r(d, s, t) for t in range(tp)] for d in range(dp) for s in range(sp)]),
+            ("dp", [[r(d, s, t) for d in range(dp)] for s in range(sp) for t in range(tp)]),
+            ("heads", [[r(d, s, t) for t in range(tp) for s in range(sp)] for d in range(dp)]),
+        ]
+    out.append(("pp", [[_grid_rank(cfg, d, s, t, p) for p in range(pp)]
+                       for d in range(dp) for s in range(sp) for t in range(tp)]))
+    return out
 
 
 def make_mesh(cfg: ParallelConfig, rank: int, backend: str,
@@ -270,12 +333,12 @@ def make_mesh(cfg: ParallelConfig, rank: int, backend: str,
               init_method: Optional[str] = None) -> Optional[Mesh]:
     """This rank's mesh for `cfg`. Initialises the default process group
     with `backend` from `init_method` ("file://...", "tcp://host:port")
-    when it is not initialised yet, with a world of dp sp tp. An
-    initialised world may be larger: the layout takes its first dp sp tp
+    when it is not initialised yet, with a world of dp sp tp pp. An
+    initialised world may be larger: the layout takes its first dp sp tp pp
     ranks, and the others get None. Every rank of the world must call this
     with the same cfg (each creates every group of the layout, in one
     order, as `dist.new_group` requires)."""
-    world = cfg.dp * cfg.sp * cfg.tp
+    world = cfg.world_size
     if not dist.is_initialized():
         if world == 1:
             return single_device_mesh(device, backend)
@@ -314,7 +377,8 @@ def make_mesh(cfg: ParallelConfig, rank: int, backend: str,
     elif cfg.sp == 1:
         views["heads"] = views["tp"]
     return Mesh(cfg=cfg, rank=rank, backend=backend, device=views["sp"].device,
-                sp=views["sp"], tp=views["tp"], dp=views["dp"], heads=views["heads"])
+                sp=views["sp"], tp=views["tp"], dp=views["dp"], heads=views["heads"],
+                pp=views["pp"])
 
 
 def single_device_mesh(device: str | torch.device = "cuda", backend: str = "nccl") -> Mesh:

@@ -28,9 +28,16 @@ calling the pipeline with the same inputs) of sp or tp > 1 the walk runs
 neither, as the JAX pipeline does): each rank holds its tp shard of the
 tree (gated fc1 split into gate / up first) and its kv heads of the window
 cache; the 3-CFG row sync stays on the rank (its cache rows are whole).
-Not ported here: MAGI at dp > 1, pipeline parallelism, and
-`MagiVideoPipeline`'s tile-parallel decode and `decode_devices`
-(ROADMAP.md A13c). Each is refused by name.
+At pp > 1 every forward is a GPipe pipeline (`models.magi.dit.magi_forward_pp`):
+the batch is 2 rows even at cfg_number 1 (the two halves are the
+pipeline's microbatches, as in the JAX pipeline) and the rank holds its
+stage's layers of the tree and of the cache. At dp > 1 each rank holds its
+rows of the latents and the cache; the velocity rows that the CFG
+combination reads are gathered over dp, and the 3-CFG row sync crosses
+from dp rank 1 to dp rank 0. The prefix-free third forward runs whole on
+every dp rank.
+`MagiVideoPipeline(tile=True)` decodes each chunk through overlapping
+tiles (`parallel/tile_parallel.py`), on `decode_devices` when given.
 """
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ from ..core.device import resolve_device
 from ..kvcache.cache import KVCache, cache_shape, init_kv_cache
 from ..parallel.distributed_attention import sp_comm_bytes_per_layer
 from ..parallel.mesh import as_mesh, magi_param_shards
+from ..parallel.pipeline_parallel import stage_layers
+from ..parallel.tile_parallel import Replicas, TileProcessor
 from ..models.magi.dit import (
     MagiModelConfig,
     Params,
@@ -161,10 +170,20 @@ class MagiPipeline:
         self.profiler = profiler or InferixProfiler()
         self.profiler.device = self.device
         # batch 2 = (conditional, unconditional) halves, reference x.chunk(2);
-        # the distilled path (cfg_number 1) runs one conditional forward
-        self.batch = 2 if runtime.cfg_number >= 2 else 1
+        # the distilled path (cfg_number 1) runs one conditional forward,
+        # except under pp, where the two halves are the pipeline's microbatches
+        pp_on = mesh is not None and mesh.pp.size > 1
+        self.batch = 2 if (runtime.cfg_number >= 2 or pp_on) else 1
+        # data parallel: `rows`, the batch rows this rank runs (None: all)
+        self._dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
+        self.rows, local = None, self.batch
+        if self._dp is not None:
+            if self.batch % self._dp.size:
+                raise ValueError(f"batch {self.batch} does not split over dp {self._dp.size}")
+            local = self.batch // self._dp.size
+            self.rows = slice(self._dp.rank * local, (self._dp.rank + 1) * local)
         self.statics = make_magi_statics(
-            model_cfg, self.batch, latent_h, latent_w, max_chunks, dtype,
+            model_cfg, local, latent_h, latent_w, max_chunks, dtype,
             mesh=mesh, sp_mode=sp_mode, kv_dtype=kv_dtype, quantize_kv=runtime.quantize_kv,
             kv_head_major=runtime.kv_head_major,
             kv_alloc_multiple=DEFAULT_KV_BLOCK if runtime.kv_alloc_pad else 0)
@@ -172,6 +191,11 @@ class MagiPipeline:
             g = generator or torch.Generator(device=self.device).manual_seed(runtime.seed)
             params = init_magi_params(model_cfg, g, self.device, dtype)
         self.mesh = self.statics.mesh
+        if pp_on:
+            if "blocks" not in params:
+                raise ValueError("the pp path requires the uniform blocks layout")
+            params = {**params, "blocks": stage_layers(params["blocks"], mesh,
+                                                       model_cfg.num_layers)}
         # the JAX package's count of one layer's window exchange a forward
         self.sp_comm_bytes = 0
         if self.mesh is not None:
@@ -276,7 +300,7 @@ class MagiPipeline:
         g = generator or torch.Generator(device=dev).manual_seed(rt.seed)
         noise = self._draw_noise(g, (1, chunk_num * cw, geo.latent_h, geo.latent_w,
                                      cfg.latent_channels)).to(self.dtype)
-        x = noise.expand(self.batch, *noise.shape[1:]).clone()
+        x = noise.expand(self.statics.spec.batch, *noise.shape[1:]).clone()
         del noise
         if prefix_latents is not None:
             x[:, :chunk_offset * cw] = prefix_latents.to(x.dtype)
@@ -449,6 +473,8 @@ class MagiPipeline:
         else:
             dropout = torch.tensor([False], device=dev)
         caps = caps.to(self.dtype)
+        if self.rows is not None:   # this dp rank's rows of the batch
+            t, caps, masks, dropout = (a[self.rows] for a in (t, caps, masks, dropout))
 
         sync = rt.cfg_number >= 2
         if rt.window_dispatch in ("per_chunk", "scan") and n_chunks > 1:
@@ -467,7 +493,10 @@ class MagiPipeline:
             # the per-chunk loop ran without the row sync, so that each later
             # chunk's cond+text row attended the earlier chunks' own row-0
             # K/V, as in the whole-window forward: sync the window once now
-            sync_cache_rows(self.statics.spec, cache, slice_point * ct, n_chunks * ct)
+            sync_cache_rows(self.statics.spec, cache, slice_point * ct, n_chunks * ct,
+                            dp=self._dp)
+        if self._dp is not None:   # every row, for the CFG combination
+            velocity = torch.cat(self._dp.all_gather(velocity), dim=0)
 
         if nearly_clean:
             s = rt.distill_prev_chunks_scale
@@ -495,6 +524,8 @@ class MagiPipeline:
                            torch.as_tensor(text_s, device=dev)]).reshape(1, -1, 1, 1, 1, 1)
             comb = v_unc + (1.0 + w) * (v_cond - v_unc)
             velocity = comb.expand(v.shape).reshape(velocity.shape)
+        if self.rows is not None:
+            velocity = velocity[self.rows]
         return velocity, cache
 
     def _uncond_combine(self, x_den, t_den, caps, masks, v_text, v_pre, prev_s, text_s,
@@ -555,16 +586,37 @@ class MagiPipeline:
 class MagiVideoPipeline(MagiPipeline):
     """The MAGI pipeline with a per-chunk decode (reference
     post_chunk_process, `pipeline/magi/video_process.py:348-388`): each
-    clean chunk is decoded by the ViT-VAE as it is yielded. The tile-parallel
-    decode and `decode_devices` are refused (ROADMAP.md A13c)."""
+    clean chunk is decoded by the ViT-VAE as it is yielded, whole or
+    through overlapping tiles (`tile=True`,
+    `parallel/tile_parallel.TileProcessor`). decode_devices routes the tiles
+    to those devices (the ViT-VAE keeps no state between chunks), and
+    implies the tiled decode. Each decode device holds one copy of the
+    VAE's parameters, made at its first tile and made again only when the
+    VAE's params change identity."""
 
     def __init__(self, *args, vae=None, tile: bool = False, decode_devices=None, **kwargs):
-        if tile or decode_devices:
-            raise NotImplementedError(
-                "tile / decode_devices: the tile-parallel and disaggregated decode "
-                "are not ported (ROADMAP.md A13c)")
         super().__init__(*args, **kwargs)
         self.vae = vae
+        self.decode_devices = list(decode_devices) if decode_devices else None
+        self.tile = tile or self.decode_devices is not None
+        self._replicas = None
+
+    def decode_chunk(self, chunk: torch.Tensor) -> torch.Tensor:
+        """One chunk's pixels [1, T, H, W, 3] in [-1, 1] on the pipeline's
+        device: the tiles of the JAX pipeline (`magi.py:829-843`: the
+        chunk's T, half its height and width but at least 4 latents,
+        overlap 2), or the whole decode."""
+        if not self.tile:
+            return self.vae.decode(chunk)
+        if self._replicas is None or self._replicas.model is not self.vae:
+            self._replicas = Replicas(self.vae)
+        cfg = self.vae.cfg
+        tp = TileProcessor(fn=lambda z: self._replicas.on(z.device).decode(z),
+                           scale_t=cfg.patch_length, scale_hw=cfg.patch_size,
+                           devices=self.decode_devices)
+        px = tp.process(chunk, tile_t=chunk.shape[1], tile_h=max(chunk.shape[2] // 2, 4),
+                        tile_w=max(chunk.shape[3] // 2, 4), overlap_h=2, overlap_w=2)
+        return torch.from_numpy(px).to(self.device, chunk.dtype)
 
     def generate_video(self, caption_emb, caption_mask, chunk_num: int,
                        prefix_latents=None, generator: Optional[torch.Generator] = None,
@@ -576,7 +628,7 @@ class MagiVideoPipeline(MagiPipeline):
         pixels = []
         for idx, chunk in self.generate_chunks(caption_emb, caption_mask, chunk_num,
                                                prefix_latents, generator):
-            px = self.vae.decode(chunk)
+            px = self.decode_chunk(chunk)
             pixels.append(px)
             if chunk_callback is not None:
                 chunk_callback(px, idx)

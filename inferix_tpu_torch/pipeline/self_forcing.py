@@ -15,8 +15,12 @@ What differs from the JAX pipeline:
   so under "halo" and "halo_w8a8" the default VAE is built in bf16 (in f32
   under "xla", as in JAX);
 - the JAX trace-time switches `set_fused_act_quant` and `set_rope_impl` have
-  no counterpart: the port always takes the fused act-quant chain;
-- the disaggregated decode is not ported; it raises.
+  no counterpart: the port always takes the fused act-quant chain.
+
+`set_disaggregated_decode(devices)` routes the TRUE_STREAMING block decode
+to decode devices of its own (`parallel/disaggregated.py`): the stream
+callback then gets `PixelTiles` (pixels in [0, 1] still on the decode
+devices), and nothing in the block hook waits for the card.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 from ..core.config import EngineConfig
 from ..core.types import DecodeMode, StreamingMode
 from ..kvcache.manager import KVCacheManager, KVCacheRequest
+from ..parallel.disaggregated import DisaggregatedVAEDecoder
 from ..models.wan.causal_dit import Params
 from ..models.wan.vae import CausalVAE, VAEConfig
 from ..profiling.profiler import InferixProfiler
@@ -66,11 +71,23 @@ class SelfForcingPipeline(AbstractInferencePipeline):
         self._dtype = dtype
         self.generator: Optional[SemiARGenerator] = None
         self.kv_manager: Optional[KVCacheManager] = None
+        # the disaggregated block decode (set_disaggregated_decode), or None
+        self.disagg_decoder: Optional[DisaggregatedVAEDecoder] = None
 
-    def set_disaggregated_decode(self, devices, tiles=None, overlap: int = 2):
-        raise NotImplementedError(
-            "the disaggregated decode belongs to the parallel layer, which the "
-            "port does not have yet (ROADMAP A13c)")
+    def set_disaggregated_decode(self, devices, tiles=None,
+                                 overlap: int = 2) -> DisaggregatedVAEDecoder:
+        """Route the TRUE_STREAMING block decode to `devices`, the latent
+        width tiled over them (`parallel/disaggregated.py`): block i then
+        decodes there while block i + 1 denoises on the generator's card.
+        Stream callbacks get `PixelTiles` instead of a pixel tensor."""
+        if self.generator is None:
+            self.setup()
+        assert self._vae is not None, (
+            "the disaggregated decode needs a VAE (decode_mode NO_DECODE builds none: "
+            "construct the pipeline with a vae)")
+        self.disagg_decoder = DisaggregatedVAEDecoder(self._vae, devices, tiles=tiles,
+                                                      overlap=overlap)
+        return self.disagg_decoder
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -229,7 +246,14 @@ class SelfForcingPipeline(AbstractInferencePipeline):
                 ok = block_callback(block_latent, idx)
             if stream_callback is None:
                 return ok
-            if mode == StreamingMode.TRUE_STREAMING and self._vae is not None:
+            if mode == StreamingMode.TRUE_STREAMING and self.disagg_decoder is not None:
+                # on the decode devices, asynchronously: the callback gets the
+                # tiles' pixels in [0, 1] there, and nothing here waits
+                px, decode_state["cache"] = self.disagg_decoder.decode_chunk(
+                    block_latent, decode_state["cache"], first=decode_state["first"])
+                decode_state["first"] = False
+                stream_callback(px)
+            elif mode == StreamingMode.TRUE_STREAMING and self._vae is not None:
                 # whole-block decode, carrying the temporal cache from block
                 # to block: equal to vae.decode of the segment's new latents
                 out, decode_state["cache"] = self._vae.decode_chunk(

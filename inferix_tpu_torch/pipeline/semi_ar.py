@@ -39,7 +39,11 @@ one process a rank, every rank calling the generator with the same inputs.
 - dp > 1: each rank runs its B / dp batch rows. The inputs are the whole
   batch's: the noise and every renoise are drawn for all B rows, then
   sliced, so a dp run equals the one-device run row for row; each block's
-  x0 is gathered over dp.
+  x0 is gathered over dp;
+- pp > 1 without an island: the layers run as a GPipe pipeline, the batch
+  rows its microbatches (`models.wan.causal_dit`); the rank holds its
+  stage's layers of the tree, the text K/V and the cache. With an island
+  every pp rank holds the whole stack, as the JAX package runs it.
 Each rank holds only its shard of the cache (`init_cache`) and returns the
 whole latents.
 """
@@ -60,6 +64,7 @@ from ..ops.flash_attention import DEFAULT_KV_BLOCK
 from ..ops.rope import build_rope_tables
 from ..parallel.distributed_attention import MODES, sp_comm_bytes_per_layer
 from ..parallel.mesh import as_mesh, init_kv_cache_shard, wan_param_shards
+from ..parallel.pipeline_parallel import stage_layers
 from ..quant.api import to_kernel_layout
 
 
@@ -86,14 +91,6 @@ class SemiARGenerator:
         fp8_kv = quant_kv and qc.kv_cache_dtype == "fp8"
         mesh = as_mesh(mesh)
         tp = mesh.tp.size if mesh is not None else 1
-        # q/k/v fused into one [D, 3D] projection, as the JAX generator does
-        # (kept apart under tp, whose column shards split each projection);
-        # int8 weights then held once, in the int8 GEMM's K-contiguous layout
-        if tp > 1:
-            params = wan_param_shards(params, mesh)
-        elif m.fuse_qkv:
-            params = fuse_qkv_params(params)
-        self.params = to_kernel_layout(params)
         # the island (JAX `semi_ar.py:118-131`): a listed mode on a mesh of
         # sp > 1, "ulysses" on a tp-only mesh; "auto" and a mesh of one run none
         sp_mode = "none"
@@ -102,6 +99,16 @@ class SemiARGenerator:
                 sp_mode = cfg.parallel.sp_mode
             elif tp > 1 and cfg.parallel.sp_mode == "ulysses":
                 sp_mode = "ulysses"
+        if mesh is not None and mesh.pp.size > 1 and sp_mode == "none":
+            params = {**params, "blocks": stage_layers(params["blocks"], mesh, m.num_layers)}
+        # q/k/v fused into one [D, 3D] projection, as the JAX generator does
+        # (kept apart under tp, whose column shards split each projection);
+        # int8 weights then held once, in the int8 GEMM's K-contiguous layout
+        if tp > 1:
+            params = wan_param_shards(params, mesh)
+        elif m.fuse_qkv:
+            params = fuse_qkv_params(params)
+        self.params = to_kernel_layout(params)
         self.mesh, self.sp_mode = mesh, sp_mode
         # data parallel: `rows`, the batch rows this rank runs (None: all)
         self.batch = r.batch_size

@@ -4,7 +4,8 @@ causvid and stream commands at `--tiny --cpu`, with and without
 writing an .npz whose frames equal, exactly, those of the port's pipeline
 run in this process with the same config and seed; each output's shape
 equal to the JAX CLI's for the same arguments (its values differ: the two
-packages draw other noise). The magi command at `--tiny --cpu` with a
+packages draw other noise); the causvid and stream cases of that check are
+in `tests/test_torch_cli_frames.py`. The magi command at `--tiny --cpu` with a
 ViT-VAE directory written under tmp_path (config.json + safetensors): with
 the tiny defaults, with a `--config` JSON whose num_steps it keeps, as a
 module, and with `--image` on a PNG written here; its frames equal,
@@ -53,7 +54,9 @@ def checkpoint(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_shapes(tmp_path_factory):
-    """The JAX CLI's output shape for each command's arguments."""
+    """The JAX CLI's output shape for a command's arguments (the JAX command
+    run at the first request for it, so that a file runs only the JAX
+    commands of its own cases)."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -63,11 +66,15 @@ def jax_shapes(tmp_path_factory):
     mains = {"self-forcing": jcli.main_self_forcing, "causvid": jcli.main_causvid,
              "stream": jcli.main_stream}
     shapes = {}
-    for cmd, main in mains.items():
-        path = str(out / f"{cmd}.npz")
-        assert main(["--tiny", "--cpu", "--output", path, *ARGS[cmd]]) == 0
-        shapes[cmd] = np.load(path)["frames"].shape
-    return shapes
+
+    def shape(cmd):
+        if cmd not in shapes:
+            path = str(out / f"{cmd}.npz")
+            assert mains[cmd](["--tiny", "--cpu", "--output", path, *ARGS[cmd]]) == 0
+            shapes[cmd] = np.load(path)["frames"].shape
+        return shapes[cmd]
+
+    return shape
 
 
 def _in_process(cmd, model_path):
@@ -92,20 +99,28 @@ def _in_process(cmd, model_path):
     return np.concatenate(frames)
 
 
-@pytest.mark.parametrize("with_path", [False, True], ids=["random", "model_path"])
-@pytest.mark.parametrize("cmd", list(ARGS))
-def test_command_writes_the_pipeline_frames(tmp_path, checkpoint, jax_shapes, cmd,
-                                            with_path, capsys):
+def check_command_frames(tmp_path, checkpoint, jax_shapes, cmd, with_path, capsys):
+    """The command's .npz: uint8 frames of the JAX CLI's shape, equal to
+    the pipeline's run here."""
     path = str(tmp_path / "x.npz")
     argv = [cmd, "--tiny", "--cpu", "--output", path, *ARGS[cmd]]
     if with_path:
         argv += ["--model-path", checkpoint]
     assert cli.main(argv) == 0
     got = np.load(path)["frames"]
-    assert got.dtype == np.uint8 and got.shape == jax_shapes[cmd]
+    assert got.dtype == np.uint8 and got.shape == jax_shapes(cmd)
     np.testing.assert_array_equal(got, _in_process(cmd, checkpoint if with_path else None))
     if cmd == "stream":
         assert f"streamed {got.shape[0]} frames via file" in capsys.readouterr().out
+
+
+# the causvid and stream cases are in tests/test_torch_cli_frames.py (the
+# suite runs a file on one worker: two files take two)
+@pytest.mark.parametrize("with_path", [False, True], ids=["random", "model_path"])
+@pytest.mark.parametrize("cmd", ["self-forcing"])
+def test_command_writes_the_pipeline_frames(tmp_path, checkpoint, jax_shapes, cmd,
+                                            with_path, capsys):
+    check_command_frames(tmp_path, checkpoint, jax_shapes, cmd, with_path, capsys)
 
 
 @pytest.mark.parametrize("with_path", [False, True], ids=["random", "model_path"])

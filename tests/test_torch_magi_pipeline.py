@@ -274,18 +274,23 @@ def test_magi_config_from_json(name):
 @pytest.mark.parametrize("kw,vkw,match", [
     # since A13b a mesh and cp_strategy are taken: an object that is no mesh
     # is refused, and a cp_strategy without a mesh of sp or tp > 1 raises
-    # ValueError (the JAX make_magi_statics' refusal); the tile decode and
-    # decode_devices are A13c
+    # ValueError (the JAX make_magi_statics' refusal); since A13c the tile
+    # decode and decode_devices are taken (match None: the pipeline builds,
+    # the tiled decode on; its decodes are in tests/test_torch_pp.py)
     pytest.param(dict(mesh=object()), {}, "mesh", id="kw0-vkw0-A13"),
     pytest.param({}, dict(cp_strategy="cso"), "requires a mesh", id="kw1-vkw1-A13"),
     pytest.param({}, dict(cp_strategy="ulysses"), "requires a mesh", id="kw2-vkw2-A13"),
-    (dict(tile=True), {}, "A13"),
-    (dict(decode_devices=["cuda:1"]), {}, "A13"),
+    pytest.param(dict(tile=True), {}, None, id="kw3-vkw3-A13"),
+    pytest.param(dict(decode_devices=["cuda:1"]), {}, None, id="kw4-vkw4-A13"),
 ])
 def test_refusals(trees, kw, vkw, match):
     _, trt = _runtime(**vkw)
     cls = tpipe.MagiVideoPipeline if ("tile" in kw or "decode_devices" in kw) \
         else tpipe.MagiPipeline
+    if match is None:
+        pipe = _port_pipe(trees, trt, cls, **kw)
+        assert pipe.tile and pipe.decode_devices == kw.get("decode_devices")
+        return
     exc = {"mesh": TypeError, "requires a mesh": ValueError}.get(match, NotImplementedError)
     with pytest.raises(exc, match=match):
         _port_pipe(trees, trt, cls, **kw)

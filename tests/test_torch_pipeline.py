@@ -265,8 +265,11 @@ def test_image_to_video(pipes, decode):
 
 def test_pipeline_refusals(pipes):
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    # since A13c the disaggregated decode is taken (tests/test_torch_pp.py);
+    # a decode card that is not there is refused, with no fallback to the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tpipe.set_disaggregated_decode(["cuda:1"])
+    assert tpipe.disagg_decoder is None
     # model_path is honoured (tests/test_torch_checkpoint.py loads one): a
     # path that is not there fails at setup, as the JAX loader does
     cfg = tconfig.tiny_test_config()
@@ -461,8 +464,8 @@ def test_kv_manager_call_sequence(quantized):
 def test_config_round_trips():
     """The port's to_dict loads in both packages; the JAX package's
     to_dict (its TPU-only keys included) loads in the port; every field the
-    two share agrees; unknown keys raise KeyError; hard-wired keys and a
-    multi-device parallel section raise."""
+    two share agrees; unknown keys raise KeyError; hard-wired keys and an
+    axis of 0 in the parallel section raise."""
     for jcfg, tcfg in ((jconfig.EngineConfig(), tconfig.EngineConfig()),
                        (jconfig.tiny_test_config(), tconfig.tiny_test_config())):
         tcfg.runtime.decode_mode = ttypes.DecodeMode.PER_BLOCK
@@ -484,7 +487,7 @@ def test_config_round_trips():
         == ttypes.StreamingMode.TRUE_STREAMING
     for section, key, value, exc in (("runtime", "bogus", 1, KeyError),
                                      ("model", "qk_norm", False, ValueError),
-                                     ("parallel", "pp", 2, NotImplementedError),
+                                     ("parallel", "pp", 0, ValueError),
                                      ("parallel", "bogus", 1, KeyError)):
         bad = tconfig.EngineConfig().to_dict()
         bad.setdefault(section, {})[key] = value

@@ -19,7 +19,7 @@ in `tests/torch_sp_ranks.py`.
   atol 2e-4), the port fed the JAX renoise; and every mode x storage x
   layout held to the port's single-device generate (1e-5);
 - `sp_comm_bytes_per_layer` equal to the JAX integer; tp and dp > 1
-  accepted, pp > 1 refused; the refusals of shapes that do not split over
+  accepted, pp > 1 too (since A13c); the refusals of shapes that do not split over
   sp.
 """
 import copy
@@ -289,16 +289,11 @@ def test_sp_comm_bytes_per_layer_matches_jax():
 
 @pytest.mark.parametrize("axis,item", [("tp", "A13b"), ("dp", "A13b"), ("pp", "A13c")])
 def test_tp_dp_pp_refused(axis, item):
-    """Since A13b (tensor and data parallelism) tp and dp build, through the
-    config's dict too; pp is still refused, naming A13c."""
+    """Since A13b (tensor and data parallelism) tp and dp build, and since
+    A13c (pipeline parallelism) pp too, through the config's dict as well;
+    an axis of 0 is refused."""
     d = EngineConfig().to_dict()
     d["parallel"][axis] = 2
-    if item == "A13c":
-        with pytest.raises(NotImplementedError, match=item):
-            ParallelConfig(**{axis: 2})
-        with pytest.raises(NotImplementedError, match=f"parallel.{axis}"):
-            EngineConfig.from_dict(d)
-        return
     assert getattr(ParallelConfig(**{axis: 2}), axis) == 2
     cfg = EngineConfig.from_dict(d)
     assert getattr(cfg.parallel, axis) == 2 and cfg.parallel.world_size == 2

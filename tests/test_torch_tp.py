@@ -35,7 +35,7 @@ idle), the rank-side work in `tests/torch_tp_ranks.py`.
   single-device quantized run against the float one); the MAGI int8
   window cache head-major against token-major bit for bit;
 - `sp_comm_bytes_per_layer` at tp 2 equal to the JAX integer, MAGI at
-  dp > 1 refused naming A13c, the layout groups and their byte counts.
+  dp > 1 taken (since A13c), the layout groups and their byte counts.
 """
 import copy
 import dataclasses
@@ -548,18 +548,23 @@ def test_magi_int8_cache_head_major_bit_equal(pool, magi_trees):
 
 
 def test_magi_dp_refused_and_sp_comm_bytes():
-    """MAGI at dp > 1 names A13c (its 3-CFG row sync would copy across dp
-    ranks); the Wan and MAGI counts of the JAX formula at tp 2."""
+    """MAGI at dp > 1 is taken since A13c (its rows over the dp ranks: the
+    3-CFG batch of 2 is one row a rank; the walk itself is held to one
+    device in tests/test_torch_pp.py) and a batch that does not split
+    over dp is refused; the Wan and MAGI counts of the JAX formula at tp 2."""
     one = SPMesh(0, 1, "gloo", "cpu", name="sp")
     mesh = Mesh(cfg=ParallelConfig(dp=2), rank=0, backend="gloo", device=torch.device("cpu"),
                 sp=one, tp=SPMesh(0, 1, "gloo", "cpu", name="tp"),
                 dp=SPMesh(0, 2, "gloo", "cpu", name="dp"), heads=one)
     cfg = tdit.tiny_magi_config()
-    with pytest.raises(NotImplementedError, match="A13c"):
-        MagiPipeline(cfg, MagiRuntimeConfig(**MAGI_RT), latent_h=8, latent_w=8,
+    pipe = MagiPipeline(cfg, MagiRuntimeConfig(cfg_number=3, **MAGI_RT), latent_h=8,
+                        latent_w=8, max_chunks=6, dtype=torch.float32, device="cpu", mesh=mesh)
+    assert pipe.batch == 2 and pipe.statics.spec.batch == 1 and pipe.rows == slice(0, 1)
+    with pytest.raises(ValueError, match="does not split over dp 2"):
+        MagiPipeline(cfg, MagiRuntimeConfig(cfg_number=1, **MAGI_RT), latent_h=8, latent_w=8,
                      max_chunks=6, dtype=torch.float32, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        tdit.make_magi_statics(cfg, 1, 8, 8, 6, torch.float32, mesh=mesh, sp_mode="cso")
+    st = tdit.make_magi_statics(cfg, 1, 8, 8, 6, torch.float32, mesh=mesh)
+    assert st.dp is mesh.dp and st.spec.batch == 1
     for mode in ("ulysses", "cso", "ring_pass_q", "ring_pass_kv"):
         args = (mode, 2, 2, 1, 4680, 32760, 12, 128)
         assert tda.sp_comm_bytes_per_layer(*args) == jda.sp_comm_bytes_per_layer(*args) > 0
