@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ...core.device import resolve_device
 from ...ops.attention import attention_chunked
 from ...ops.halo_conv import halo_conv3d, halo_conv3d_w8a8, pack_weight, tap_sum
+from ...profiling.profiler import span
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -405,11 +406,12 @@ class CausalVAE:
         """Decode T latent frames [B, T, h, w, z] -> pixels [B, 4T or 4T - 3,
         H, W, 3] (the stream's first frame expands to one pixel frame, every
         other to four), carrying the temporal cache from chunk to chunk."""
-        ctx = _CacheCtx(cache, first, self.conv_impl, self.upsample_impl)
-        z = z.to(device=self.device, dtype=self.dtype)
-        mean, std = self._latent_stats(z)
-        x = _conv3d(self.params["conv2"], z * std + mean, self.conv_impl)
-        out = decoder_apply(self.params["decoder"], x, ctx)
+        with span("vae.decode", first=first):
+            ctx = _CacheCtx(cache, first, self.conv_impl, self.upsample_impl)
+            z = z.to(device=self.device, dtype=self.dtype)
+            mean, std = self._latent_stats(z)
+            x = _conv3d(self.params["conv2"], z * std + mean, self.conv_impl)
+            out = decoder_apply(self.params["decoder"], x, ctx)
         return out, ctx.cache
 
     def decode(self, latents: torch.Tensor, chunk: int = 3) -> torch.Tensor:

@@ -42,7 +42,6 @@ tiles (`parallel/tile_parallel.py`), on `decode_devices` when given.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -339,50 +338,46 @@ class MagiPipeline:
             start_step = int(resume_state["step"])
             sched.chunk_denoise_count[:] = np.asarray(resume_state["chunk_denoise_count"])
 
-        self.profiler.sync()
-        chunk_t0 = time.perf_counter()
+        # the profiler's step and chunk times: the card's, from the steps'
+        # spans, read once the walk ends (`InferixProfiler.resolve`)
+        chunk_first = None
         for step in range(start_step, sched.total_forward_steps):
-            step_t0 = time.perf_counter()
-            c_start, c_end, _, _ = sched.window(step)
-            extra_clean = sched.fwd_extra_1st_chunk(step)
-            w_start = c_start - 1 if extra_clean else c_start
-            n_chunks = c_end - w_start
+            with self.profiler.span("magi.step", step=step) as step_span:
+                c_start, c_end, _, _ = sched.window(step)
+                extra_clean = sched.fwd_extra_1st_chunk(step)
+                w_start = c_start - 1 if extra_clean else c_start
+                n_chunks = c_end - w_start
 
-            t_vals = sched.timesteps(step)
-            if extra_clean:
-                t_vals = np.concatenate([[rt.clean_t], t_vals])
-            kv_ranges = sched.kv_ranges(step, include_clean=extra_clean)
-            _, denoise_idx = sched.stage_of(step)
-            velocity, cache = self._forward_window(
-                x[:, w_start * cw:c_end * cw], t_vals, caption_emb, caption_mask, cache,
-                slice_point=w_start, kv_ranges=kv_ranges,
-                chunk_is_clean=[extra_clean] + [False] * (n_chunks - 1),
-                distill_interval=float(sched.interval[denoise_idx]))
+                t_vals = sched.timesteps(step)
+                if extra_clean:
+                    t_vals = np.concatenate([[rt.clean_t], t_vals])
+                kv_ranges = sched.kv_ranges(step, include_clean=extra_clean)
+                _, denoise_idx = sched.stage_of(step)
+                velocity, cache = self._forward_window(
+                    x[:, w_start * cw:c_end * cw], t_vals, caption_emb, caption_mask, cache,
+                    slice_point=w_start, kv_ranges=kv_ranges,
+                    chunk_is_clean=[extra_clean] + [False] * (n_chunks - 1),
+                    distill_interval=float(sched.interval[denoise_idx]))
 
-            # Euler step over the denoising chunks only
-            if extra_clean:
-                velocity = velocity[:, cw:]
-            n_den = c_end - c_start
-            v = velocity.reshape(velocity.shape[0], n_den, cw, *velocity.shape[2:])
-            d = torch.as_tensor(sched.integrate_deltas(step), dtype=v.dtype,
-                                device=dev).reshape(1, -1, 1, 1, 1, 1)
-            x_den = x[:, c_start * cw:c_end * cw].reshape(v.shape)
-            x[:, c_start * cw:c_end * cw] = (x_den + v * d).reshape(
-                x.shape[0], n_den * cw, *x.shape[2:]).to(x.dtype)
-
-            if self.profiler.config.enabled:
-                self.profiler.sync()
-                self.profiler.record_diffusion_step(
-                    step, float(t_vals[-1]), n_den, (time.perf_counter() - step_t0) * 1e3)
+                # Euler step over the denoising chunks only
+                if extra_clean:
+                    velocity = velocity[:, cw:]
+                n_den = c_end - c_start
+                v = velocity.reshape(velocity.shape[0], n_den, cw, *velocity.shape[2:])
+                d = torch.as_tensor(sched.integrate_deltas(step), dtype=v.dtype,
+                                    device=dev).reshape(1, -1, 1, 1, 1, 1)
+                x_den = x[:, c_start * cw:c_end * cw].reshape(v.shape)
+                x[:, c_start * cw:c_end * cw] = (x_den + v * d).reshape(
+                    x.shape[0], n_den * cw, *x.shape[2:]).to(x.dtype)
+            self.profiler.record_step_spans(step, float(t_vals[-1]), n_den, step_span)
+            chunk_first = chunk_first or step_span
 
             done = sched.mark_integrated(step)
             if done is not None:
                 clean = x[:1, done * cw:(done + 1) * cw].clone()
-                if self.profiler.config.enabled:
-                    self.profiler.sync()
-                    self.profiler.record_block_computation(
-                        done - chunk_offset, cw, (time.perf_counter() - chunk_t0) * 1e3)
-                    chunk_t0 = time.perf_counter()
+                self.profiler.record_block_spans(done - chunk_offset, cw, chunk_first,
+                                                 step_span)
+                chunk_first = None
                 yield done - chunk_offset, clean
 
             if state_callback is not None:
@@ -394,6 +389,7 @@ class MagiPipeline:
                     "step": step + 1,
                     "chunk_denoise_count": sched.chunk_denoise_count.copy(),
                 }, step)
+        self.profiler.resolve()
 
     def _distill_dt_factor(self, distill_interval: Optional[float]) -> Optional[float]:
         """Reference distill-dt (dit_model.py:175-185)."""

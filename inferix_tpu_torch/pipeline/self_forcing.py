@@ -24,7 +24,6 @@ devices), and nothing in the block hook waits for the card.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -35,7 +34,7 @@ from ..kvcache.manager import KVCacheManager, KVCacheRequest
 from ..parallel.disaggregated import DisaggregatedVAEDecoder
 from ..models.wan.causal_dit import Params
 from ..models.wan.vae import CausalVAE, VAEConfig
-from ..profiling.profiler import InferixProfiler
+from ..profiling.profiler import STORE, InferixProfiler
 from ..quant.api import quantize_params
 from ..utils.checkpoint import load_self_forcing_checkpoint
 from ..utils.params import init_params
@@ -171,20 +170,12 @@ class SelfForcingPipeline(AbstractInferencePipeline):
                 (r.batch_size, num_frames, r.latent_height, r.latent_width,
                  r.latent_channels))
 
-        self.profiler.sync()
-        t0 = time.perf_counter()
-
         def timed_callback(block_latent, idx):
             # time_ms is the PER-BLOCK duration (the profiler summary /
-            # analyzer / extract_metrics contract), so reset the clock
-            # after each record; with profiling on, the card's time
-            nonlocal t0
-            self.profiler.sync()
-            self.profiler.record_block_computation(
-                idx, block_latent.shape[1],
-                (time.perf_counter() - t0) * 1e3,
-            )
-            t0 = time.perf_counter()
+            # analyzer / extract_metrics contract): the card's time of the
+            # block's `semi_ar.block` span, read when the session ends
+            self.profiler.record_block_spans(idx, block_latent.shape[1],
+                                             STORE.last("semi_ar.block"))
             if block_callback is not None:
                 return block_callback(block_latent, idx)
 

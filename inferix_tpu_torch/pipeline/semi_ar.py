@@ -65,6 +65,7 @@ from ..ops.rope import build_rope_tables
 from ..parallel.distributed_attention import MODES, sp_comm_bytes_per_layer
 from ..parallel.mesh import as_mesh, init_kv_cache_shard, wan_param_shards
 from ..parallel.pipeline_parallel import stage_layers
+from ..profiling.profiler import span
 from ..quant.api import to_kernel_layout
 
 
@@ -167,7 +168,7 @@ class SemiARGenerator:
         i2v model, clip_features [B, 257, 1280] add the image K/V. Under dp
         the rank's rows are kept; under tp the rank's heads."""
         tp = self.mesh.tp if self.mesh is not None else None
-        with torch.inference_mode():
+        with torch.inference_mode(), span("dit.text"):
             return precompute_crossattn_cache(
                 self.params, self.cfg.model, self._local(context).to(self.device),
                 None if clip_features is None else self._local(clip_features).to(self.device),
@@ -204,6 +205,8 @@ class SemiARGenerator:
         return torch.stack(rows).to(x0.dtype)
 
     def _forward(self, x, t_val, xattn, cache, start, need_output=True):
+        """One DiT forward. Its callers open its `dit.forward` span, with
+        the denoise step's index (-1 for a context forward)."""
         b, f = x.shape[0], x.shape[1]
         t = torch.full((b, f), t_val, dtype=torch.float32, device=self.device)
         flow, cache = dit_forward_inference(
@@ -237,22 +240,25 @@ class SemiARGenerator:
         if renoise is not None and len(renoise) < len(steps) - 1:
             raise ValueError(f"renoise needs {len(steps) - 1} tensors, got {len(renoise)}")
         start = self._start_tokens(current_start_frame)
-        x = self._local(noisy).to(self.device)
-        for i, t_val in enumerate(steps):
-            flow, t = self._forward(x, t_val, xattn, cache, start)
-            x0 = self.schedule.flow_to_x0(flow, x, t)
-            if i == len(steps) - 1:
-                break
-            if renoise is not None:
-                fresh = self._local(renoise[i]).to(device=self.device, dtype=x0.dtype)
-            else:
-                fresh = self._renoise(x0, generator)
-            t_next = torch.full_like(t, steps[i + 1])
-            x = self.schedule.add_noise(x0, fresh, t_next)
-        if self.context_mode == "rerun":
-            # the clean-context re-run: its K/V is what later blocks attend
-            self._forward(x0, self.context_noise, xattn, cache, start,
-                          need_output=False)
+        with span("semi_ar.block", block=current_start_frame):
+            x = self._local(noisy).to(self.device)
+            for i, t_val in enumerate(steps):
+                with span("dit.forward", step=i, need_output=True):
+                    flow, t = self._forward(x, t_val, xattn, cache, start)
+                x0 = self.schedule.flow_to_x0(flow, x, t)
+                if i == len(steps) - 1:
+                    break
+                if renoise is not None:
+                    fresh = self._local(renoise[i]).to(device=self.device, dtype=x0.dtype)
+                else:
+                    fresh = self._renoise(x0, generator)
+                t_next = torch.full_like(t, steps[i + 1])
+                x = self.schedule.add_noise(x0, fresh, t_next)
+            if self.context_mode == "rerun":
+                # the clean-context re-run: its K/V is what later blocks attend
+                with span("dit.forward", step=-1, need_output=False):
+                    self._forward(x0, self.context_noise, xattn, cache, start,
+                                  need_output=False)
         return self._gather(x0), cache
 
     @torch.inference_mode()
@@ -261,8 +267,9 @@ class SemiARGenerator:
         """Write a block of clean latents into the KV cache without
         denoising (initial_latent prefixes)."""
         start = self._start_tokens(current_start_frame)
-        self._forward(self._local(clean).to(self.device), self.context_noise, xattn, cache,
-                      start, need_output=False)
+        with span("dit.forward", step=-1, need_output=False):
+            self._forward(self._local(clean).to(self.device), self.context_noise, xattn,
+                          cache, start, need_output=False)
         return cache
 
     @torch.inference_mode()

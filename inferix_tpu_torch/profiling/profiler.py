@@ -12,10 +12,27 @@ the JAX reports read both. Three things differ, each for the card:
 - `capture_jax_trace` keeps its name, so config dicts carry across, and
   captures a `torch.profiler` trace (host and, on the card, CUDA activity)
   into `jax_trace_dir` as a Chrome trace;
-- the clock: a CUDA stream runs behind the host, so a caller that records a
-  block's time synchronizes the device first (`sync`); `SelfForcingPipeline`
-  does when profiling is enabled. The JAX package reads the host clock
-  without a sync.
+- the clock: a CUDA stream runs behind the host, so the pipelines record a
+  block's and a step's time from spans (below) and the profiler reads their
+  card times when the session or the walk ends (`record_block_spans`,
+  `record_step_spans`, `resolve`): one wait then, and one synchronize for
+  the spans' origin where none is fresh; none a block or a step. The JAX
+  package reads the host clock without a sync.
+
+Spans: `span(name, **attrs)` marks a named, nested interval of the program
+(`semi_ar.block`, `dit.forward`, `dit.text`, `vae.decode` on the Wan path),
+and `spans()` reads them back. A span holds its id, its parent's (the
+innermost span open), its attrs, its host start and end
+(`time.perf_counter_ns`) and, where CUDA is in use, two CUDA events recorded
+on the current stream. Their device times are placed on the host's
+perf_counter scale by one origin event, recorded just after a
+`torch.cuda.synchronize()` by the first span of a trace, and are resolved
+only when `spans()` is read; without CUDA they are the host times. Spans
+record while a `torch.profiler` session runs or an enabled
+`InferixProfiler` session is open. Otherwise `span()` reads two flags and
+returns a shared no-op context: no torch call, no event, no synchronize.
+They carry no `record_function`, so no profiler annotation of theirs lands
+among a trace's device events.
 """
 from __future__ import annotations
 
@@ -24,9 +41,153 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler as _torch_profiler
+
+# the store keeps this many spans and counts the ones past it as dropped
+MAX_SPANS = 100_000
+# cudaEventElapsedTime is float32 milliseconds: a minute from its origin
+# it resolves ~8 us, so a span opened later than this takes a new origin
+ORIGIN_MAX_S = 60.0
+
+
+class Span:
+    """One span. host: (start, end) in time.perf_counter seconds; device:
+    the same of its CUDA events (of its host times without CUDA), set when
+    the store resolves it."""
+
+    __slots__ = ("id", "parent", "name", "attrs", "start_ns", "end_ns", "device",
+                 "_events", "_origin")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name, self.attrs = name, attrs
+        self.id = self.parent = self.start_ns = self.end_ns = None
+        self.device: Optional[Tuple[float, float]] = None
+        self._events = self._origin = None
+
+    @property
+    def host(self) -> Tuple[float, float]:
+        return self.start_ns / 1e9, self.end_ns / 1e9
+
+    def __enter__(self) -> "Span":
+        STORE.enter(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        STORE.exit(self)
+        self.end_ns = time.perf_counter_ns()
+        return False
+
+
+# the shared context `span()` returns while recording is off
+_NOOP = contextlib.nullcontext()
+
+
+class SpanStore:
+    """The process's spans, in the order they opened, at most `limit`."""
+
+    def __init__(self, limit: int = MAX_SPANS):
+        self.limit = limit
+        # enabled InferixProfiler sessions open: recording is on while > 0
+        self.sessions = 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.spans: List[Span] = []
+        self.dropped = 0
+        self._next_id = 0
+        self._open: List[Span] = []   # the spans open, innermost last
+        self._unresolved: List[Span] = []
+        self._last: Dict[str, Span] = {}
+        self._origins: Dict[int, Tuple[Any, float]] = {}
+
+    def origin(self, device: int) -> Tuple[Any, float]:
+        """(CUDA event, its perf_counter time) of `device`'s origin: a new
+        one, after a synchronize, where there is none or it is old."""
+        o = self._origins.get(device)
+        if o is None or time.perf_counter() - o[1] > ORIGIN_MAX_S:
+            torch.cuda.synchronize(device)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            o = self._origins[device] = (ev, time.perf_counter())
+        return o
+
+    def enter(self, sp: Span) -> None:
+        sp.id, sp.parent = self._next_id, self._open[-1].id if self._open else None
+        self._next_id += 1
+        self._open.append(sp)
+        if len(self.spans) < self.limit:
+            self.spans.append(sp)
+            self._unresolved.append(sp)
+        else:
+            self.dropped += 1
+        if torch.cuda.is_initialized():
+            sp._origin = self.origin(torch.cuda.current_device())
+            sp.start_ns = time.perf_counter_ns()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            sp._events = (ev, None)
+        else:
+            sp.start_ns = time.perf_counter_ns()
+
+    def exit(self, sp: Span) -> None:
+        if sp._events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            sp._events = (sp._events[0], ev)
+        if sp in self._open:  # and any span left open inside it
+            del self._open[len(self._open) - 1 - self._open[::-1].index(sp):]
+        self._last[sp.name] = sp
+
+    def last(self, name: str) -> Optional[Span]:
+        """The span named `name` that closed last, or None."""
+        return self._last.get(name)
+
+    def resolve(self, spans: Optional[Sequence[Span]] = None) -> None:
+        """Device times of the closed spans given (default: every stored
+        span not yet resolved), waiting for the device where their events
+        have not passed; their events go."""
+        keep = []
+        for sp in self._unresolved if spans is None else spans:
+            if sp.device is not None:
+                continue
+            if sp.end_ns is None:
+                keep.append(sp)
+            elif sp._events is None:
+                sp.device = sp.host
+            else:
+                (ev0, ev1), (origin, t0) = sp._events, sp._origin
+                ev1.synchronize()
+                sp.device = (t0 + origin.elapsed_time(ev0) / 1e3,
+                             t0 + origin.elapsed_time(ev1) / 1e3)
+                sp._events = sp._origin = None
+        if spans is None:
+            self._unresolved = keep
+
+
+STORE = SpanStore()
+
+
+def span(name: str, **attrs: Any):
+    """A span of the program (a context manager whose `as` target is the
+    `Span`), recorded while tracing is on; else the shared no-op, whose
+    target is None."""
+    if _torch_profiler._is_profiler_enabled or STORE.sessions:
+        return Span(name, attrs)
+    return _NOOP
+
+
+def spans(since: Optional[float] = None, until: Optional[float] = None) -> List[Span]:
+    """The stored spans that have closed, in the order they opened, whose
+    host start lies in [since, until] (perf_counter seconds), their device
+    times resolved."""
+    STORE.resolve()
+    lo = None if since is None else int(since * 1e9)
+    hi = None if until is None else int(until * 1e9)
+    return [sp for sp in STORE.spans if sp.end_ns is not None
+            and (lo is None or sp.start_ns >= lo) and (hi is None or sp.start_ns <= hi)]
 
 
 @dataclasses.dataclass
@@ -61,9 +222,11 @@ class InferixProfiler:
     def __init__(self, config: Optional[ProfilingConfig] = None,
                  device: Optional[str | torch.device] = None):
         self.config = config or ProfilingConfig()
-        # the device whose memory `sample_memory` reads and `sync` waits for
-        # (a pipeline sets its own); None or a CPU device: no device
+        # the device whose memory `sample_memory` reads (a pipeline sets its
+        # own); None or a CPU device: no device
         self.device = None if device is None else torch.device(device)
+        # whether this profiler holds the span store on (an open session)
+        self._holds_store = False
         self.reset()
 
     def reset(self) -> None:
@@ -78,6 +241,9 @@ class InferixProfiler:
         self.streaming: List[Dict[str, Any]] = []
         self.memory_samples: List[Dict[str, Any]] = []
         self._first_block_time: Optional[float] = None
+        # records whose time_ms their spans give: (record, first, last)
+        self._pending: List[Tuple[Dict[str, Any], Span, Span]] = []
+        self._first_block_span: Optional[Span] = None
         self._trace_ctx = None
         self._trace_dir: Optional[str] = None
 
@@ -96,6 +262,9 @@ class InferixProfiler:
             except Exception:
                 pass
         self.reset()
+        if not self._holds_store:
+            STORE.sessions += 1
+            self._holds_store = True
         self.session_name = name
         self.session_tags = tags
         self.session_start = time.perf_counter()
@@ -115,8 +284,13 @@ class InferixProfiler:
         if not self.config.enabled or self.session_name is None:
             return None
         self.session_end = time.perf_counter()
+        if self._holds_store:
+            STORE.sessions -= 1
+            self._holds_store = False
         if self._trace_ctx is not None:
             self._stop_trace()
+        # the session's spans read once, their CUDA events released
+        STORE.resolve()
         return self.summary()
 
     def _stop_trace(self) -> None:
@@ -128,13 +302,13 @@ class InferixProfiler:
     def _cuda(self) -> bool:
         return self.device is not None and self.device.type == "cuda"
 
-    def sync(self) -> None:
-        """Wait for the device's queued work (a no-op without a CUDA
-        device), so that the next clock reading is the card's time."""
-        if self.config.enabled and self._cuda():
-            torch.cuda.synchronize(self.device)
-
     # -- recording ----------------------------------------------------------
+
+    def span(self, name: str, **attrs: Any):
+        """A span of the store while profiling is enabled, session or not
+        (`span` otherwise); its `as` target is what `record_block_spans`
+        and `record_step_spans` take."""
+        return Span(name, attrs) if self.config.enabled else span(name, **attrs)
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -175,6 +349,46 @@ class InferixProfiler:
         if self._first_block_time is None:
             self._first_block_time = time.perf_counter() - self.session_start
 
+    def record_step_spans(self, step: int, timestep: float, block_size: int,
+                          first: Optional[Span], last: Optional[Span] = None,
+                          guidance_scale: Optional[float] = None) -> None:
+        """`record_diffusion_step` whose time is the card's, from the start
+        of span `first` to the end of `last` (default: `first`), filled in
+        by `resolve`."""
+        if self.config.enabled and first is not None:
+            rec = {"step": step, "timestep": timestep, "block_size": block_size,
+                   "time_ms": None, "guidance": guidance_scale}
+            self.diffusion_steps.append(rec)
+            self._pending.append((rec, first, last or first))
+
+    def record_block_spans(self, block_index: int, block_size: int,
+                           first: Optional[Span], last: Optional[Span] = None,
+                           memory_usage_mb: float = 0.0) -> None:
+        """`record_block_computation` whose time is the card's, as
+        `record_step_spans`; the time to the first block runs from the
+        session's start to the end of its `last` on the card."""
+        if not self.config.enabled or first is None:
+            return
+        rec = {"block": block_index, "frames": block_size, "time_ms": None,
+               "memory_mb": memory_usage_mb}
+        self.blocks.append(rec)
+        self._pending.append((rec, first, last or first))
+        if self._first_block_time is None and self._first_block_span is None:
+            self._first_block_span = last or first
+
+    def resolve(self) -> None:
+        """The time_ms of the records made from spans: waits once for the
+        device where their spans' events have not passed."""
+        if not self._pending:
+            return
+        STORE.resolve([sp for _, a, b in self._pending for sp in (a, b)])
+        for rec, a, b in self._pending:
+            rec["time_ms"] = (b.device[1] - a.device[0]) * 1e3
+        self._pending = []
+        if self._first_block_span is not None:
+            self._first_block_time = self._first_block_span.device[1] - self.session_start
+            self._first_block_span = None
+
     def record_streaming(self, frames: int, latency_ms: float) -> None:
         if self.config.enabled:
             self.streaming.append({"frames": frames, "latency_ms": latency_ms})
@@ -193,9 +407,11 @@ class InferixProfiler:
 
     @property
     def time_to_first_block_s(self) -> Optional[float]:
+        self.resolve()
         return self._first_block_time
 
     def summary(self) -> Dict[str, Any]:
+        self.resolve()
         total_s = (self.session_end or time.perf_counter()) - self.session_start
         block_times = [b["time_ms"] for b in self.blocks]
         frames = sum(b["frames"] for b in self.blocks)

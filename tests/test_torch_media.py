@@ -1,11 +1,10 @@
 """The port's media backends (`inferix_tpu_torch.core.media`), monitoring
 (`core.monitoring`) and prompt expander (`utils.prompt_extend`): the port's
 versions of tests/test_media_memory.py's backend tests, `save_video`
-without `imageio`, `EventPathTimer`, and the prompt logic against the JAX
+without `imageio`, the rank printing, and the prompt logic against the JAX
 package's on a set of prompts (exact equality: the logic is a copy).
 """
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -93,21 +92,6 @@ def test_save_video_without_imageio(tmp_path, monkeypatch):
     np.testing.assert_array_equal(load_video(out), frames)
     with pytest.raises(ImportError):
         save_video(frames, str(tmp_path / "d.gif"))
-
-
-def test_event_path_timer_spans():
-    timer = monitoring.EventPathTimer()
-    timer.record("start")
-    time.sleep(0.01)
-    timer.synced_record("mid")
-    timer.record("end")
-    spans = timer.spans()
-    assert list(spans) == ["start->mid", "mid->end"]
-    assert spans["start->mid"] >= 0.01 and spans["mid->end"] >= 0
-    assert [e[2] for e in timer.events] == [-1, 0, -1]  # rank 0 without a group
-    timer.reset()
-    assert timer.events == []
-    assert monitoring.event_path_timer() is monitoring.event_path_timer()
 
 
 def test_rank_printing(capsys):

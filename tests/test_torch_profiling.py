@@ -9,18 +9,16 @@ import os
 import pytest
 import torch
 
-from inferix_tpu.profiling import decorators as jdeco
 from inferix_tpu.profiling import diffusion_analyzer as jda
 from inferix_tpu.profiling import extract_metrics as jem
 from inferix_tpu.profiling import monitors as jmon
 from inferix_tpu.profiling import profiler as jprof
-from inferix_tpu_torch.profiling import decorators as tdeco
 from inferix_tpu_torch.profiling import diffusion_analyzer as tda
 from inferix_tpu_torch.profiling import extract_metrics as tem
 from inferix_tpu_torch.profiling import monitors as tmon
 from inferix_tpu_torch.profiling import profiler as tprof
 
-PACKAGES = {"jax": (jprof, jdeco, jda, jem, jmon), "port": (tprof, tdeco, tda, tem, tmon)}
+PACKAGES = {"jax": (jprof, jda, jem, jmon), "port": (tprof, tda, tem, tmon)}
 # fields of the summary that read the clock
 CLOCK_KEYS = ("total_s", "frames_per_s", "time_to_first_block_s")
 
@@ -153,48 +151,9 @@ def test_diffusion_analyzer_matches_the_jax_analyzer():
     assert len(ta.base_profiler.blocks) == 2
 
 
-def _decorated(deco_mod, prof_mod):
-    class Worker:
-        def __init__(self):
-            self.profiler = prof_mod.InferixProfiler()
-
-        @deco_mod.profile_session("run")
-        def run(self, n):
-            return [self.block(i) for i in range(n)]
-
-        @deco_mod.profile_block()
-        def block(self, i):
-            self.step()
-            return torch.zeros(1, 3 + i, 2) if i else (torch.zeros(1, 3, 2), None)
-
-        @deco_mod.profile_stage("step")
-        @deco_mod.add_profiling_event("stepped", k=1)
-        def step(self):
-            return 1
-
-        @deco_mod.profile_method()
-        def scalar(self):
-            return 2.0
-
-    w = Worker()
-    w.run(3)
-    w.scalar()
-    p = w.profiler
-    return ([(b["block"], b["frames"]) for b in p.blocks], [s.name for s in p.stages],
-            [(e["name"], e["k"]) for e in p.events])
-
-
-def test_decorators_record_as_the_jax_decorators():
-    want = _decorated(jdeco, jprof)
-    assert _decorated(tdeco, tprof) == want
-    assert want[0] == [(0, 3), (1, 4), (2, 5)]
-    # no profiler on the object: the wrapped function runs untouched
-    assert tdeco.profile_block()(lambda x: x + 1)(1) == 2
-
-
 @pytest.mark.parametrize("pkg", ["jax", "port"])
 def test_monitors(pkg):
-    mon = PACKAGES[pkg][4]
+    mon = PACKAGES[pkg][3]
     host = mon.HostMonitor(interval_s=0.01, max_samples=3)
     host.start()
     host.start()  # idempotent
