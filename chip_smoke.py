@@ -395,6 +395,7 @@ import torch
 import torch.nn.functional as F
 
 import inferix_tpu_torch.models.magi.vae as vitvae_mod
+import inferix_tpu_torch.models.wan.causal_dit as cdit
 import inferix_tpu_torch.models.wan.vae as vae_mod
 import inferix_tpu_torch.ops.attention as attention_mod
 import inferix_tpu_torch.quant.api as quant_api
@@ -448,11 +449,16 @@ from inferix_tpu_torch.ops import halo_conv as halo_mod
 from inferix_tpu_torch.ops.halo_conv import (
     _quantize_conv_act, halo_conv3d, halo_conv3d_reference, halo_conv3d_w8a8,
     halo_conv3d_w8a8_reference, pack_weight, quantize_conv_act, tile_plan)
-from inferix_tpu_torch.ops.rope import build_rope_tables, rope_angles
+from inferix_tpu_torch.ops.norms import layer_norm
+from inferix_tpu_torch.ops.rope import apply_rope, build_rope_tables, rope_angles
+from inferix_tpu_torch.ops.row_norm import _lib as row_norm_lib
+from inferix_tpu_torch.ops.row_norm import (ln_rows, ln_rows_reference, rms_rows,
+                                            rms_rows_reference, rope_cos_sin)
 from inferix_tpu_torch.parallel.disaggregated import DisaggregatedVAEDecoder
 from inferix_tpu_torch.parallel.launch import RankPool
 from inferix_tpu_torch.parallel.mesh import Mesh, SPMesh, grid_place, magi_param_shards
 from inferix_tpu_torch.parallel.pipeline_parallel import pp_pipeline, stage_layers
+from inferix_tpu_torch.parallel.tensor_parallel import rms_norm_tp, rms_norms_tp
 from inferix_tpu_torch.parallel.tile_parallel import TileProcessor, split_tiles
 from inferix_tpu_torch.pipeline.causvid import CausVidPipeline, causvid_config
 from inferix_tpu_torch.pipeline.continuous import ContinuousBatcher
@@ -482,7 +488,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
-LIBRARIES = ("flash_attention_sm90", "gemm_sm90", "act_quant", "halo_conv")
+LIBRARIES = ("flash_attention_sm90", "gemm_sm90", "act_quant", "halo_conv", "row_norm")
 
 # Kernel vs its plain version, both in bf16 on the card. The two compute the
 # same fp32 logits and p in other summation orders and with other exp2
@@ -741,8 +747,9 @@ def main_path_setup(dev: torch.device, cfg: EngineConfig, mesh=None, w8a8=None):
     return gen, xattn, noise, g
 
 
-def main_path_phase(dev: torch.device, cfg: EngineConfig) -> int:
-    """Generate cfg.runtime.num_frames frames; returns the kernel launches."""
+def main_path_phase(dev: torch.device, cfg: EngineConfig) -> tuple:
+    """Generate cfg.runtime.num_frames frames; returns the flash kernel's
+    launches and the row kernels' ({name: launches})."""
     t0 = time.perf_counter()
     m, r = cfg.model, cfg.runtime
     fpb = m.num_frame_per_block
@@ -752,15 +759,20 @@ def main_path_phase(dev: torch.device, cfg: EngineConfig) -> int:
     print(f"main path setup (weights, text K/V): {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    per_block = []
+    per_block, rows_per_block = [], []
     marks = [time.perf_counter()]
+    row_marks = [(ln_rows.launches, rms_rows.launches)]
 
     def on_block(x0, bi):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         per_block.append(flash_attention_prefix.launches)
+        row_marks.append((ln_rows.launches, rms_rows.launches))
+        rows_per_block.append({"ln_rows": row_marks[-1][0] - row_marks[-2][0],
+                               "rms_rows": row_marks[-1][1] - row_marks[-2][1]})
         print(f"block {bi}: {marks[-1] - marks[-2]:.3f} s, launches "
-              f"{per_block[-1] - (per_block[-2] if bi else 0)}", flush=True)
+              f"{per_block[-1] - (per_block[-2] if bi else 0)}, row kernels "
+              f"{rows_per_block[-1]}", flush=True)
 
     flash_attention_prefix.launches = 0
     latents, cache = gen.generate(noise, xattn, generator=g, block_callback=on_block)
@@ -771,6 +783,11 @@ def main_path_phase(dev: torch.device, cfg: EngineConfig) -> int:
     want = [m.num_layers * forwards * (i + 1) for i in range(blocks)]
     if per_block != want:
         raise AssertionError(f"kernel launches per block {per_block}, want {want}")
+    # the norm chains: 3 LN + 2 RMS row kernels a layer-forward, 1 LN a head
+    want_rows = block_row_launches(gen)
+    if rows_per_block != [want_rows] * blocks:
+        raise AssertionError(f"row kernel launches per block {rows_per_block}, "
+                             f"want {want_rows}")
     shape = (1, r.num_frames, r.latent_height, r.latent_width, r.latent_channels)
     if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
         raise AssertionError(f"latents {tuple(latents.shape)} (want {shape}) "
@@ -820,14 +837,309 @@ def main_path_phase(dev: torch.device, cfg: EngineConfig) -> int:
                                                 cache, start)
             flows.append(flow)
         fwd_err = rel_err(flows[0], flows[1])
+        # the same layer and forward with the norm chains as PyTorch ops
+        with plain_rows():
+            lc = (cache.k[0].clone(), cache.v[0].clone())
+            y_chain, lc_chain = block_forward(blk, m, spec, tokens, e0, angles, lc,
+                                              xattn.k[0], xattn.v[0], start, mask)
+            flow_chain, _ = dit_forward_inference(gen.params, gen.statics, gen.rope_tables,
+                                                  x_blk, t, xattn, cache, start)
+        rows_layer = rel_err(outs[0][0] - tokens, y_chain - tokens)
+        rows_kv = max(rel_err(outs[0][1][i], lc_chain[i]) for i in (0, 1))
+        rows_fwd = rel_err(flows[0], flow_chain)
     print(f"block_forward kernel vs plain: update rel err {layer_err:.3e} "
           f"(tol {LAYER_RTOL:g}), written K/V rel err {kv_err:.3e}", flush=True)
     print(f"dit_forward_inference kernel vs plain: flow rel err {fwd_err:.3e} "
           f"(tol {FORWARD_RTOL:g})", flush=True)
+    print(f"row kernels vs the PyTorch chains: update rel err {rows_layer:.3e} (tol "
+          f"{LAYER_RTOL:g}), written K/V rel err {rows_kv:.3e}, flow rel err {rows_fwd:.3e} "
+          f"(tol {FORWARD_RTOL:g})", flush=True)
     if not (layer_err <= LAYER_RTOL and kv_err == 0 and fwd_err <= FORWARD_RTOL):
         raise AssertionError("the main path with the kernel disagrees with plain attention")
+    if not (rows_layer <= LAYER_RTOL and rows_kv <= LAYER_RTOL and rows_fwd <= FORWARD_RTOL):
+        raise AssertionError("the main path with the row kernels disagrees with the chains")
     phase("main", t0)
-    return launches
+    rows = {}
+    for b in rows_per_block:
+        add_counts(rows, b)
+    return launches, rows
+
+
+# The norm-chain row kernels (ops/row_norm.py) against the chains they
+# replace, both on the card. Each kernel rounds where the chain rounds; only
+# the order of the row's f32 sums differs, so the normalised value (x - mean)
+# * r, or x * r, may round to the neighbouring bf16 value where its f32 result
+# lies next to a rounding boundary, and each later rounding of the chain may
+# then go the other way. Per element
+#     |kernel - chain| <= ROW_ULPS * (one bf16 ulp at each rounding point
+#                                     from the normalised value on)
+# (`row_tol`: the normalised value's ulp carried through the later steps,
+# times |scale|, |w|, |cos| or |sin|, plus the ulp of each later rounded
+# value). ROW_ULPS 1 was fixed before the kernels' first card run; that run
+# read it in ulps of the output, which a cancelling last step (h * scale +
+# shift near 0, y0 c - y1 s near 0) turns into 32 ulps for one flip of the
+# normalised value: a CPU emulation with the statistics summed in another
+# order read up to 8.5e37 output ulps and 0.96 of this bound. A rounding
+# point dropped or moved (the modulate's product and sum contracted into
+# one FMA, a missing bf16 cast, the rope's products fused) moves 1e-2 or
+# more of the elements within the bound: at most ROW_SHARE of them may
+# differ. The share grows with the row's width (a longer sum rounds its
+# statistic further from the chain's): 1e-6 to 2e-5 at widths to 9216, 1.4e-4
+# for q at 12288 (NVIDIA H100 80GB HBM3).
+ROW_ULPS = 1
+ROW_SHARE = 1e-3
+# (name, M rows a batch row, C, batch rows) of the row-class edges and ragged
+# rows: G 16 (C 128), G 32 (1536, 6 chunks), G 128 (5120: the 14B width;
+# 9216, 12288), a row count that is no multiple of a CTA's rows, one row
+ROW_EDGES = ((128, 99), (1536, 97), (5120, 99), (9216, 33), (12288, 33), (1536, 1))
+
+
+def row_case(label: str, got, want, tol) -> tuple:
+    """(max |diff| / tol, share not bit-equal) of got against the chain's
+    want (bf16) and its `row_tol`, gated; the diff in ulps of the output is
+    printed beside."""
+    got, want = got.float(), want.float()
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    diff = (got - want).abs()
+    ulps = (diff / tol).max().item()
+    out_ulps = (diff / bf16_ulp(want)).max().item()
+    share = (got != want).float().mean().item()
+    ok = finite and ulps <= ROW_ULPS and share <= ROW_SHARE
+    print(f"rows case {label}: max |diff| {ulps:.3g} of one ulp a rounding point (tol "
+          f"{ROW_ULPS}; {out_ulps:.3g} ulps of the output), not bit-equal {share:.3e} of "
+          f"{got.numel()} (tol {ROW_SHARE:g}), finite {finite} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    gate(ok, f"row kernel case {label} disagrees with its chain")
+    return ulps, share
+
+
+def row_tol(kind: str, x, out, eps: float, sc=None, w=None, rope=None, hd: int = 0):
+    """One bf16 ulp at each rounding point of the chain from the normalised
+    value on, per element of `out` (the chain's result, bf16): "mod" (LN,
+    then bf16(h * sc), then + shift: |sc| ulp(n) + ulp(h sc) + ulp(out)),
+    "affine" (LN times w in f32: |w| ulp(n) + ulp(out)), "ln" (ulp(out)),
+    "rms" (bf16(bf16(n) * w): |w| ulp(n) + ulp(out)) and "rope" (the rms
+    value y's bound carried through |cos| and |sin|, + ulp(out))."""
+    xf, out = x.float(), out.float()
+    if kind in ("mod", "affine", "ln"):
+        mean = xf.mean(-1, keepdim=True)
+        xc = xf - mean
+        n = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+    else:
+        n = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if kind == "ln":
+        return bf16_ulp(out)
+    if kind == "mod":
+        b, s_, c = x.shape
+        f = sc.shape[1]
+        scb = (1.0 + sc[:, :, None, :]).to(torch.bfloat16).float()
+        hn = n.reshape(b, f, s_ // f, c)
+        prod = (hn.to(torch.bfloat16).float() * scb).to(torch.bfloat16).float()
+        return (bf16_ulp(hn) * scb.abs() + bf16_ulp(prod)).reshape(b, s_, c) + bf16_ulp(out)
+    if kind == "affine":
+        return bf16_ulp(n) * w.float().abs() + bf16_ulp(out)
+    y_tol = bf16_ulp(n) * w.float().abs()
+    if kind == "rms":
+        return y_tol + bf16_ulp(out)
+    y = (n.to(torch.bfloat16).float() * w.float()).to(torch.bfloat16).float()
+    t = (y_tol + bf16_ulp(y)).reshape(*y.shape[:-1], -1, hd // 2, 2)
+    cos, sin = (f(rope)[..., :, None, :].abs() for f in (torch.cos, torch.sin))
+    carried = torch.stack([t[..., 0] * cos + t[..., 1] * sin,
+                           t[..., 1] * cos + t[..., 0] * sin], dim=-1)
+    return carried.reshape(out.shape) + bf16_ulp(out)
+
+
+def rows_bound(nbytes: float) -> float:
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def row_norm_phase(dev: torch.device) -> list:
+    """ln_rows and rms_rows against the chains (layer_norm + _modulate,
+    layer_norm affine, rms_norms_tp + apply_rope, rms_norm_tp) at the main
+    path's shapes (4680 x 1536, 3 frames, 12 x 128 heads, q / k read from
+    the fused qkv output), per-stream tables at B = 2, each row class and
+    ragged rows; the plain versions bit-equal to the chains; the wrappers'
+    refusals; then each timed beside its bound and the chain. Returns the
+    kernel-table entries."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(27)
+    eps = 1e-6
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale + shift).to(bf)
+
+    def ln_chain(x, mod=None, w=None, b=None):
+        if mod is None:
+            return layer_norm(x, w, b, eps)
+        return cdit._modulate(layer_norm(x, eps=eps), mod[:, :, 0], mod[:, :, 1], mod.shape[1])
+
+    def ln_tol(x, out, mod=None, w=None):
+        if mod is not None:
+            return row_tol("mod", x, out, eps, sc=mod[:, :, 1])
+        return row_tol("ln", x, out, eps) if w is None else row_tol("affine", x, out, eps, w=w)
+
+    def qk_chain(q_p, k_p, wq, wk, angles, hd):
+        b, s, c = q_p.shape
+        q, k = rms_norms_tp(None, (q_p, k_p), (wq, wk), eps, c)
+        return tuple(apply_rope(t.reshape(b, s, c // hd, hd), angles).reshape(b, s, c)
+                     for t in (q, k))
+
+    worst = {"ln": [0.0, 0.0], "rms": [0.0, 0.0]}
+
+    def note(kind, res):
+        worst[kind] = [max(worst[kind][0], res[0]), max(worst[kind][1], res[1])]
+
+    before = (ln_rows.launches, rms_rows.launches)
+    calls = [0, 0]
+    # --- LN: the qkv / fc1 prologues (strided slices of the [B, 3, 6, C]
+    # modulation), the head's [B, 3, 2, C], norm3's affine LN, the plain LN
+    x = rand(1, SQ, DIM, scale=3.0, shift=0.25)
+    x2 = rand(2, SQ, DIM, scale=3.0)
+    mod6 = torch.randn(2, 3, 6, DIM, generator=g, device=dev)
+    head = torch.randn(1, 3, 2, DIM, generator=g, device=dev)
+    w3, b3 = rand(DIM, scale=0.3, shift=1.0), rand(DIM, scale=0.3)
+    ln_cases = [
+        ("ln modulate qkv [1,4680,1536] F 3", x, dict(shift=mod6[:1, :, 0], scale=mod6[:1, :, 1]),
+         mod6[:1, :, 0:2], None),
+        ("ln modulate fc1 B=2", x2, dict(shift=mod6[:, :, 3], scale=mod6[:, :, 4]),
+         mod6[:, :, 3:5], None),
+        ("ln modulate head", x, dict(shift=head[:, :, 0], scale=head[:, :, 1]), head, None),
+        ("ln affine norm3", x, dict(weight=w3, bias=b3), None, (w3, b3)),
+        ("ln plain [4680,1536]", x[0], {}, None, (None, None))]
+    for c, rows in ROW_EDGES:
+        xe = rand(1, 3 * rows, c, scale=2.0)
+        me = torch.randn(1, 3, 2, c, generator=g, device=dev)
+        we, be = rand(c, shift=1.0), rand(c)
+        ln_cases += [(f"ln modulate C {c} frames of {rows}", xe,
+                      dict(shift=me[:, :, 0], scale=me[:, :, 1]), me, None),
+                     (f"ln affine C {c} M {3 * rows}", xe[0], dict(weight=we, bias=be), None,
+                      (we, be))]
+    with torch.inference_mode():
+        for label, xin, kw, mod, wb in ln_cases:
+            want = ln_chain(xin, mod) if mod is not None else ln_chain(xin, None, *wb)
+            got = ln_rows(xin, eps, **kw)
+            calls[0] += 1
+            note("ln", row_case(label, got, want,
+                                ln_tol(xin, want, mod, None if wb is None else wb[0])))
+            plain = ln_rows_reference(xin, eps, **kw)
+            gate(torch.equal(plain, want), f"{label}: the plain version is not the chain")
+
+        # --- RMS (+ rope): q / k from the fused qkv output, per-stream
+        # tables at B = 2, separate q / k, the cross q without rope
+        tables = build_rope_tables(D, 1024, device=dev)
+        qkv = rand(1, SQ, 3 * DIM, scale=2.0)
+        qkv2 = rand(2, SQ, 3 * DIM, scale=2.0)
+        wq, wk, wc = (rand(DIM, scale=0.3, shift=1.0) for _ in range(3))
+        ang = rope_angles(tables, 3, 60 // 2, 104 // 2, 18)
+        ang2 = rope_angles(tables, 3, 30, 52, torch.tensor([0, 18]))
+        rms_cases = [("rms q/k fused qkv + rope [1,4680,1536]", qkv, ang, D),
+                     ("rms q/k fused qkv + rope B=2 per-stream", qkv2, ang2, D)]
+        for c, rows in ROW_EDGES:
+            if c % D == 0:
+                rms_cases.append((f"rms q/k + rope C {c} M {3 * rows}",
+                                  rand(1, 3 * rows, 3 * c, scale=2.0),
+                                  torch.rand(3 * rows, D // 2, generator=g, device=dev) * 50, D))
+        for label, src, angles, hd in rms_cases:
+            c = src.shape[-1] // 3
+            q_p, k_p, _ = src.chunk(3, dim=-1)
+            wqe, wke = (rand(c, scale=0.3, shift=1.0) for _ in range(2))
+            want = qk_chain(q_p, k_p, wqe, wke, angles, hd)
+            rope = rope_cos_sin(angles)
+            got = rms_rows((q_p, k_p), (wqe, wke), eps, rope, hd)
+            calls[1] += 1
+            for nm, src_t, wt_, gt, wt in zip("qk", (q_p, k_p), (wqe, wke), got, want):
+                tol = row_tol("rope", src_t, wt, eps, w=wt_, rope=angles, hd=hd)
+                note("rms", row_case(f"{label} {nm}", gt, wt, tol))
+            plain = rms_rows_reference((q_p, k_p), (wqe, wke), eps, rope, hd)
+            gate(all(torch.equal(p, w) for p, w in zip(plain, want)),
+                 f"{label}: the plain version is not the chain")
+        q_sep, k_sep = rand(1, SQ, DIM, scale=2.0), rand(1, SQ, DIM, scale=2.0)
+        got = rms_rows((q_sep, k_sep), (wq, wk), eps, rope_cos_sin(ang), D)
+        calls[1] += 1
+        for nm, src_t, wt_, gt, wt in zip("qk", (q_sep, k_sep), (wq, wk), got,
+                                          qk_chain(q_sep, k_sep, wq, wk, ang, D)):
+            tol = row_tol("rope", src_t, wt, eps, w=wt_, rope=ang, hd=D)
+            note("rms", row_case(f"rms q/k unfused + rope {nm}", gt, wt, tol))
+        cq = rand(1, SQ, DIM, scale=2.0)
+        for label, xin in (("rms cross q [1,4680,1536]", cq), ("rms cross q B=2", x2),
+                           *((f"rms C {c} M {3 * rows}", rand(1, 3 * rows, c, scale=2.0))
+                             for c, rows in ROW_EDGES)):
+            wv = rand(xin.shape[-1], scale=0.3, shift=1.0)
+            got = rms_rows((xin,), (wv,), eps)[0]
+            calls[1] += 1
+            want = rms_norm_tp(None, xin, wv, eps, xin.shape[-1])
+            note("rms", row_case(label, got, want, row_tol("rms", xin, want, eps, w=wv)))
+        gate((ln_rows.launches - before[0], rms_rows.launches - before[1]) == tuple(calls),
+             "the row kernels' launch counters")
+
+        # --- refusals on the card
+        mis = torch.zeros(1 + SQ * DIM, dtype=bf, device=dev)[1:].view(1, SQ, DIM)
+        expect_raise("ln_rows float32 x", TypeError, lambda: ln_rows(x.float(), eps))
+        expect_raise("ln_rows non-contiguous x", ValueError,
+                     lambda: ln_rows(x2.transpose(0, 1), eps))
+        expect_raise("ln_rows misaligned x", ValueError, lambda: ln_rows(mis, eps))
+        expect_raise("rms_rows misaligned x", ValueError, lambda: rms_rows((mis,), (wq,), eps))
+        expect_raise("rms_rows q / k of other strides", ValueError,
+                     lambda: rms_rows((qkv[..., :DIM], cq), (wq, wk), eps))
+        lib = row_norm_lib()
+        err = lib.inferix_row_ln(x.data_ptr(), x.data_ptr(), None, None, 0, 0, SQ, DIM, SQ,
+                                 SQ, eps, 0, 64, 3, torch.cuda.current_stream().cuda_stream)
+        gate(err != 0, "the LN launcher took a class it was not built for")
+        err = lib.inferix_row_rms_rope(x.data_ptr(), None, x.data_ptr(), None, wq.data_ptr(),
+                                       None, DIM, None, None, 0, SQ, DIM, SQ, 0, 1, eps, 32, 5,
+                                       torch.cuda.current_stream().cuda_stream)
+        gate(err != 0, "the RMS launcher took a plan that does not cover the row")
+        print("guard row launchers refuse a class they were not built for: ok", flush=True)
+
+        # --- times: one layer's worth at the main path's shapes
+        launches = (ln_rows.launches, rms_rows.launches)
+        q_p, k_p, _ = qkv.chunk(3, dim=-1)
+        rope = rope_cos_sin(ang)
+        row_bytes = 4.0 * SQ * DIM  # one read and one write of the bf16 rows
+        timed_cases = (
+            ("ln", "LN + modulate (qkv, fc1)", 2,
+             lambda: ln_rows(x, eps, shift=mod6[:1, :, 0], scale=mod6[:1, :, 1]),
+             lambda: ln_chain(x, mod6[:1, :, 0:2]), row_bytes + 2 * 3 * DIM * 4),
+            ("ln", "LN affine (norm3)", 1, lambda: ln_rows(x, eps, w3, b3),
+             lambda: ln_chain(x, None, w3, b3), row_bytes + 2 * DIM * 2),
+            ("rms", "RMS q / k + rope", 1, lambda: rms_rows((q_p, k_p), (wq, wk), eps, rope, D),
+             lambda: qk_chain(q_p, k_p, wq, wk, ang, D),
+             2 * row_bytes + 2 * DIM * 2 + 2 * SQ * (D // 2) * 4),
+            ("rms", "RMS cross q", 1, lambda: rms_rows((cq,), (wc,), eps),
+             lambda: rms_norm_tp(None, cq, wc, eps, DIM), row_bytes + DIM * 2))
+        per_layer = {"ln": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0),
+                     "rms": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)}
+        for kind, label, n, fn, chain, nbytes in timed_cases:
+            ms, plain_ms, bound = time_ms(fn), time_ms(chain), rows_bound(nbytes)
+            print(f"rows time {label} [{SQ}x{DIM}]: {ms:.4f} ms ({quant_rate(ms, bound)}), "
+                  f"bound {bound:.4f} ms (bytes), chain {plain_ms:.4f} ms, {n} a layer",
+                  flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+                per_layer[kind][key] += n * v
+        ms = time_ms(lambda: rope_cos_sin(ang))
+        print(f"rows time rope_cos_sin [{SQ}x{D // 2}] (once a forward): {ms:.4f} ms",
+              flush=True)
+        ln_rows.launches, rms_rows.launches = launches  # timing launches are not a path's
+    for kind in ("ln", "rms"):
+        p = per_layer[kind]
+        print(f"rows per layer {kind}: {p['ms']:.4f} ms (bound {p['bound_ms']:.4f}, chain "
+              f"{p['plain_ms']:.4f}); worst {worst[kind][0]:.3g} ulps, not bit-equal up to "
+              f"{worst[kind][1]:.3e}", flush=True)
+    phase("row kernels", t0)
+    work = "one bf16 layer at M=4680 (sum over its calls)"
+    return [
+        {"name": "ln_rows", "route": "cuda", "source": "inferix_tpu_torch/csrc/row_norm.cu",
+         "replaces": "layer_norm + _modulate / affine (PyTorch ops)", "launches": None,
+         "max_ulps": worst["ln"][0], "not_bit_equal": worst["ln"][1], **per_layer["ln"],
+         "bound_by": "bytes", "library_ms": None,
+         "work": work + ", 2 LN + modulate (qkv, fc1) + 1 LN affine (norm3)"},
+        {"name": "rms_rows", "route": "cuda", "source": "inferix_tpu_torch/csrc/row_norm.cu",
+         "replaces": "rms_norms_tp + apply_rope (PyTorch ops)", "launches": None,
+         "max_ulps": worst["rms"][0], "not_bit_equal": worst["rms"][1], **per_layer["rms"],
+         "bound_by": "bytes", "library_ms": None,
+         "work": work + ", q / k RMS + rope (one launch) + cross q RMS"},
+    ]
 
 
 def gemm_times(m: int, k: int, n: int, out_bytes: int = 2):
@@ -1273,7 +1585,31 @@ KERNEL_COUNTERS = {  # name -> (wrapper, attribute holding its launch count)
     "flash_attention_prefix_quant_v2": (flash_attention_prefix_quant_v2, "launches"),
     "row_absmax": (row_absmax, "launches"),
     "quantize_rows_int8_given": (quantize_rows_int8_given, "launches"),
+    "ln_rows": (ln_rows, "launches"),
+    "rms_rows": (rms_rows, "launches"),
 }
+
+
+def row_launches(layers: int, forwards: int, heads: int, ln_prologues: bool = True,
+                 qk: bool = True) -> dict:
+    """The row kernels' launches over `forwards` passes through `layers`
+    Wan layers, `heads` of them through the output head: `ln_rows` 3 a layer
+    (the LN + modulate before qkv and fc1, norm3's LN) where the W8A8
+    prologues do not take them (ln_prologues) and 1 a head; `rms_rows` 2 a
+    layer (q / k with rope in one launch, the cross q) at tp 1 (qk)."""
+    return {"ln_rows": 3 * layers * forwards * ln_prologues + heads,
+            "rms_rows": 2 * layers * forwards * qk}
+
+
+def block_row_launches(gen, ln_prologues: bool = True, qk: bool = True,
+                       layers: int = 0) -> dict:
+    """`row_launches` of one block of `gen` (of `layers` layers, 0: the
+    model's): its denoise steps through the head, and the rerun's forward
+    (context_mode "rerun") without it."""
+    steps = len(gen.denoising_steps)
+    rerun = int(gen.context_mode == "rerun")
+    return row_launches(layers or gen.cfg.model.num_layers,
+                        steps + rerun, steps, ln_prologues, qk)
 
 
 def all_counts() -> dict:
@@ -1299,14 +1635,25 @@ def counts() -> dict:
     """The launch counts of the W8A8 path's kernels."""
     now = all_counts()
     return {k: now[k] for k in ("int8_matmul", "quantize_rows_int8", "adaln", "ln",
-                                "flash_attention_prefix")}
+                                "flash_attention_prefix", "ln_rows", "rms_rows")}
+
+
+@contextlib.contextmanager
+def plain_rows():
+    """The layer's norm chains as PyTorch ops, not the row kernels."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cdit, "rows_take", lambda *a: False))
+        stack.enter_context(mock.patch.object(cdit, "qk_rows_take", lambda *a: False))
+        yield
 
 
 @contextlib.contextmanager
 def plain_versions():
     """Every W8A8 kernel and the attention kernel replaced by its plain
-    version, where the model looks them up."""
+    version, where the model looks them up, and the row kernels' chains
+    taken in their place."""
     with contextlib.ExitStack() as stack:
+        stack.enter_context(plain_rows())
         for name, fn in (("int8_matmul", int8_matmul_reference),
                          ("quantize_rows_int8", quantize_rows_int8_reference),
                          ("adaln_quantize_rows_int8", adaln_quantize_rows_int8_reference),
@@ -1329,7 +1676,8 @@ def w8a8_main_phase(dev: torch.device, blocks: int) -> dict:
     torch.cuda.synchronize()
     text = counts()
     want_text = {"int8_matmul": 2 * m.num_layers, "quantize_rows_int8": 2 * m.num_layers,
-                 "adaln": 0, "ln": 0, "flash_attention_prefix": 0}
+                 "adaln": 0, "ln": 0, "flash_attention_prefix": 0, "ln_rows": 0,
+                 "rms_rows": 0}
     print(f"w8a8 setup (weights quantized, {memory_bytes(gen.params['blocks']) / 2**30:.3f} "
           f"GiB of block weights, text K/V): {time.perf_counter() - t0:.3f} s, "
           f"launches at text encode {text}", flush=True)
@@ -1339,7 +1687,8 @@ def w8a8_main_phase(dev: torch.device, blocks: int) -> dict:
     forwards = len(gen.denoising_steps) + 1
     n = m.num_layers * forwards
     want_block = {"int8_matmul": 6 * n, "quantize_rows_int8": 3 * n, "adaln": 2 * n,
-                  "ln": n, "flash_attention_prefix": n}
+                  "ln": n, "flash_attention_prefix": n,
+                  **block_row_launches(gen, ln_prologues=False)}
     per_block, marks, prev = [], [time.perf_counter()], [dict(text)]
 
     def on_block(x0, bi):
@@ -1747,6 +2096,11 @@ def kv_path_phase(dev: torch.device, path: str) -> tuple:
                 or (path == "fp8" and got.get("flash_attention_prefix_quant", 0)):
             raise AssertionError(f"{path} block {bi}: launches {got}, want {n} of {kernel} "
                                  "and no other attention kernel")
+    want_rows = block_row_launches(gen, ln_prologues=path == "fp8")
+    if any({k: got.get(k, 0) for k in want_rows} != want_rows for got in per_block):
+        raise AssertionError(f"{path}: row kernel launches per block "
+                             f"{[{k: p.get(k, 0) for k in want_rows} for p in per_block]}, "
+                             f"want {want_rows}")
     if path != "fp8":
         # the int8 KV writes quantize through the act-quant kernel: 2 a layer-forward
         want_q = 3 * n + 2 * n
@@ -2250,11 +2604,12 @@ def add_counts(total: dict, diff: dict) -> None:
 def w8a8_block_launches(gen, kv_int8: bool) -> dict:
     """A block's launches on the W8A8 path (rerun): per layer-forward 6 int8
     GEMMs, 3 act-quants (+2 for the int8 K/V write), 2 LN+modulate, 1
-    LN+affine, 1 attention kernel."""
+    LN+affine, 1 attention kernel, 2 RMS row kernels; 1 LN row kernel a
+    head."""
     n = gen.cfg.model.num_layers * (len(gen.denoising_steps) + 1)
     attn = "flash_attention_prefix_quant" if kv_int8 else "flash_attention_prefix"
     return {"int8_matmul": 6 * n, "quantize_rows_int8": (5 if kv_int8 else 3) * n,
-            "adaln": 2 * n, "ln": n, attn: n}
+            "adaln": 2 * n, "ln": n, attn: n, **block_row_launches(gen, ln_prologues=False)}
 
 
 def pipeline_phase(dev: torch.device, smi: str, prefix: torch.Tensor) -> dict:
@@ -2685,7 +3040,7 @@ def fp8w_config(blocks: int) -> EngineConfig:
 
 def fp8w_main_phase(dev: torch.device, blocks: int) -> dict:
     """Generate `blocks` blocks with fp8 weights; launches at text encode and
-    per block (B8 and flash only), output and cache checked, one layer and
+    per block (B8, flash and the row kernels), output and cache checked, one layer and
     one forward against the plain GEMM, the flow against bf16's."""
     t0 = time.perf_counter()
     cfg = fp8w_config(blocks)
@@ -2704,7 +3059,7 @@ def fp8w_main_phase(dev: torch.device, blocks: int) -> dict:
         raise AssertionError(f"fp8w text-encode launches {text}, want "
                              f"{{'fp8_matmul': {2 * m.num_layers}}} and nothing else")
     n = m.num_layers * (len(gen.denoising_steps) + 1)
-    want_block = {"fp8_matmul": 6 * n, "flash_attention_prefix": n}
+    want_block = {"fp8_matmul": 6 * n, "flash_attention_prefix": n, **block_row_launches(gen)}
     per_block, marks, prev = [], [time.perf_counter()], [all_counts()]
 
     def on_block(x0, bi):
@@ -3289,7 +3644,8 @@ def cfg_phase(dev: torch.device, smi: str, enc) -> dict:
         out = pipe.run_text_to_video(["a red fox"], negative_prompts=["blurry, static"],
                                      num_frames=frames, guidance_scale=guidance)
         add_counts(path, count_diff(all_counts(), before))
-        want = [{"flash_attention_prefix": (steps + 1) * m.num_layers}] * (frames // 3)
+        want = [{"flash_attention_prefix": (steps + 1) * m.num_layers,
+                 **row_launches(m.num_layers, steps + 1, steps)}] * (frames // 3)
         print(f"cfg {solver} {steps} steps, guidance {guidance}: s/block "
               f"{', '.join(f'{x:.3f}' for x in secs)}, launches a block {per_block} (want "
               f"{want[0]}), latents {tuple(out.shape)}; {smi}", flush=True)
@@ -3348,8 +3704,8 @@ def causvid_phase(dev: torch.device, smi: str) -> dict:
     n = cfg.model.num_layers
     forwards = len(gen.denoising_steps) + 1
     want_block = {"fp8_matmul": 6 * n * forwards, "flash_attention_prefix_quant": n * forwards,
-                  "quantize_rows_int8": 2 * n * forwards}
-    want_ctx = {k: v // forwards for k, v in want_block.items()}
+                  "quantize_rows_int8": 2 * n * forwards, **block_row_launches(gen)}
+    want_ctx = {k: v // forwards for k, v in want_block.items()}  # no head: 4 // 5 = 0
     blocks, ctx, starts, seg_latents = [], [], [], []
 
     def counted(real, into):
@@ -3439,7 +3795,8 @@ def continuous_phase(dev: torch.device, smi: str) -> dict:
             b.step()
             diff = count_diff(all_counts(), before)
             add_counts(path, diff)
-            per_step.append(diff.get("flash_attention_prefix_quant", 0))
+            per_step.append((diff.get("flash_attention_prefix_quant", 0),
+                             diff.get("rms_rows", 0)))
         for rid in list(b.streams):
             outs[rid] = torch.cat(b.retire(rid).outputs, dim=1)
         return outs, slots, per_step
@@ -3471,9 +3828,10 @@ def continuous_phase(dev: torch.device, smi: str) -> dict:
             ref = solo(cfg, frames, seed, prompts[slots[rid]])
             errs[rid], equal[rid] = rel_err(out, ref), torch.equal(out, ref)
         worst = max(worst, *errs.values())
-        want = cfg.model.num_layers * forwards
-        print(f"continuous {name}: {len(script)} steps at B=2 {secs:.3f} s, B2 launches a "
-              f"step {per_step} (want {want}), slots {slots}; each stream against itself "
+        # B2 and the q / k and cross-q RMS row kernels (per-stream rope tables)
+        want = (cfg.model.num_layers * forwards, 2 * cfg.model.num_layers * forwards)
+        print(f"continuous {name}: {len(script)} steps at B=2 {secs:.3f} s, (B2, rms_rows) "
+              f"launches a step {per_step} (want {want}), slots {slots}; each stream against itself "
               f"alone at B=1: rel err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
               f"(tol {STREAM_RTOL:g}), bit-equal {equal}; {smi}", flush=True)
         if per_step != [want] * len(script) or not all(v <= STREAM_RTOL for v in errs.values()):
@@ -3595,7 +3953,8 @@ def i2v_phase(dev: torch.device, smi: str, clip_features: torch.Tensor) -> dict:
     # cross-attention, whose float32 logits at 40 heads (383 MB) pass
     # cache_attention's 256 MiB limit of the plain path
     want_block = {"int8_matmul": 6 * n, "quantize_rows_int8": 3 * n, "adaln": 2 * n, "ln": n,
-                  "flash_attention_prefix": 2 * n}
+                  "flash_attention_prefix": 2 * n,
+                  **row_launches(m.num_layers, len(steps) + 1, len(steps), ln_prologues=False)}
 
     def forward(x, t_val, start, need_output=True):
         t = torch.full((1, fpb), t_val, device=dev)
@@ -6118,11 +6477,20 @@ def sp_rank_run(mesh, mode: str, kv: str) -> dict:
     return out
 
 
-def sp_expected(mode: str, kv: str, spec, rank: int, forwards: int, layers: int) -> list:
+def nonzero_rows(layers: int, forwards: int, ln_prologues: bool, qk: bool) -> dict:
+    """`row_launches` of a rerun block (the last forward without the head),
+    the kernels that launch none left out (as `since_reset` leaves them)."""
+    rows = row_launches(layers, forwards, forwards - 1, ln_prologues, qk)
+    return {k: v for k, v in rows.items() if v}
+
+
+def sp_expected(mode: str, kv: str, spec, rank: int, forwards: int, layers: int,
+                ln_prologues: bool = True, qk: bool = True) -> list:
     """The launches a block that the island's code implies for `rank`:
     ulysses one B1 / B2 a layer-forward; pass-q one a hop while the rank's
     own slot slice has a live token; pass-kv one for each rank's slice that
-    has one; the int8 cache's K and V quantized (B4) on each rank's rows."""
+    has one; the int8 cache's K and V quantized (B4) on each rank's rows;
+    the row kernels on each rank's shard (`nonzero_rows`)."""
     per = spec.slots // SP_SIZE
     attn = "flash_attention_prefix_quant" if kv == "int8" else "flash_attention_prefix"
     want = []
@@ -6138,6 +6506,7 @@ def sp_expected(mode: str, kv: str, spec, rank: int, forwards: int, layers: int)
         w = {attn: n * forwards * layers} if n else {}
         if kv == "int8":
             w["quantize_rows_int8"] = 2 * forwards * layers
+        w.update(nonzero_rows(layers, forwards, ln_prologues, qk))
         want.append(w)
     return want
 
@@ -6375,12 +6744,16 @@ def tp_expected(label: str, spec, sp_rank: int, forwards: int, layers: int) -> l
     B1 / B2 a layer-forward (pass-q: `sp_expected` of its sp rank); W8A8: 8
     int8 GEMMs a layer-forward (q, k, v unfused under tp; o, cross q, cross
     o, fc1, fc2), B4's two tp stages on o, cross o and fc2, the fused
-    prologues as on one card."""
+    prologues as on one card; the LN row kernels where the W8A8 prologues do
+    not take the LN, the RMS row kernel at tp 1 only (at tp > 1 the q / k
+    sums of squares are all-reduced by the plain chain)."""
     lay, mode, kv, batch, w8a8, blocks = TP_WAN_RUNS[label]
     if mode == "ring_pass_q":
-        return sp_expected(mode, kv, spec, sp_rank, forwards, layers)[:blocks]
+        return sp_expected(mode, kv, spec, sp_rank, forwards, layers, not w8a8,
+                           lay.tp == 1)[:blocks]
     lf = layers * forwards
-    want = {"flash_attention_prefix": lf}
+    want = {"flash_attention_prefix": lf, **nonzero_rows(layers, forwards, not w8a8,
+                                                          lay.tp == 1)}
     if w8a8:
         want.update(int8_matmul=8 * lf, row_absmax=3 * lf, quantize_rows_int8_given=3 * lf,
                     adaln=2 * lf, ln=lf)
@@ -6660,9 +7033,12 @@ def pp_wan_rank_run(mesh, label: str) -> dict:
 def pp_wan_expected(w8a8: bool, stage_layers_: int, forwards: int) -> dict:
     """The launches a block on a rank of pp 2 at B = 2: each of the 2
     microbatches through the stage's layers in each forward; W8A8: 6 int8
-    GEMMs a layer-forward (q, k, v fused), 3 B4 and 3 B5 (2 adaln, 1 ln)."""
+    GEMMs a layer-forward (q, k, v fused), 3 B4 and 3 B5 (2 adaln, 1 ln);
+    the row kernels a microbatch-layer as on one card, and the head's LN
+    once a denoise step over both rows (every stage ends with the output)."""
     lf = 2 * stage_layers_ * forwards
-    want = {"flash_attention_prefix": lf}
+    want = {"flash_attention_prefix": lf, "rms_rows": 2 * lf,
+            "ln_rows": (0 if w8a8 else 3 * lf) + forwards - 1}
     if w8a8:
         want.update(int8_matmul=6 * lf, quantize_rows_int8=3 * lf, adaln=2 * lf, ln=lf)
     return want
@@ -7092,8 +7468,9 @@ def main() -> None:
     t0 = time.perf_counter()
     entry = kernel_phase(dev)
     phase("kernels", t0)
+    row_entries = row_norm_phase(dev)
 
-    bf16_launches = main_path_phase(dev, main_path_config(args.blocks))
+    bf16_launches, bf16_rows = main_path_phase(dev, main_path_config(args.blocks))
 
     t0 = time.perf_counter()
     entries = [entry] + w8a8_kernel_phase(dev)
@@ -7195,7 +7572,10 @@ def main() -> None:
         e["launches"] += pipe[k]
     entries[3]["launches"] += pipe["adaln"] + pipe["ln"]
     tp_entry["launches"] = pipe.get("row_absmax", 0) + pipe.get("quantize_rows_int8_given", 0)
-    entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries + [tp_entry]
+    for e, k in zip(row_entries, ("ln_rows", "rms_rows")):
+        e["launches"] = sum(c.get(k, 0) for c in (bf16_rows, total, fp8_total, pipe,
+                                                  *paths.values()))
+    entries += kv_entries + vae_entries + [fp8_entry] + qattn_entries + [tp_entry] + row_entries
     print(f"launches on this slice's paths: {paths}; decode {decode}; encode {encode}; "
           f"pipeline {pipe}", flush=True)
     print(f"wall: {time.perf_counter() - t_all:.3f} s", flush=True)

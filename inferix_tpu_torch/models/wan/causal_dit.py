@@ -52,6 +52,7 @@ from ...kvcache.cache import (CrossAttnCache, KVCache, KVCacheSpec,
 from ...ops.attention import cache_attention
 from ...ops.norms import layer_norm
 from ...ops.rope import RopeTables, apply_rope, rope_angles, sinusoidal_embedding_1d
+from ...ops.row_norm import ln_rows, qk_rows_take, rms_rows, rope_cos_sin, rows_take
 from ...parallel.distributed_attention import sp_cache_attention, sp_write_block
 from ...parallel.mesh import (CacheShard, Mesh, SPMesh, as_mesh, frame_shard,
                               gather_frame_shards, wan_kv_cache_shard)
@@ -288,12 +289,17 @@ def block_forward(
     xattn_img: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # i2v image K/V
     sp: Optional["SPContext"] = None,  # sequence parallel: x is a frame shard
     tp: Optional[SPMesh] = None,  # tensor parallel: block is the rank's tp shard
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cos, sin of angles
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One transformer layer. Writes the block's K/V into `layer_cache` in
     place (quantizing it for an int8 cache, whose layer_cache then holds the
     scales too), then attends over the cache's live slots. With int8 weights,
     each norm prologue (LN + modulate, or the norm3 LN) is fused with its
-    linear's activation quantization. With `sp`, x holds this rank's frame
+    linear's activation quantization. On a CUDA bf16 x the row kernels
+    (`ops/row_norm.py`) run the other norm chains: LN + modulate and the
+    norm3 LN, and at tp 1 the q / k RMS norms with the rope (from `rope`,
+    the cos / sin tables of angles, taken here when None) and the cross q's
+    RMS norm. With `sp`, x holds this rank's frame
     shard of the tokens and layer_cache its shard of the cache: the write
     and the attention go through the sp island (kv_mask unused). With `tp`,
     block holds the rank's tp shard: its H / tp heads attend over its heads
@@ -320,16 +326,24 @@ def block_forward(
         # fused LN + modulate + quant: the modulated bf16 tensor is never written
         h_q, h_s = adaln_quant(x, shift_msa, scale_msa, cfg.eps)
         proj = [quantized_linear_prequant(sa[n], h_q, h_s, x.dtype) for n in names]
+    elif rows_take(x):
+        h_in = ln_rows(x, cfg.eps, shift=shift_msa, scale=scale_msa)
+        proj = [linear(sa[n], h_in) for n in names]
     else:
         h_in = _modulate(layer_norm(x, eps=cfg.eps), shift_msa, scale_msa, frames)
         proj = [linear(sa[n], h_in) for n in names]
     q_p, k_p, v_p = proj[0].chunk(3, dim=-1) if len(proj) == 1 else proj
-    # qk-norm: RMS over the whole width, before the head split and rope
-    q, k = rms_norms_tp(tp, (q_p, k_p), (sa["norm_q"]["w"], sa["norm_k"]["w"]), cfg.eps,
-                        cfg.dim)
     v = v_p.reshape(b, s, nh, hd)
-    q = apply_rope(q.reshape(b, s, nh, hd), angles)
-    k = apply_rope(k.reshape(b, s, nh, hd), angles)
+    # qk-norm: RMS over the whole width, before the head split and rope
+    wq, wk = sa["norm_q"]["w"], sa["norm_k"]["w"]
+    if (tp is None or tp.size == 1) and qk_rows_take(q_p, k_p, hd, wq, wk):
+        q, k = rms_rows((q_p, k_p), (wq, wk), cfg.eps,
+                        rope if rope is not None else rope_cos_sin(angles), hd)
+        q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd)
+    else:
+        q, k = rms_norms_tp(tp, (q_p, k_p), (wq, wk), cfg.eps, cfg.dim)
+        q = apply_rope(q.reshape(b, s, nh, hd), angles)
+        k = apply_rope(k.reshape(b, s, nh, hd), angles)
     if sp is not None:
         new_cache = sp_write_block(sp.mesh, sp.mode, spec, sp.shard, layer_cache, k, v,
                                    current_start, frames)
@@ -351,9 +365,15 @@ def block_forward(
     if use_fused_prologue(ca["q"]):
         hq2, hs2 = ln_quant(x.reshape(b * s, c), w3, b3, cfg.eps)
         cq = quantized_linear_prequant(ca["q"], hq2, hs2, x.dtype).reshape(b, s, c_loc)
+    elif rows_take(x, w3, b3):
+        cq = linear(ca["q"], ln_rows(x, cfg.eps, w3, b3))
     else:
         cq = linear(ca["q"], layer_norm(x, w3, b3, cfg.eps))
-    cq = rms_norm_tp(tp, cq, ca["norm_q"]["w"], cfg.eps, cfg.dim)
+    wcq = ca["norm_q"]["w"]
+    if (tp is None or tp.size == 1) and rows_take(cq, wcq):
+        cq = rms_rows((cq,), (wcq,), cfg.eps)[0]
+    else:
+        cq = rms_norm_tp(tp, cq, wcq, cfg.eps, cfg.dim)
     cq = cq.reshape(b, s, nh, hd)
     xa = cache_attention(cq, xattn_k, xattn_v)
     if xattn_img is not None:
@@ -373,7 +393,8 @@ def block_forward(
             y = quantized_ffn(ffn["fc1"], ffn["fc2"], x_q=hq3, x_scale=hs3,
                               out_dtype=x.dtype)
     else:
-        h_f = _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames)
+        h_f = (ln_rows(x, cfg.eps, shift=shift_mlp, scale=scale_mlp) if rows_take(x)
+               else _modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp, frames))
         if tp is not None:
             y = out_linear(ffn["fc2"], linear(ffn["fc1"], h_f), "gelu")
         else:
@@ -384,10 +405,14 @@ def block_forward(
 
 def head_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  e: torch.Tensor) -> torch.Tensor:
-    """Output head with 2-way modulation; e: [B, F, C] fp32."""
+    """Output head with 2-way modulation; e: [B, F, C] fp32. On a CUDA bf16
+    x the LN + modulate is one row kernel (`ops.row_norm.ln_rows`)."""
     mod = params["head"]["modulation"][None, None] + e[:, :, None, :]
-    h = _modulate(layer_norm(x, eps=cfg.eps), mod[:, :, 0], mod[:, :, 1],
-                  e.shape[1])
+    if rows_take(x):
+        h = ln_rows(x, cfg.eps, shift=mod[:, :, 0], scale=mod[:, :, 1])
+    else:
+        h = _modulate(layer_norm(x, eps=cfg.eps), mod[:, :, 0], mod[:, :, 1],
+                      e.shape[1])
     return linear(params["head"]["head"], h)
 
 
@@ -507,10 +532,13 @@ def dit_forward_inference(
                        current_end if isinstance(current_end, int) else current_end.cpu())
     else:
         kv_mask = valid_mask(spec, current_end, device=x.device)
+    # the rope's cos / sin tables, once a forward, where the layers' q / k row
+    # kernel can take them (tp 1, a CUDA bf16 stream)
+    rope = rope_cos_sin(angles) if statics.tp is None and rows_take(tokens) else None
     fields = [f for f in cache if f is not None]
     if statics.pp is not None:
         return _pipelined_forward(params, statics, tokens, e, e0, angles, xattn, fields,
-                                  current_start, kv_mask, need_output), cache
+                                  current_start, kv_mask, need_output, rope), cache
     h = tokens
     for lid in range(cfg.num_layers):
         img = (None if xattn.k_img is None
@@ -518,7 +546,7 @@ def dit_forward_inference(
         h, _ = block_forward(
             layer_params(params["blocks"], lid), cfg, spec, h, e0, angles,
             tuple(f[lid] for f in fields), xattn.k[lid], xattn.v[lid],
-            current_start, kv_mask, xattn_img=img, sp=sp, tp=statics.tp)
+            current_start, kv_mask, xattn_img=img, sp=sp, tp=statics.tp, rope=rope)
     if not need_output:
         return None, cache
     out = head_forward(params, cfg, h, e)
@@ -530,7 +558,9 @@ def dit_forward_inference(
 def _pipelined_forward(params: Params, statics: DiTStatics, tokens: torch.Tensor,
                        e: torch.Tensor, e0: torch.Tensor, angles: torch.Tensor,
                        xattn: CrossAttnCache, fields, current_start, kv_mask,
-                       need_output: bool) -> Optional[torch.Tensor]:
+                       need_output: bool,
+                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Optional[torch.Tensor]:
     """The layers through the stages (JAX `causal_dit.py:647-707`): the batch
     rows are the microbatches, each with its rows of the modulation, rope
     angles, start and mask; the stage's layers of the tree, the text /
@@ -545,11 +575,16 @@ def _pipelined_forward(params: Params, statics: DiTStatics, tokens: torch.Tensor
     def layer_fn(stk, state, h, i):
         row = slice(i, i + 1)
         img = (stk["xki"][row], stk["xvi"][row]) if "xki" in stk else None
+
+        def rows_of(t):  # per-stream [B, S, D/2] rope tensors: the microbatch's row
+            return t[row] if t.dim() == 3 else t
+
         h, _ = block_forward(
-            stk["block"], cfg, spec, h, e0[row], angles[row] if angles.dim() == 3 else angles,
+            stk["block"], cfg, spec, h, e0[row], rows_of(angles),
             tuple(f[row] for f in state), stk["xk"][row], stk["xv"][row],
             current_start[row] if per_row else current_start,
-            kv_mask[row] if kv_mask.dim() == 2 else kv_mask, xattn_img=img, tp=statics.tp)
+            kv_mask[row] if kv_mask.dim() == 2 else kv_mask, xattn_img=img, tp=statics.tp,
+            rope=None if rope is None else tuple(rows_of(t) for t in rope))
         return h, state
 
     outs, _ = pp_pipeline(statics.pp, layer_fn, stacked, tokens[:, None], layer_state=fields,

@@ -20,6 +20,7 @@ from inferix_tpu_torch import _build
 from inferix_tpu_torch.ops import act_quant as taq
 from inferix_tpu_torch.ops import flash_attention as tfa
 from inferix_tpu_torch.ops import halo_conv as thc
+from inferix_tpu_torch.ops import row_norm as trn
 from inferix_tpu_torch.quant import kernels as tk
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -213,6 +214,7 @@ _LOADERS = {
     "halo_conv": ("halo_conv", lambda: thc._library()),
     "gemm_sm90-fp8": ("gemm_sm90", lambda: tk._fp8_kernel()),
     "flash_attention_sm90-quant": ("flash_attention_sm90", lambda: tfa._lib_quant_sm90()),
+    "row_norm": ("row_norm", lambda: trn._lib()),
 }
 
 
